@@ -1,0 +1,66 @@
+"""CUDA kernel: EASI relative gradient + weight update.
+
+Replaces the Pallas TPU kernel `src/repro/kernels/easi_update.py`
+(`easi_apply` / `_kernel`):
+
+    G = (YᵀY/b − I)·so + (H − Hᵀ)·ho,   H = g(Y)ᵀY/b
+    B ← B − μ G B
+
+The kernel source is `csrc/easi_update.cu`; its header says what bounds it
+on the H100 and what its design does about that.  In short: two launches
+on one stream.  The TPU kernel computed G once into scratch on grid step 0
+and reused it across column tiles; CTAs share no scratch, so a first launch
+reduces G (f32, n × n) over the whole block inside each of its CTAs into a
+buffer this wrapper allocates, and a second computes B − μ G B tile by tile.
+One call of `easi_apply` is one launch in `launches`.
+
+For a CPU tensor the wrapper runs the plain version (`ref.easi_apply_ref`);
+for a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import easi_apply_ref
+
+launches = 0   # easi_apply kernel calls (G launch + update launch) in this process
+
+plain = easi_apply_ref
+
+G_KINDS = {"cubic": 0, "tanh": 1, "sign_cubic": 2}
+
+
+def easi_apply(b_mat: torch.Tensor, y: torch.Tensor, *, mu: float,
+               second_order: bool = True, higher_order: bool = True,
+               g_name: str = "cubic") -> torch.Tensor:
+    """Returns the updated B (n, m) in b_mat.dtype; y (b, n) is the block of
+    outputs the update is estimated from."""
+    global launches
+    if g_name not in G_KINDS:
+        raise ValueError(f"unknown nonlinearity {g_name!r}")
+    if b_mat.device.type == "cpu":
+        return plain(b_mat, y, mu=mu, second_order=second_order,
+                     higher_order=higher_order, g_name=g_name)
+    name = "easi_apply"
+    _build.check_cuda(name, b_mat, y)
+    if b_mat.ndim != 2 or y.ndim != 2 or b_mat.shape[0] != y.shape[1]:
+        raise ValueError(f"{name}: want b (n, m) and y (b, n), got {tuple(b_mat.shape)} "
+                         f"and {tuple(y.shape)}")
+    b_code, y_code = _build.dtype_code(name, b_mat), _build.dtype_code(name, y)
+    n, m = b_mat.shape
+    bsz = y.shape[0]
+    if bsz == 0:
+        raise ValueError(f"{name}: the block y holds no samples")
+    out = torch.empty_like(b_mat)
+    if out.numel() == 0:
+        return out
+    g_scratch = torch.empty((n, n), dtype=torch.float32, device=b_mat.device)
+    rc = _build.library().repro_easi_apply(
+        _build.ptr(y), _build.ptr(b_mat), _build.ptr(g_scratch), _build.ptr(out),
+        bsz, n, m, float(mu), 1.0 / bsz, int(second_order), int(higher_order),
+        G_KINDS[g_name], y_code, b_code, _build.stream(b_mat))
+    _build.raise_on_error(name, rc)
+    launches += 1
+    return out

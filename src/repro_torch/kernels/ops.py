@@ -1,0 +1,48 @@
+"""Public entry points to the kernels, as the DR layers call them.
+
+Each kernel wrapper runs its plain PyTorch version for CPU tensors and the
+CUDA kernel for CUDA tensors.  This layer makes the operands contiguous,
+keeps the normalized EASI variant on the plain path (as the JAX package
+does) and composes the EASI step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import easi_update as _easi_kernel
+from repro_torch.kernels import fused_transform as _fused_kernel
+from repro_torch.kernels import ternary_matmul as _tmm_kernel
+
+
+def ternary_matmul(x: torch.Tensor, r_int8: torch.Tensor, *, scale: float = 1.0):
+    return _tmm_kernel.ternary_matmul(x.contiguous(), r_int8.contiguous(), scale=scale)
+
+
+def fused_transform(x: torch.Tensor, r_int8: torch.Tensor, b_mat: torch.Tensor, *,
+                    scale: float = 1.0):
+    """Fused project + whiten: (scale · x Rᵀ) Bᵀ in one kernel (the serve
+    transform hot path)."""
+    return _fused_kernel.fused_transform(x.contiguous(), r_int8.contiguous(),
+                                         b_mat.contiguous(), scale=scale)
+
+
+def easi_apply(b_mat: torch.Tensor, y: torch.Tensor, cfg):
+    """Apply one EASI update given precomputed outputs y (b, n)."""
+    if cfg.normalized:
+        # The normalized variant divides by data-dependent scalars; it stays
+        # on the plain path (it is not the datapath the paper builds).
+        from repro_torch.core import easi as easi_mod
+
+        g = easi_mod.relative_gradient(y, cfg)
+        return b_mat - cfg.mu * (g @ b_mat)
+    return _easi_kernel.easi_apply(
+        b_mat.contiguous(), y.contiguous(), mu=cfg.mu, second_order=cfg.second_order,
+        higher_order=cfg.higher_order, g_name=cfg.g)
+
+
+def easi_update(b_mat: torch.Tensor, h_block: torch.Tensor, cfg):
+    """Full step: y = h Bᵀ (a plain matmul, as XLA computed it outside any
+    Pallas kernel), then the fused gradient + update kernel."""
+    y = h_block.to(b_mat.dtype) @ b_mat.T
+    return easi_apply(b_mat, y, cfg)

@@ -19,6 +19,18 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 update + transform through the kernels, then each kernel
                 timed beside its plain version, a cuBLAS yardstick and its
                 bound
+  5. flash    — the flash-attention kernel against its plain version (the
+                reference tests' shapes, Dh 120, GQA 4, SWA, q_offset with
+                Sq = 1, odd Skv; f32 and bf16; rows that see no key are 0)
+  6. lm       — h2o-danube-3-4b at full width and depth (24 layers, seeded
+                random weights) served through `serve_step.make_prefill` /
+                `make_decode` with the kernel backend: request A (4 prompts
+                of 1024 tokens, 16 greedy decode steps) and request B (one
+                prompt of 4608 tokens, past the 4096 window, 4 decode
+                steps); the same requests on the torch backend, teacher-
+                forced with the kernel run's tokens, are the reference; then
+                the kernel timed at request A's prefill shape beside its
+                plain version, scaled_dot_product_attention and its bound
 
 It prints a `{"kernels": [...]}` JSON line, the card's line from nvidia-smi,
 and as its last line `{"ok": true, "device": {...}}`.  It imports nothing of
@@ -37,8 +49,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores and HBM rate
+# H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores, bf16 on the
+# tensor cores, and HBM rate
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -57,6 +71,33 @@ SO_HO = [(True, True), (True, False), (False, True)]
 
 WIDE = dict(m=1024, p=256, n=128, block=256)    # benchmarks/throughput.py:41
 PAPER = dict(m=32, p=24, n=16, block=32, mu=2e-4, epochs=40)  # configs/waveform_paper.py
+
+FLASH_TOL = {"f32": dict(rtol=2e-5, atol=2e-5),  # tests/test_flash_kernel.py:37
+             "bf16": dict(rtol=2e-2, atol=2e-2)}
+# (b, sq, skv, hq, hkv, dh, causal, window): tests/test_flash_kernel.py:11-18,
+# tests/test_blocks.py:31-38, then the LM's own heads (dh 120, GQA 4)
+FLASH_SHAPES = [
+    (1, 128, 128, 4, 2, 64, True, None), (2, 96, 96, 4, 4, 32, True, None),
+    (1, 256, 256, 8, 2, 128, True, 64), (2, 64, 64, 9, 3, 64, False, None),
+    (1, 1, 160, 4, 1, 64, True, None),
+    (2, 64, 64, 4, 2, 16, True, None), (1, 100, 100, 6, 2, 8, True, None),
+    (3, 48, 48, 4, 4, 16, False, None), (2, 96, 96, 8, 2, 16, True, 24),
+    (2, 32, 32, 9, 3, 8, True, None), (1, 80, 80, 4, 1, 32, True, 16),
+    (1, 70, 133, 8, 2, 120, True, 48), (2, 333, 333, 32, 8, 120, True, None),
+    (1, 1, 4099, 32, 8, 120, True, 4096), (1, 600, 5001, 32, 8, 120, True, 4096),
+]
+# h2o-danube-3-4b (src/repro/configs/h2o_danube3_4b.py): request A and B
+LM_ARCH = "h2o_danube3_4b"
+LM_REQUESTS = {"A": dict(batch=4, prompt=1024, decode=16, cache=1040),
+               "B": dict(batch=1, prompt=4608, decode=4, cache=4612)}
+# kernel backend against torch backend on the LM's logits, bf16 over 24 layers:
+# the two backends differ only in attention's f32 summation order, which flips
+# the last bit of some bf16 outputs; each flip is carried through the residual
+# stream of the later layers.  The reference's own bf16 bound, 2e-2
+# (tests/test_arch_smoke.py:101), is held on the norm of each logits row, and
+# every single logit within 0.125 = 16 bf16 ulps at |logit| ~ 1.
+LM_REL_NORM = 2e-2
+LM_MAX_ABS = 0.125
 
 
 class SmokeFailure(Exception):
@@ -479,6 +520,251 @@ def phase_wide(dev, errs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 5: flash attention against its plain version
+# ---------------------------------------------------------------------------
+
+def phase_flash(dev, errs):
+    import torch
+    from repro_torch.kernels import flash_attention
+
+    gen = torch.Generator().manual_seed(4321)
+
+    def qkv(b, sq, skv, hq, hkv, dh, dtype):
+        return [torch.randn(s, generator=gen).to(dtype).to(dev)
+                for s in ((b, sq, hq, dh), (b, skv, hkv, dh), (b, skv, hkv, dh))]
+
+    fa, plain = flash_attention.flash_attention, flash_attention.plain
+    n_checks = 0
+    for (b, sq, skv, hq, hkv, dh, causal, window) in FLASH_SHAPES:
+        q_offset = skv - sq if causal and sq < skv else 0
+        for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            err = check_close(f"flash_attention {(b, sq, skv, hq, hkv, dh, causal, window)} "
+                              f"q_offset={q_offset} {dtype}", fa(q, k, v, **kw),
+                              plain(q, k, v, **kw), **FLASH_TOL[key])
+            errs[("flash_attention", key)] = max(errs.get(("flash_attention", key), 0.0), err)
+            n_checks += 1
+    # rows that see no key: q at 14..21 over 16 keys, causal, window 4 (rows
+    # 5..7 see none), and q at 100 (every row blind)
+    for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q, k, v = qkv(2, 8, 16, 4, 2, 120, dtype)
+        for q_offset, blind in ((14, slice(5, 8)), (100, slice(0, 8))):
+            kw = dict(causal=True, window=4, q_offset=q_offset)
+            got, want = fa(q, k, v, **kw), plain(q, k, v, **kw)
+            for name, out in (("kernel", got), ("plain", want)):
+                if bool(out[:, blind].to(torch.float32).any()):
+                    fail(f"flash_attention: {name} gives rows that see no key a value "
+                         f"(q_offset={q_offset}, {dtype})")
+            check_close(f"flash_attention rows with keys, q_offset={q_offset} {dtype}", got,
+                        want, **FLASH_TOL[key])
+            n_checks += 1
+    torch.cuda.synchronize()
+    print(f"[kernels] flash_attention: {n_checks} checks against the plain version passed "
+          f"(rows that see no key are 0 in both); largest |err| f32 "
+          f"{errs[('flash_attention', 'f32')]:.3e}, bf16 {errs[('flash_attention', 'bf16')]:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: h2o-danube-3-4b served through the kernels at full width and depth
+# ---------------------------------------------------------------------------
+
+def logits_diff(what: str, got, want):
+    """Largest relative row norm of got − want and largest |got − want|;
+    fails beyond LM_REL_NORM or LM_MAX_ABS, or on a non-finite value."""
+    import torch
+
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    if got.shape != want.shape:
+        fail(f"{what}: shape {tuple(got.shape)}, want {tuple(want.shape)}")
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{what}: non-finite logits")
+    rel = float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+    mx = float((g - w).abs().max())
+    if rel > LM_REL_NORM or mx > LM_MAX_ABS:
+        fail(f"{what}: kernel vs torch backend: relative row norm {rel:.3e} (bound "
+             f"{LM_REL_NORM}), max |err| {mx:.3e} (bound {LM_MAX_ABS})")
+    return rel, mx
+
+
+def phase_lm(dev):
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.execution import Execution
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import api
+    from repro_torch.serve import serve_step
+
+    cfg = registry.get(LM_ARCH)
+    kexe, texe = Execution(backend="kernel", device=dev), Execution(backend="torch", device=dev)
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg, execution=kexe)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params["layers"].values()) + sum(
+        t.numel() for k, t in params.items() if k != "layers")
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} (dh {cfg.dh}), d_ff {cfg.d_ff}, vocab "
+          f"{cfg.padded_vocab}, window {cfg.sliding_window}; {n_params} f32 params drawn on "
+          f"the card in {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = {r: torch.randint(0, cfg.vocab_size, (spec["batch"], spec["prompt"]),
+                                generator=gen, device=dev, dtype=torch.int32)
+               for r, spec in LM_REQUESTS.items()}
+
+    def serve(exe, name, forced=None):
+        """One request: prefill, then greedy decode (or the given tokens)."""
+        spec = LM_REQUESTS[name]
+        batch = {"tokens": prompts[name]}
+        marks = [flash_attention.launches]
+        prefill = serve_step.make_prefill(cfg, None, params, batch, spec["cache"],
+                                          execution=exe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        marks.append(flash_attention.launches)
+        decode = serve_step.make_decode(cfg, None, params, cache, execution=exe)
+        outs, toks = [logits], []
+        t0 = time.perf_counter()
+        for i in range(spec["decode"]):
+            tok = (logits.argmax(-1) if forced is None else forced[i]).to(torch.int32)
+            toks.append(tok)
+            logits, cache = decode(params, tok, cache)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        t_decode = (time.perf_counter() - t0) / spec["decode"]
+        marks.append(flash_attention.launches)
+        if int(cache["pos"]) != spec["prompt"] + spec["decode"]:
+            fail(f"lm request {name}: cache pos {int(cache['pos'])}")
+        return dict(logits=outs, tokens=toks, cache=cache, t_prefill=t_prefill,
+                    t_decode=t_decode, launches={"prefill": marks[1] - marks[0],
+                                                 "decode": marks[2] - marks[1]})
+
+    for exe in (kexe, texe):              # warm-up: first calls, allocator growth
+        for name in LM_REQUESTS:
+            serve(exe, name)
+    reset_counts()
+    flash_attention.launches = 0
+    kern = {name: serve(kexe, name) for name in LM_REQUESTS}
+    counts = dict(read_counts(), flash_attention=flash_attention.launches)
+    ref = {name: serve(texe, name, forced=kern[name]["tokens"]) for name in LM_REQUESTS}
+
+    worst = (0.0, 0.0)
+    for name, spec in LM_REQUESTS.items():
+        k, t = kern[name], ref[name]
+        for i, (gk, gt) in enumerate(zip(k["logits"], t["logits"])):
+            if tuple(gk.shape) != (spec["batch"], cfg.padded_vocab):
+                fail(f"lm request {name}: logits shape {tuple(gk.shape)}")
+            step = "prefill" if i == 0 else f"decode {i}"
+            rel, mx = logits_diff(f"lm request {name} {step}", gk, gt)
+            worst = (max(worst[0], rel), max(worst[1], mx))
+        for leaf in ("k", "v"):
+            kc, tc = k["cache"][leaf].to(torch.float32), t["cache"][leaf].to(torch.float32)
+            rel = float((kc - tc).norm() / tc.norm())
+            if not bool(torch.isfinite(kc).all()) or rel > LM_REL_NORM:
+                fail(f"lm request {name}: cache {leaf} relative norm {rel:.3e}")
+        if k["launches"]["prefill"] != cfg.n_layers or k["launches"]["decode"] != 0:
+            fail(f"lm request {name}: flash launches {k['launches']}, want "
+                 f"{cfg.n_layers} per prefill and none in decode")
+        agree = sum(bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+                    for a, b in zip(k["logits"], t["logits"]))
+        print(f"[lm] request {name} ({spec['batch']} x {spec['prompt']} tokens, "
+              f"{spec['decode']} decode steps, cache {spec['cache']} -> "
+              f"{tuple(k['cache']['k'].shape)}): prefill {k['t_prefill'] * 1e3:.1f} ms "
+              f"kernel / {t['t_prefill'] * 1e3:.1f} ms torch; decode step "
+              f"{k['t_decode'] * 1e3:.2f} ms kernel / {t['t_decode'] * 1e3:.2f} ms torch; "
+              f"flash launches {json.dumps(k['launches'])}; greedy tokens agree at "
+              f"{agree}/{len(k['logits'])} steps")
+    if counts["flash_attention"] <= 0:
+        fail("lm: the flash kernel never launched on the LM path")
+    print(f"[lm] kernel vs torch backend: largest relative row norm {worst[0]:.3e} (bound "
+          f"{LM_REL_NORM}), largest |err| {worst[1]:.3e} (bound {LM_MAX_ABS}); launches on "
+          f"the LM path {json.dumps(counts)}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    by_entry = {name: kern[name]["launches"] for name in LM_REQUESTS}
+    steps = {f"{name}_{backend}": {"prefill_ms": run[name]["t_prefill"] * 1e3,
+                                   "decode_step_ms": run[name]["t_decode"] * 1e3}
+             for backend, run in (("kernel", kern), ("torch", ref)) for name in LM_REQUESTS}
+
+    # device-only times of request A's steps (CUDA graph replay): with the
+    # host-paced times above they give the device's idle share of a step
+    spec = LM_REQUESTS["A"]
+    batch = {"tokens": prompts["A"]}
+    tok = torch.zeros((spec["batch"],), dtype=torch.int32, device=dev)
+    for backend, exe, run in (("kernel", kexe, kern), ("torch", texe, ref)):
+        prefill = serve_step.make_prefill(cfg, None, params, batch, spec["cache"], execution=exe)
+        cache = run["A"]["cache"]
+        decode = serve_step.make_decode(cfg, None, params, cache, execution=exe)
+        row = steps[f"A_{backend}"]
+        row["prefill_device_ms"] = time_graph(lambda: prefill(params, batch), 1, 3)
+        row["decode_step_device_ms"] = time_graph(lambda: decode(params, tok, cache), 1, 5)
+        print(f"[lm-time] request A, {backend} backend: prefill {row['prefill_ms']:.1f} ms "
+              f"host-paced, {row['prefill_device_ms']:.1f} ms on the device alone; decode step "
+              f"{row['decode_step_ms']:.2f} ms host-paced, {row['decode_step_device_ms']:.2f} ms "
+              f"on the device alone (idle share "
+              f"{1 - row['decode_step_device_ms'] / row['decode_step_ms']:.2f})")
+    return counts["flash_attention"], by_entry, steps, worst
+
+
+def flash_timing(dev, errs):
+    """The flash kernel at request A's prefill shape, beside its plain
+    version, the library's SDPA (timed only) and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention
+
+    cfg = registry.get(LM_ARCH)
+    spec = LM_REQUESTS["A"]
+    b, s, hq, hkv, dh = spec["batch"], spec["prompt"], cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    gen = torch.Generator().manual_seed(99)
+    q, k, v = [torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+               for shape in ((b, s, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh))]
+    kern = lambda: flash_attention.flash_attention(q, k, v, causal=True)
+    plain = lambda: flash_attention.plain(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                                          kv_chunk=cfg.kv_chunk)
+    g = hq // hkv
+    qs, ks, vs = (q.transpose(1, 2), k.repeat_interleave(g, dim=2).transpose(1, 2),
+                  v.repeat_interleave(g, dim=2).transpose(1, 2))
+    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    want = plain()
+    err = check_close("flash_attention at the request A shape", kern(), want,
+                      **FLASH_TOL["bf16"])
+    lib_err = max_err(lib().transpose(1, 2), want)
+    ms, plain_ms, lib_ms = time_events(kern, 20, 3), time_events(plain, 20, 3), \
+        time_events(lib, 20, 3)
+    dev_ms, plain_dev_ms, lib_dev_ms = (time_graph(kern, 10, 3), time_graph(plain, 10, 3),
+                                        time_graph(lib, 10, 3))
+    ms2 = time_events(kern, 20, 3)
+    pairs = b * hq * s * (s + 1) // 2            # visible (query, key) pairs, causal
+    flops = 4.0 * dh * pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    bms, bby = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    shape = [b, s, hq, hkv, dh]
+    print(f"[time] flash_attention {shape} bf16 causal: kernel {ms:.4f} ms ({ms2:.4f} again), "
+          f"device-only {dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} TFLOP/s); plain "
+          f"{plain_ms:.4f} ms (device {plain_dev_ms:.4f}); SDPA {lib_ms:.4f} ms (device "
+          f"{lib_dev_ms:.4f}; max |err| against the plain version {lib_err:.3e}); bound "
+          f"{bms:.6f} ms ({bby})")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:83",
+        "launches": None, "max_abs_err": err,
+        "max_abs_err_sweep_f32": errs.get(("flash_attention", "f32")),
+        "max_abs_err_sweep_bf16": errs.get(("flash_attention", "bf16")),
+        "ms": ms, "ms_repeat": ms2, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+        "library_ms": lib_ms, "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+        "library_device_ms": lib_dev_ms, "library_max_abs_err": lib_err,
+        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True) on "
+                   "(B, H, S, Dh) views with K/V repeated over the GQA group",
+        "shape": shape, "dtype": "bfloat16", "flops": flops, "bytes": nbytes,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -503,19 +789,26 @@ def main() -> int:
         phase_kernels(dev, errs)
         counts, paper_times = phase_paper(dev)
         rows = phase_wide(dev, errs)
+        phase_flash(dev, errs)
+        lm_launches, lm_by_entry, lm_steps, lm_worst = phase_lm(dev)
+        flash_row = flash_timing(dev, errs)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     for row in rows:
         row["launches"] = counts[row["name"]]
         row["paper"] = paper_times[row["name"]]
+    flash_row.update(launches=lm_launches, launches_by_request=lm_by_entry,
+                     lm_max_rel_norm=lm_worst[0], lm_max_abs_err=lm_worst[1])
+    rows.append(flash_row)
     print(f"[paper-steps] {json.dumps({k: paper_times[k] for k in ('update', 'transform', 'transform_1000')})}")
+    print(f"[lm-steps] {json.dumps(lm_steps)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+                                             "count": 1}}))
     return 0
 
 

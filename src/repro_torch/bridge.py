@@ -1,11 +1,16 @@
-"""numpy ↔ torch for model states.
+"""numpy ↔ torch for model states and LM parameters.
 
 PyTorch cannot reproduce the JAX package's random draws, so a state made
-there (R, B₀ or a whole `ModelState`) crosses over as numpy arrays: the
-reference state's leaves go through `numpy.asarray`, and `from_reference`
-loads them into a port `ModelState`; `to_numpy` turns a port state back
+there (R, B₀, a whole `ModelState`, or an LM's parameter pytree) crosses
+over as numpy arrays: the reference's leaves go through `numpy.asarray`,
+`from_reference` loads them into a port `ModelState` and
+`params_from_reference` into the port's parameter dict (same keys, same
+stacked `[L, ...]` layout); `to_numpy` and `params_to_numpy` turn them back
 into numpy leaves.  Only the attributes `stages`, `steps` and `trainable`
-of the source object are read, so nothing of the JAX package is imported.
+of a source state are read, so nothing of the JAX package is imported.
+
+Like every entry point of the port, the loaders put tensors on the card
+unless the caller passes `device="cpu"`; with no card they raise.
 """
 
 from __future__ import annotations
@@ -15,17 +20,19 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.execution import resolve_device
 from repro_torch.dr.model import ModelState
 
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
+def to_tensor(a, device="cuda") -> torch.Tensor:
     """numpy array (or array-like) → tensor on `device`.  A bfloat16 numpy
     array (the ml_dtypes type JAX hands out) crosses bit for bit.  The data
     is copied: the tensor never shares memory with the source."""
+    dev = resolve_device(device)
     arr = np.array(a, copy=True, order="C")
     if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(arr).to(device)
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
 
 
 def to_array(t: torch.Tensor) -> np.ndarray:
@@ -36,7 +43,7 @@ def to_array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def from_reference(ref_state: Any, *, device="cpu") -> ModelState:
+def from_reference(ref_state: Any, *, device="cuda") -> ModelState:
     """A port `ModelState` holding the reference state's arrays."""
     stages = tuple(None if s is None else to_tensor(s, device) for s in ref_state.stages)
     steps = torch.tensor(int(np.asarray(ref_state.steps)), dtype=torch.int32)
@@ -47,3 +54,25 @@ def to_numpy(state: ModelState) -> Tuple[Tuple[Any, ...], np.int32, Any]:
     """(stages as numpy arrays, steps as np.int32, trainable mask)."""
     stages = tuple(None if s is None else to_array(s) for s in state.stages)
     return stages, np.int32(int(state.steps)), state.trainable
+
+
+def params_from_reference(tree: Any, *, device="cuda") -> Any:
+    """The port's parameter dict from a reference pytree of arrays (nested
+    dicts, lists and tuples, as `jax.tree.map(numpy.asarray, params)`
+    gives): the same keys, each leaf through `to_tensor`."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device=dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_reference(v, device=dev) for v in tree)
+    return to_tensor(tree, dev)
+
+
+def params_to_numpy(params: Any) -> Any:
+    """The port's parameter dict (or any nested dict / list of tensors, a
+    kv cache for instance) as numpy leaves, through `to_array`."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to_numpy(v) for v in params)
+    return to_array(params)

@@ -1,6 +1,8 @@
-"""Execution policy: which backend runs the DR datapath, and on which device.
+"""Execution policy: which backend runs the DR datapath and the LM's
+attention, and on which device.
 
-One frozen object, resolved once when a `repro_torch.dr.DRModel` is built:
+One frozen object, resolved once when a `repro_torch.dr.DRModel` is built,
+or passed to each LM entry point (`repro_torch.models.api`):
 
     backend="torch"   — plain PyTorch ops (reference semantics everywhere)
     backend="kernel"  — the hand-written CUDA kernels (`repro_torch.kernels`)

@@ -1,15 +1,19 @@
-"""Hand-written CUDA kernels (sm_90a) for the DR datapath's hot spots:
+"""Hand-written CUDA kernels (sm_90a) for the DR datapath's and the LM's hot
+spots:
 
   ternary_matmul  — int8 ternary RP product  scale · x Rᵀ
   fused_transform — fused project + whiten serve transform (scale·xRᵀ)Bᵀ
   easi_update     — EASI relative gradient + weight update (easi_apply)
-  ops             — the entry points the DR layers call
+  flash_attention — online-softmax attention forward (causal / SWA / GQA)
+  ops             — the entry points the DR and LM layers call
   ref             — plain PyTorch versions (the CPU path and the ground truth)
 
 Sources live in `csrc/`; `_build` compiles them with nvcc at first use and
 loads them through ctypes.  Importing this package builds nothing.
 """
 
-from repro_torch.kernels import easi_update, fused_transform, ops, ref, ternary_matmul
+from repro_torch.kernels import (easi_update, flash_attention, fused_transform, ops, ref,
+                                 ternary_matmul)
 
-__all__ = ["easi_update", "fused_transform", "ops", "ref", "ternary_matmul"]
+__all__ = ["easi_update", "flash_attention", "fused_transform", "ops", "ref",
+           "ternary_matmul"]

@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("ternary_matmul.cu", "fused_transform.cu", "easi_update.cu", "errors.cu")
+SOURCES = ("ternary_matmul.cu", "fused_transform.cu", "easi_update.cu",
+           "flash_attention.cu", "errors.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -39,6 +40,7 @@ _SIGNATURES = {
     "repro_ternary_matmul": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     "repro_fused_transform": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     "repro_easi_apply": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,69 @@
+"""CUDA kernel: flash attention forward (causal / sliding-window / GQA).
+
+Replaces the Pallas TPU kernel `src/repro/kernels/flash_attention.py`
+(`flash_attention_fwd` / `_kernel`).  The kernel source is
+`csrc/flash_attention.cu`; its header says what bounds it on the H100 and
+what its design does about that.  In short: one CTA per (batch, query
+head, 64-row query tile) loops over the kv tiles that tile can see,
+keeping the online-softmax state (m, l, acc) in registers, with f32
+accumulation and p rounded to v's dtype before the p·v product.
+
+Masked entries get p = 0, so a row that sees no key returns 0 here and in
+the plain version (`ref.flash_attention_ref`); every row that sees a key
+gets the reference's value.
+
+For a CPU tensor the wrapper runs the plain version; for a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_attention_ref
+
+launches = 0   # kernel launches made by `flash_attention` in this process
+
+plain = flash_attention_ref
+
+MAX_DH = 128   # the widest head the kernel's tiles hold
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """out (B, Sq, Hq, Dh) in q.dtype from q (B, Sq, Hq, Dh) and k, v
+    (B, Skv, Hkv, Dh); query row r sits at position q_offset + r."""
+    global launches
+    if q.device.type == "cpu":
+        return plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    name = "flash_attention"
+    _build.check_cuda(name, q, k, v)
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: want q (B, Sq, Hq, Dh) and k, v (B, Skv, Hkv, Dh), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, hq, dh = q.shape
+    _, skv, hkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != dh or hq % hkv != 0:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match k/v {tuple(k.shape)} "
+                         f"(same B and Dh, Hq a multiple of Hkv)")
+    if dh > MAX_DH:
+        raise ValueError(f"{name}: head dim {dh} > {MAX_DH} is not supported by the kernel")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k, v must share a dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    code = _build.dtype_code(name, q)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    rc = _build.library().repro_flash_attention(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), b, sq, skv, hq, hkv, dh,
+        int(causal), -1 if window is None else int(window), int(q_offset),
+        1.0 / math.sqrt(dh), code, _build.stream(q))
+    _build.raise_on_error(name, rc)
+    launches += 1
+    return out

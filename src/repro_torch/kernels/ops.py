@@ -1,4 +1,4 @@
-"""Public entry points to the kernels, as the DR layers call them.
+"""Public entry points to the kernels, as the DR and LM layers call them.
 
 Each kernel wrapper runs its plain PyTorch version for CPU tensors and the
 CUDA kernel for CUDA tensors.  This layer makes the operands contiguous,
@@ -8,9 +8,12 @@ does) and composes the EASI step.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import easi_update as _easi_kernel
+from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import fused_transform as _fused_kernel
 from repro_torch.kernels import ternary_matmul as _tmm_kernel
 
@@ -46,3 +49,13 @@ def easi_update(b_mat: torch.Tensor, h_block: torch.Tensor, cfg):
     Pallas kernel), then the fused gradient + update kernel."""
     y = h_block.to(b_mat.dtype) @ b_mat.T
     return easi_apply(b_mat, y, cfg)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Flash attention forward: q (B, Sq, Hq, Dh), k/v (B, Skv, Hkv, Dh) ->
+    (B, Sq, Hq, Dh).  The kernel reads the (B, S, H, Dh) layout as it is, so
+    no head-major copy is made; the operands are only made contiguous."""
+    return _flash_kernel.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         causal=causal, window=window, q_offset=q_offset)

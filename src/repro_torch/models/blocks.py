@@ -1,0 +1,166 @@
+"""Shared model building blocks, the serving subset: norms, RoPE, attention
+(prefill and decode), the dense MLP and the param-init helpers.
+
+Plain functions over tensors and parameter dicts, mirroring the JAX
+package's `models/blocks.py` and its (B, S, H, Dh) attention layout.
+`flash_attention` is the forward pass only: with `backend="kernel"` it goes
+through the hand-written CUDA kernel (`kernels.ops.flash_attention`; the
+plain version for CPU tensors), otherwise through the plain double-chunked
+version (`kernels.ref.flash_attention_ref`).  MoE, the chunked
+cross-entropy and the attention backward are not ported yet (ROADMAP A9b,
+A9g).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
+
+
+# ---------------------------------------------------------------------------
+# norms / activations
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * w.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.silu's own ops, x · 1/(1 + e^−x), each rounded to x's dtype as
+    # the reference rounds them in bf16 (F.silu rounds once, which moves
+    # about a third of bf16 outputs by one ulp)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    return {"silu": _silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(dh: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32, device=device) / dh))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x (..., S, H, Dh), positions (..., S) int; rotates the two halves of
+    Dh (not interleaved pairs), in f32."""
+    dh = x.shape[-1]
+    freqs = rope_frequencies(dh, theta, device=x.device)            # (dh/2,)
+    angles = positions[..., None].to(torch.float32) * freqs         # (..., S, dh/2)
+    cos = torch.cos(angles)[..., None, :]                            # (..., S, 1, dh/2)
+    sin = torch.sin(angles)[..., None, :]
+    x32 = x.to(torch.float32)
+    x1, x2 = x32[..., : dh // 2], x32[..., dh // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(
+    q: torch.Tensor,            # (B, Sq, Hq, Dh)
+    k: torch.Tensor,            # (B, Skv, Hkv, Dh)
+    v: torch.Tensor,            # (B, Skv, Hkv, Dh)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+    backend: str = "torch",
+) -> torch.Tensor:
+    """Online-softmax attention forward, GQA without repeating K/V.
+
+    `backend="kernel"` runs the CUDA kernel on a CUDA tensor (its tiles
+    replace the chunk sizes); otherwise the plain version runs with chunks
+    of `q_chunk` × `kv_chunk`, which never materialises the S × S scores."""
+    if backend == "kernel":
+        return ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+
+def decode_attention(
+    q: torch.Tensor,            # (B, 1, Hq, Dh_k)
+    k_cache: torch.Tensor,      # (B, S, Hkv, Dh_k)
+    v_cache: torch.Tensor,      # (B, S, Hkv, Dh_v)
+    cache_len: int,             # valid prefix length
+    *,
+    window: Optional[int] = None,
+    scale_dh: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-token attention over a (ring-buffered) KV cache, in f32."""
+    b, s, hkv, dh = k_cache.shape
+    hq = q.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(scale_dh or dh)
+    qg = q.reshape(b, hkv, g, dh).to(torch.float32)
+    pos = torch.arange(s, device=q.device)
+    valid = pos < cache_len
+    if window is not None:
+        valid &= pos >= cache_len - window
+    s_ = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.to(torch.float32)) * scale
+    s_ = torch.where(valid, s_, NEG_INF)
+    p = torch.softmax(s_, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(torch.float32))
+    return out.reshape(b, 1, hq, v_cache.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense MLP (SwiGLU-style, or the plain 2-matrix MLP)
+# ---------------------------------------------------------------------------
+
+def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, act: str) -> torch.Tensor:
+    if "w_gate" in params:
+        h = act_fn(act)(x @ params["w_gate"]) * (x @ params["w_in"])
+    else:  # plain 2-matrix MLP (starcoder2-style)
+        h = act_fn(act)(x @ params["w_in"])
+    return h @ params["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# param init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """N(0, 1/d_in) (or N(0, scale²)) draws on the generator's device."""
+    s = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=gen.device)
+    return (w * s).to(dtype)
+
+
+def stacked(layer_fn: Callable[[int], Dict[str, torch.Tensor]], n: int
+            ) -> Dict[str, torch.Tensor]:
+    """Stack per-layer inits along a leading `layers` axis.  The stacked
+    tensors are allocated once and filled layer by layer, so at most one
+    layer's leaves exist twice."""
+    first = layer_fn(0)
+    out = {name: torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+           for name, t in first.items()}
+    for name, t in first.items():
+        out[name][0] = t
+    del first
+    for i in range(1, n):
+        for name, t in layer_fn(i).items():
+            out[name][i] = t
+    return out

@@ -64,7 +64,7 @@ CONFIGS = ["easi_n16", "rp24_easi_n16", "whiten_n16", "rp24_whiten16_rot8"]
 def test_fit_transform_update_match_reference(name, backend):
     jm, tm = _models(name, backend)
     j0 = jm.init(jax.random.PRNGKey(0))
-    t0 = bridge.from_reference(j0)
+    t0 = bridge.from_reference(j0, device="cpu")
     x = _data()
 
     jf = jm.fit(j0, jnp.asarray(x), epochs=2)
@@ -154,7 +154,7 @@ def test_bf16_state_crosses_bit_for_bit():
     jm = jdr.DRModel(stages=j_stages, block_size=block,
                      execution=jdr.Execution(dtype=jnp.bfloat16))
     js = jm.init(jax.random.PRNGKey(3))
-    ts = bridge.from_reference(js)
+    ts = bridge.from_reference(js, device="cpu")
     assert ts.b.dtype == torch.bfloat16
     np.testing.assert_array_equal(bridge.to_array(ts.b), np.asarray(js.b, np.float32))
 

@@ -40,7 +40,7 @@ def _ternary(rng, p, m):
 def _pair(a, dtype):
     """The same values as a jax array and a CPU tensor (bf16 bits shared)."""
     j = jnp.asarray(a, dtype)
-    return j, bridge.to_tensor(np.asarray(j))
+    return j, bridge.to_tensor(np.asarray(j), device="cpu")
 
 
 def _close(got_t, want_j, tol):

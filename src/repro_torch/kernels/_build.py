@@ -35,10 +35,12 @@ LIB_NAME = "libreprotorch_kernels.so"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: argtypes (all entries return the cudaError_t as int)
     "repro_ternary_matmul": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
-    "repro_fused_transform": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    "repro_fused_transform_tiles": (_I, _I, _I, _IP),
+    "repro_fused_transform": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "repro_easi_apply": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }

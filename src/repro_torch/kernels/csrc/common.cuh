@@ -12,11 +12,13 @@ namespace repro_torch {
 // dtype codes; kernels/_build.py holds the same table (DTYPE_CODES)
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
-// Every kernel computes a 32 x 32 output tile with 16 x 16 threads, each
-// thread owning the 2 x 2 patch {ty, ty + 16} x {tx, tx + 16} (strided so a
-// warp reads consecutive shared-memory words), and walks the contraction in
-// chunks of TK held in shared memory.  Shared arrays are padded by one
-// column so that the transposed stores hit 32 distinct banks.
+// The tiling of ternary_matmul, easi_update and fused_transform's dense
+// body (fused_transform's sparse body and flash_attention define their own
+// in their sources): a 32 x 32 output tile with 16 x 16 threads, each thread owning the 2 x 2 patch
+// {ty, ty + 16} x {tx, tx + 16} (strided so a warp reads consecutive
+// shared-memory words), walking the contraction in chunks of TK held in
+// shared memory.  Shared arrays are padded by one column so that the
+// transposed stores hit 32 distinct banks.
 constexpr int TILE = 32;
 constexpr int TK = 32;
 constexpr int HALF = 16;

@@ -12,30 +12,48 @@
 // Bound on the H100: 4 * Dh operations per visible (query, key) pair and
 // head (q k^T and p v), and q, k, v and out moved once.  At the prefill
 // shapes of the LM path (thousands of positions, Dh = 120) the operations
-// dominate by two orders of magnitude, so the bound is the tensor cores'
-// rate; this kernel runs on the FP32 FMA units instead and is far from it.
+// dominate by two orders of magnitude, so the bound is the bf16 tensor
+// cores' rate.
 //
-// Design: the TPU grid walks kv blocks in order and carries acc / m / l in
-// VMEM scratch from one grid step to the next.  CTAs carry nothing between
-// them, so here one CTA owns one (batch, query head, 64-row query tile) and
-// loops over all of that tile's kv tiles itself, keeping the running max m,
-// sum l and the 64 x Dh accumulator in registers.  Per kv tile it stages 64
-// keys and values in shared memory (widened to f32), computes the 64 x 64
-// score tile with 16 x 16 threads owning 4 x 4 scores each, reduces each
-// row's max and sum across its 16 threads with warp shuffles, writes p
-// (rounded to v's dtype, as both JAX versions do) to shared memory and
-// accumulates p v, each thread owning 4 rows x Dh/16 columns.  Everything
-// sums in f32.
-//   - Kv tiles that the causal or window mask hides from every row of the
-//     query tile are never visited (the result is the same).
-//   - Masked entries get p = 0 through an explicit predicate, and the
-//     running max starts at a finite -1e30, so a fully masked tile never
-//     computes inf - inf.  A row that sees some key gets the JAX value; a
-//     row that sees none gets 0 (l stays 0, and out = 0 / max(l, 1e-30)).
-//   - The ragged edges (rows past Sq, keys past Skv, and Dh below the tile
-//     width: 120 of 128, for example) are masked here; nothing is padded in
-//     device memory.  Dh tiles of 64 and 128 are compiled; Dh > 128 is
-//     refused by the wrapper.
+// Two kernels, chosen by dtype (each is the port's own; neither stands in
+// for the other):
+//   - bf16 (every LM prefill): flash_tc_kernel, FA2-style on the tensor
+//     cores.  One CTA of 8 warps owns a 128-row query tile; each warp owns
+//     16 rows and keeps its Q fragment in registers for the whole kv loop.
+//     Under GQA the tile's rows are hg query heads of one kv head (hg the
+//     largest power of two <= 8 that divides Hq / Hkv) at 128 / hg
+//     positions, so the heads of a group share every K/V tile.  K and V
+//     tiles of 64 keys stay bf16 in shared memory (rows padded by 16 bytes,
+//     so ldmatrix is free of bank conflicts), double-buffered with 16-byte
+//     cp.async, so the next tile loads while this one computes; Q is staged
+//     in the second buffer before the loop.  S = Q K^T is mma.sync
+//     m16n8k16 (bf16 in, f32 out) and is multiplied by `scale` in f32
+//     after the product, as the reference does.  The online softmax
+//     reduces each row over its quad with shuffles and takes exp on the
+//     SFU (ex2.approx); p is rounded to bf16 in registers and fed straight
+//     back as the A operand of P V (ldmatrix.trans reads V); l sums the
+//     unrounded p in f32.  Only tiles cut by the causal diagonal, the
+//     window edge or Skv evaluate the mask; interior tiles skip it, and
+//     tiles the mask hides from every row are never visited.  The grid is
+//     flat (no 65535 limit) and starts with the last query tiles, which
+//     have the most causal work.  Rows past Sq or Skv and the columns from
+//     Dh to the tile width (120 of 128) are zero-filled in shared memory,
+//     never left to the mask.  A Dh that is not a multiple of 8 (or an
+//     unaligned pointer) loads element by element, synchronously.
+//   - f32: flash_attention_kernel on the FP32 FMA units (the tensor cores'
+//     TF32 would not hold the f32 tolerance).  One CTA of 16 x 16 threads
+//     per (batch, query head, 64-row query tile) stages 64 keys and values
+//     in shared memory, computes the 64 x 64 score tile with 4 x 4 scores a
+//     thread, reduces each row's max and sum across its half-warp with
+//     shuffles, and accumulates p v with 4 rows x Dh/16 columns a thread.
+// Common to both:
+//   - Masked entries get p = 0, and the running max starts at a finite
+//     -1e30, so no inf - inf arises.  A row that sees some key gets the
+//     JAX value; a row that sees none gets 0 (l stays 0, and out = acc /
+//     max(l, 1e-30)).
+//   - Everything sums in f32; p is rounded to v's dtype before p v, as both
+//     JAX versions do.  Tiles of Dh 64 and 128 are compiled; Dh > 128 is
+//     refused.
 #include "common.cuh"
 
 using namespace repro_torch;
@@ -53,9 +71,6 @@ constexpr float FA_NEG = -1e30f;
 
 template <typename T> __device__ __forceinline__ float round_to(float v);
 template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 template <int DH>
 constexpr size_t smem_bytes() {
@@ -238,25 +253,350 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, void* out, in
                         scale, stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int TC_WARPS = 8;        // 16 query rows each: a 128-row tile, one CTA an SM
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_BK = 64;          // keys per kv tile
+constexpr int TC_PAD = 8;          // smem rows are D + 8 elements: ldmatrix without conflicts
+constexpr float TC_LOG2E = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+// Two buffers, each a K tile and a V tile of TC_BK rows.  The Q tile (16
+// rows a warp, at most 128) is staged in buffer 1 before the kv loop, read
+// into registers, and then overwritten by the second kv tile.
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(bf16) * (size_t)4 * TC_BK * (D + TC_PAD);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the SFU (2 ulp; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// nrows rows into a [nrows][D + TC_PAD] tile; row_ptr(r) is the row's first
+// element in device memory, or null for a row past the tensor.  Null rows
+// and the columns from dh to D are zero-filled.
+template <int D, bool VEC, int THREADS, typename RowPtr>
+__device__ __forceinline__ void tc_load_rows(bf16* dst, int nrows, RowPtr row_ptr,
+                                             const bf16* any, int dh, int tid) {
+  constexpr int LD = D + TC_PAD;
+  if constexpr (VEC) {
+    constexpr int CH = D / 8;   // 16-byte chunks per row
+    for (int e = tid; e < nrows * CH; e += THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bf16* src = row_ptr(r);
+      const bool in = src != nullptr && c * 8 < dh;
+      cp_async16(dst + r * LD + c * 8, in ? src + c * 8 : any, in ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < nrows * D; e += THREADS) {
+      const int r = e / D, d = e % D;
+      const bf16* src = row_ptr(r);
+      dst[r * LD + d] = (src != nullptr && d < dh) ? src[d] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// One CTA: TC_WARPS warps, 16 query rows each, all reading the K/V of kv
+// head hk.  The CTA serves hg query heads of that kv head (hg divides
+// Hq / Hkv) at 16 TC_WARPS / hg positions, so the heads of a GQA group
+// share each K/V tile.
+template <int D, bool VEC>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out, int b, int sq, int skv,
+                int hq, int hkv, int dh, int causal, int window, int q_offset, float scale,
+                int hg) {
+  constexpr int NW = TC_WARPS, THREADS = TC_THREADS;
+  constexpr int LD = D + TC_PAD;
+  constexpr int KS = D / 16;        // k-steps of Q K^T
+  constexpr int NT = D / 8;         // n-tiles of the output
+  constexpr int ST = TC_BK / 8;     // n-tiles of the score tile
+  static_assert(16 * NW <= 2 * TC_BK, "the Q tile must fit in one kv buffer");
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* kvs = reinterpret_cast<bf16*>(tc_smem);   // [buffer][K, V][TC_BK][LD]
+  bf16* qs = kvs + 2 * TC_BK * LD;                // buffer 1, before the loop
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int grp = hq / hkv;                 // query heads per kv head
+  const int wph = NW / hg;                  // warps per query head
+  const int qpos = 16 * wph;                // query positions per CTA
+  // flat grid, last query tiles (the most causal work) first
+  const int units = b * hkv * (grp / hg);
+  const int n_qt = (sq + qpos - 1) / qpos;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / units);
+  int u = (int)(blockIdx.x % units);
+  const int hb = u % (grp / hg);
+  u /= grp / hg;
+  const int hk = u % hkv, bi = u / hkv;
+  const int h0 = hk * grp + hb * hg;        // the CTA's first query head
+  const int q0 = qt * qpos;
+  const size_t q_row = (size_t)hq * dh;
+  const size_t kv_row = (size_t)hkv * dh;
+  const bf16* qb = q + (size_t)bi * sq * q_row;
+  const bf16* kb = k + (size_t)bi * skv * kv_row + (size_t)hk * dh;
+  const bf16* vb = v + (size_t)bi * skv * kv_row + (size_t)hk * dh;
+  // this warp: head h0 + warp / wph, positions wq .. wq + 15
+  const int wq = q0 + 16 * (warp % wph);
+  bf16* ob = out + (size_t)bi * sq * q_row + (size_t)(h0 + warp / wph) * dh;
+
+  // the kv range some row of this tile can see
+  const int q_first = q_offset + q0;
+  const int q_last = q_offset + min(q0 + qpos, sq) - 1;
+  int k_begin = 0, k_end = skv;
+  if (causal) k_end = min(skv, q_last + 1);
+  if (window >= 0) k_begin = max(0, q_first - window + 1);
+  k_begin -= k_begin % TC_BK;
+
+  auto q_rows = [&](int r) -> const bf16* {   // Q tile row r: head h0 + r / qpos
+    const int pos = q0 + r % qpos;
+    return pos < sq ? qb + (size_t)pos * q_row + (size_t)(h0 + r / qpos) * dh : nullptr;
+  };
+  auto load_kv = [&](int buf, int pos0) {
+    auto k_rows = [&](int r) -> const bf16* {
+      return pos0 + r < skv ? kb + (size_t)(pos0 + r) * kv_row : nullptr;
+    };
+    auto v_rows = [&](int r) -> const bf16* {
+      return pos0 + r < skv ? vb + (size_t)(pos0 + r) * kv_row : nullptr;
+    };
+    tc_load_rows<D, VEC, THREADS>(kvs + (2 * buf) * TC_BK * LD, TC_BK, k_rows, k, dh, tid);
+    tc_load_rows<D, VEC, THREADS>(kvs + (2 * buf + 1) * TC_BK * LD, TC_BK, v_rows, v, dh, tid);
+  };
+
+  tc_load_rows<D, VEC, THREADS>(qs, 16 * NW, q_rows, q, dh, tid);
+  if (k_begin < k_end) load_kv(0, k_begin);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[KS][4];   // this warp's 16 rows of Q, for the whole kv loop
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16 +
+                        (lane >> 4) * 8);
+  __syncthreads();      // buffer 1 is free for the second kv tile
+
+  float o[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_run[2] = {FA_NEG, FA_NEG}, l_run[2] = {0.f, 0.f};
+  const int p_lo = q_offset + wq + g;   // this thread's rows sit at p_lo and p_lo + 8
+
+  int buf = 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += TC_BK, buf ^= 1) {
+    if (k0 + TC_BK < k_end) load_kv(buf ^ 1, k0 + TC_BK);   // loads while this tile computes
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* kt = kvs + (2 * buf) * TC_BK * LD;
+    const bf16* vt = kt + TC_BK * LD;
+
+    // S = Q K^T: n-tile j holds keys k0 + 8 j .. + 7
+    float s[ST][4];
+#pragma unroll
+    for (int j = 0; j < ST; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; kk += 2) {
+        uint32_t kf[4];
+        ldsm_x4(kf, kt + (j * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
+        mma_bf16(s[j], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[j], qf[kk + 1], kf[2], kf[3]);
+      }
+    }
+
+    // scale in f32; mask only the tiles cut by Skv, the diagonal or the window
+    const bool interior = k0 + TC_BK <= skv && (!causal || k0 + TC_BK - 1 <= q_first) &&
+                          (window < 0 || q_last - k0 < window);
+#pragma unroll
+    for (int j = 0; j < ST; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+    if (!interior) {
+#pragma unroll
+      for (int j = 0; j < ST; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int qp = p_lo + (e >> 1) * 8;
+          const bool vis = kp < skv && (!causal || qp >= kp) && (window < 0 || qp - kp < window);
+          if (!vis) s[j][e] = __uint_as_float(0xff800000u);   // -inf: p = 0, m stays finite
+        }
+    }
+
+    // online softmax over the rows p_lo (e = 0, 1) and p_lo + 8 (e = 2, 3)
+    float corr[2], mscaled[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = FA_NEG;
+#pragma unroll
+      for (int j = 0; j < ST; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[i], mx);
+      corr[i] = fast_exp2((m_run[i] - m_new) * TC_LOG2E);
+      m_run[i] = m_new;
+      mscaled[i] = m_new * TC_LOG2E;
+    }
+    uint32_t pf[TC_BK / 16][4];   // p as the A operand of P V, rounded to bf16
+    float lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < ST; ++j) {
+      float pv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[e] = fast_exp2(fmaf(s[j][e], TC_LOG2E, -mscaled[e >> 1]));
+      lsum[0] += pv[0] + pv[1];
+      lsum[1] += pv[2] + pv[3];
+      pf[j / 2][(j & 1) * 2 + 0] = pack_bf16(pv[0], pv[1]);
+      pf[j / 2][(j & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * corr[i] + lsum[i];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      o[j][0] *= corr[0];
+      o[j][1] *= corr[0];
+      o[j][2] *= corr[1];
+      o[j][3] *= corr[1];
+    }
+
+    // O += P V: k-step kk holds keys k0 + 16 kk .. + 15
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + j * 8 +
+                              (lane >> 4) * 8);
+        mma_bf16(o[j], pf[kk], vf[0], vf[1]);
+        mma_bf16(o[j + 1], pf[kk], vf[2], vf[3]);
+      }
+    }
+    __syncthreads();   // this buffer is free for the load two tiles on
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    l_run[i] = fmaxf(l_run[i], 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = wq + g + (e >> 1) * 8, d = j * 8 + 2 * t4 + (e & 1);
+      if (r < sq && d < dh)
+        ob[(size_t)r * q_row + d] = __float2bfloat16_rn(o[j][e] / l_run[e >> 1]);
+    }
+}
+
+template <int D, bool VEC>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, int b, int sq,
+                      int skv, int hq, int hkv, int dh, int causal, int window, int q_offset,
+                      float scale, cudaStream_t stream) {
+  constexpr size_t bytes = tc_smem_bytes<D>();
+  const cudaError_t rc = cudaFuncSetAttribute(flash_tc_kernel<D, VEC>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              (int)bytes);
+  if (rc != cudaSuccess) return rc;
+  const int grp = hq / hkv;
+  int hg = 1;   // query heads per CTA: the largest power of two that divides grp, <= TC_WARPS
+  while (hg * 2 <= TC_WARPS && grp % (hg * 2) == 0) hg *= 2;
+  const int qpos = 16 * TC_WARPS / hg;
+  const long long blocks = (long long)ceil_div(sq, qpos) * b * hkv * (grp / hg);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_tc_kernel<D, VEC><<<(unsigned)blocks, TC_THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), b, sq, skv, hq, hkv, dh, causal, window, q_offset, scale, hg);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tc_dh(const void* q, const void* k, const void* v, void* out, int b, int sq,
+                         int skv, int hq, int hkv, int dh, int causal, int window, int q_offset,
+                         float scale, cudaStream_t stream) {
+  // 16-byte cp.async needs every row start 16-byte aligned
+  const bool vec = dh % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  auto go = [&](auto kernel_launch) {
+    return kernel_launch(q, k, v, out, b, sq, skv, hq, hkv, dh, causal, window, q_offset, scale,
+                         stream);
+  };
+  if (dh <= 64) return vec ? go(launch_tc<64, true>) : go(launch_tc<64, false>);
+  return vec ? go(launch_tc<128, true>) : go(launch_tc<128, false>);
+}
+
 }  // namespace
 
-// window < 0 means no sliding window.
+// window < 0 means no sliding window.  bf16 runs the tensor-core kernel, f32
+// the FMA kernel.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int b, int sq, int skv, int hq, int hkv, int dh,
                                      int causal, int window, int q_offset, float scale,
                                      int dtype, void* stream) {
-  if (dh < 1 || dh > 128 || hkv < 1 || hq % hkv != 0 || b * hq > 65535)
+  if (dh < 1 || dh > 128 || hkv < 1 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   if (dtype == kF32) {
+    if (b * hq > 65535) return static_cast<int>(cudaErrorInvalidValue);   // gridDim.y
     rc = launch_dh<float>(q, k, v, out, b, sq, skv, hq, hkv, dh, causal, window, q_offset,
                           scale, s);
   } else if (dtype == kBF16) {
-    rc = launch_dh<__nv_bfloat16>(q, k, v, out, b, sq, skv, hq, hkv, dh, causal, window,
-                                  q_offset, scale, s);
+    rc = launch_tc_dh(q, k, v, out, b, sq, skv, hq, hkv, dh, causal, window, q_offset, scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(rc);
 }
+

@@ -1,43 +1,97 @@
 // fused_transform: out (rows, n) = (scale * x (rows, m) @ R (p, m)^T) @ B (n, p)^T
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fused_transform.py
-// (fused_transform / _kernel): the serve transform of an RP -> EASI pair,
-// with the (rows, p) intermediate kept out of device memory.
+// (fused_transform / _kernel): the serve transform of an RP -> EASI pair.
 //
-// Bound on the H100: 2*rows*m*p + 2*rows*p*n f32 FMA operations (no tensor
-// cores in this kernel) against x, R (one byte an entry), B and out moved
-// once.  The first product dominates at the repo's shapes; the work R's
-// sparsity actually needs is bytes-bound.
+// Bound on the H100: the work R's nonzeros need, 2*rows*nnz(R) adds for the
+// projection and 2*rows*p*n f32 FMAs for the whitening product, against x,
+// R (one byte an entry), B and out moved once.  At the repo's shapes (R of
+// density 1/p) the bytes bound it, and the kernel is bound by latency: a
+// few round trips to memory per CTA.
 //
-// Design: one CTA owns 32 rows and 64 columns of out (a second grid axis
-// over n tiles recomputes y for n > 64).  It loops over p in tiles of 32;
-// for each it builds the y tile over the whole of k in registers (R loaded
-// as int8 and widened on its way into shared memory), parks the scaled y
-// tile in shared memory and adds y @ B_tile^T into an f32 output tile held
-// in registers.  The output is rounded to B's dtype once at the end (the TPU
-// kernel adds across p tiles in B's dtype).  n is not padded: ragged edges
-// are masked with zeros.
+// Two bodies, chosen by R's size (repro_fused_transform_tiles), both f32
+// exact (FMAs or adds in f32, never TF32; bf16 inputs widened; y scaled
+// once, in f32; out rounded once to B's dtype):
+//   - dense, for R of fewer than FT_DENSE_MAX_R entries (the paper's 24 x
+//     32): one CTA owns 32 rows and 64 columns of out, loops over p in
+//     tiles of 32, builds each y tile over the whole of k with the 2 x 2
+//     register tiles of common.cuh (R widened on its way into shared
+//     memory), and adds y @ B_tile^T into an f32 output tile in registers.
+//     At these sizes its one short round trip per tile beats any encoding.
+//   - sparse, for larger R: work in proportion to R's nonzeros and a grid
+//     that fills the card.
+//       - Grid: (row tiles of 32) x (p tiles of pt rows of R).  pt (at most
+//         64) is chosen so that a small batch still puts about two CTAs on
+//         each SM (256 CTAs at (256, 1024, 256, 128)); where the row tiles
+//         alone fill the card, pt is 64.
+//       - Encoding, built inside the CTA and never cached: warp w owns rows
+//         w, w + 8, ... of the CTA's rows of R.  For each row and 32-column
+//         chunk it makes two 32-bit words, "nonzero" and "negative", with
+//         __ballot_sync over one coalesced 32-byte read; 16 reads are in
+//         flight at a time.
+//       - Projection: lanes run over the 32 rows of x, so the warp walks
+//         each word without diverging: for each set bit, y += neg ? -x : x.
+//         It visits only the nonzero words of a batch (a ballot lists them).
+//         A word with few set bits (the density-1/p case) queues its
+//         columns, and the warp reads them straight from device memory, 8
+//         reads in flight a lane; a word with 8 or more stages its 32 x 32
+//         chunk of x in the warp's own shared memory, transposed and
+//         zero-filled, and reads it there.  No step of the projection waits
+//         on another warp.
+//       - Code size and occupancy: the staging and the queue's reads are
+//         out-of-line functions (called from several places, kept once),
+//         and the kernel is held to 128 registers so that two CTAs share an
+//         SM and the wide grid runs in one wave.
+//       - Whitening: the scaled y tile (32 x pt, f32, shared memory) times
+//         B's matching slice, which is loaded before the encoding when it
+//         fits in shared memory.  With one p tile the CTA rounds the sum to
+//         B's dtype and writes out; otherwise it writes an f32 partial to
+//         scratch, and a second launch sums the partials of each output in
+//         p-tile order (no float atomics, the same result on every run) and
+//         rounds once to B's dtype.  That launch is a programmatic
+//         dependent (Hopper's PDL), scheduled while the main grid drains.
 #include "common.cuh"
 
 using namespace repro_torch;
 
 namespace {
 
-constexpr int FN = 64;            // output columns (n) per CTA
-constexpr int NJ = FN / HALF;     // output columns per thread
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int FT_ROWS = 32;        // rows of x per CTA: one per lane
+constexpr int FT_WARPS = 8;
+constexpr int FT_THREADS = 32 * FT_WARPS;
+constexpr int FT_PMAX = 64;        // rows of R per CTA at most
+constexpr int FT_PMIN = FT_WARPS;  // and at least one for each warp, where p allows
+constexpr int FT_CTAS_PER_SM = 2;  // the sparse grid's target
+constexpr int FT_DENSE_MAX_R = 65536;   // a smaller R (p * m entries) takes the dense body
+constexpr int FT_DN = 64;          // dense body: output columns per CTA
+constexpr int FT_EB = 16;          // reads of R in flight per warp
+constexpr int FT_SB = 16;          // reads of x in flight per lane while staging
+constexpr int FT_STAGE = 8;        // a word with this many set bits stages its chunk
+constexpr int FT_BATCH = 8;        // direct reads of x in flight per lane
+constexpr int FT_QUEUE = 64;       // queued direct reads per warp
+constexpr int FT_XLD = 33;         // padded row of a staged chunk
+constexpr int FT_NC = 64;          // output columns per pass of the product
+constexpr int FT_BCAP = 4224;      // floats of B's slice held in shared memory
+constexpr int FT_BPT = 16;         // of them loaded per thread before the encoding
+constexpr int FT_SUM_THREADS = 256;
+constexpr int FT_SUM_BATCH = 32;   // partials read at once by the summing pass
+
+// ---- dense body ------------------------------------------------------------
 
 template <typename TX, typename TB>
 __global__ void __launch_bounds__(NTHREADS)
-fused_transform_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
-                       const TB* __restrict__ bmat, TB* __restrict__ out,
-                       int rows, int m, int p, int n, float scale) {
+fused_transform_dense_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
+                             const TB* __restrict__ bmat, TB* __restrict__ out,
+                             int rows, int m, int p, int n, float scale) {
+  constexpr int NJ = FT_DN / HALF;      // output columns per thread
   __shared__ float xs[TK][TILE + 1];    // x tile, transposed: xs[k][row]
   __shared__ float rs[TK][TILE + 1];    // R tile widened to f32: rs[k][p]
   __shared__ float ys[TILE][TILE + 1];  // scaled y tile: ys[row][p], f32
-  __shared__ float bs[TILE][FN + 1];    // B tile, transposed: bs[p][n]
+  __shared__ float bs[TILE][FT_DN + 1]; // B tile, transposed: bs[p][n]
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * HALF + tx;
-  const int row0 = blockIdx.x * TILE, n0 = blockIdx.y * FN;
+  const int row0 = blockIdx.x * TILE, n0 = blockIdx.y * FT_DN;
 
   float acc[2][NJ];
 #pragma unroll
@@ -71,7 +125,7 @@ fused_transform_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 2; ++j) ys[ty + i * HALF][tx + j * HALF] = ya[i][j] * scale;
-    for (int e = tid; e < FN * TILE; e += NTHREADS) {
+    for (int e = tid; e < FT_DN * TILE; e += NTHREADS) {
       const int jn = e / TILE, jp = e % TILE;  // neighbouring threads: neighbouring p
       const int gn = n0 + jn, gp = p0 + jp;
       bs[jp][jn] = (gn < n && gp < p) ? to_f32(bmat[(size_t)gn * p + gp]) : 0.f;
@@ -99,33 +153,364 @@ fused_transform_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
   }
 }
 
+// ---- sparse body -----------------------------------------------------------
+
+struct FtSmem {
+  float ys[FT_PMAX][FT_ROWS];       // y tile; row r of x sits in column (r % 4) * 8 + r / 4
+  float xs[FT_WARPS][32][FT_XLD];   // a warp's staged chunk of x, transposed: xs[w][k][row]
+  int queue[FT_WARPS][FT_QUEUE];    // a warp's queued reads: col << 7 | j << 1 | negative
+  float bs[FT_BCAP + FT_NC];        // B's slice, bs[j * ld + col] (the pad keeps the last
+                                    // pass's out-of-range columns inside the array)
+};
+
+// An empty asm that needs v: the loads that feed v are all issued before it,
+// so loads written together are in flight together.
+__device__ __forceinline__ void hold(uint32_t v) { asm volatile("" ::"r"(v)); }
+
+// stage chunk cc of x for the warp: lane l loads column 32 cc + l of the
+// 32 rows, transposed into xs[l][row], zero past rows and m
+template <typename TX>
+__device__ __noinline__ void ft_stage(float (*xs)[FT_XLD], const TX* __restrict__ x, int row0,
+                                int rows, int m, int cc, int lane) {
+  const int col = cc * 32 + lane;
+#pragma unroll
+  for (int h0 = 0; h0 < FT_ROWS; h0 += FT_SB) {
+    float xv[FT_SB];
+    uint32_t hh = 0;
+#pragma unroll
+    for (int u = 0; u < FT_SB; ++u) {
+      const int g = row0 + h0 + u;
+      xv[u] = (g < rows && col < m) ? to_f32(x[(size_t)g * m + col]) : 0.f;
+      hh |= __float_as_uint(xv[u]);
+    }
+    hold(hh);
+#pragma unroll
+    for (int u = 0; u < FT_SB; ++u) xs[lane][h0 + u] = xv[u];
+  }
+}
+
+// add the queued columns of x into y, FT_BATCH reads in flight
+template <typename TX>
+__device__ __noinline__ void ft_flush(const int* q, int qlen, float (*ys)[FT_ROWS],
+                                         const TX* xrow, bool row_in, int pl) {
+  for (int i0 = 0; i0 < qlen; i0 += FT_BATCH) {
+    int ent[FT_BATCH];
+    float xv[FT_BATCH];
+    uint32_t h = 0;
+#pragma unroll
+    for (int t = 0; t < FT_BATCH; ++t) {
+      ent[t] = i0 + t < qlen ? q[i0 + t] : -1;
+      xv[t] = (row_in && ent[t] >= 0) ? to_f32(xrow[ent[t] >> 7]) : 0.f;
+      h |= __float_as_uint(xv[t]);
+    }
+    hold(h);
+#pragma unroll
+    for (int t = 0; t < FT_BATCH; ++t) {
+      if (ent[t] < 0) continue;
+      float& y = ys[(ent[t] >> 1) & (FT_PMAX - 1)][pl];
+      y += (ent[t] & 1) ? -xv[t] : xv[t];
+    }
+  }
+}
+
 template <typename TX, typename TB>
-void launch(const void* x, const int8_t* r, const void* bmat, void* out, int rows, int m,
-            int p, int n, float scale, cudaStream_t stream) {
-  const dim3 grid(ceil_div(rows, TILE), ceil_div(n, FN));
-  const dim3 block(HALF, HALF);
-  fused_transform_kernel<TX, TB><<<grid, block, 0, stream>>>(
-      static_cast<const TX*>(x), r, static_cast<const TB*>(bmat), static_cast<TB*>(out),
-      rows, m, p, n, scale);
+__global__ void __launch_bounds__(FT_THREADS, 2)
+fused_transform_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
+                       const TB* __restrict__ bmat, TB* __restrict__ out,
+                       float* __restrict__ part, int rows, int m, int p, int n, int pt,
+                       float scale) {
+  extern __shared__ __align__(16) unsigned char ft_smem[];
+  FtSmem& sm = *reinterpret_cast<FtSmem*>(ft_smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * FT_ROWS, p0 = blockIdx.y * pt;
+  const int np = min(pt, p - p0);
+  const int gr = row0 + lane;
+  const bool row_in = gr < rows;
+  const TX* xrow = x + (size_t)(row_in ? gr : 0) * m;
+  const int pl = (lane & 3) * 8 + (lane >> 2);   // this lane's column of ys
+  const int nchunks = (m + 31) / 32;
+
+  // B's slice is held whole when it fits (else it is staged 64 output
+  // columns at a time in the product); a thread's first FT_BPT elements
+  // (B[c][p0 + j], j fastest) are loaded now, their round trip overlapping
+  // the encoding's
+  const bool b_whole = np * (n + 1) <= FT_BCAP;
+  const int bld = b_whole ? n + 1 : FT_NC + 1;
+  const int nb = b_whole ? np * n : 0;
+  const int np1 = max(np, 1);
+  const int dc = FT_THREADS / np1, dj = FT_THREADS % np1;
+  float bpre[FT_BPT];
+  {
+    int c = tid / np1, j = tid % np1;
+#pragma unroll
+    for (int t = 0; t < FT_BPT; ++t) {
+      bpre[t] = tid + FT_THREADS * t < nb ? to_f32(bmat[(size_t)c * p + p0 + j]) : 0.f;
+      j += dj;
+      c += dc;
+      if (j >= np1) {
+        j -= np1;
+        ++c;
+      }
+    }
+  }
+
+  // rows of R this warp owns: j = warp + 8 i, i < nrw; ys[j][pl] is this lane's
+  const int nrw = np > warp ? (np - 1 - warp) / FT_WARPS + 1 : 0;
+  for (int i = 0; i < nrw; ++i) sm.ys[warp + FT_WARPS * i][pl] = 0.f;
+  float(*xs)[FT_XLD] = sm.xs[warp];
+  int* q = sm.queue[warp];
+  int qlen = 0, staged = -1;   // warp-uniform
+
+  // (chunk, row) pairs in order, row fastest
+  const int npairs = nrw * nchunks;
+  for (int s0 = 0; s0 < npairs; s0 += FT_EB) {
+    int v[FT_EB];
+    uint32_t h = 0;
+    {
+      int c = s0 / nrw, i = s0 % nrw;
+#pragma unroll
+      for (int t = 0; t < FT_EB; ++t) {
+        const int col = c * 32 + lane;
+        v[t] = (s0 + t < npairs && col < m)
+                   ? r[(size_t)(p0 + warp + FT_WARPS * i) * m + col] : 0;
+        h |= (uint32_t)v[t];
+        if (++i == nrw) {
+          i = 0;
+          ++c;
+        }
+      }
+    }
+    hold(h);
+    uint32_t my_nz = 0, my_ng = 0;   // lane t keeps the words of slot t
+#pragma unroll
+    for (int t = 0; t < FT_EB; ++t) {
+      const uint32_t nz = __ballot_sync(FULL, v[t] != 0);
+      const uint32_t ng = __ballot_sync(FULL, v[t] < 0);
+      if (lane == t) {
+        my_nz = nz;
+        my_ng = ng;
+      }
+    }
+    // only the slots with a nonzero word, in order (about 1 in 8 of them at
+    // density 1/p); slots past npairs read zeros
+    uint32_t live = __ballot_sync(FULL, my_nz != 0);
+    while (live) {
+      const int t = __ffs(live) - 1;
+      live &= live - 1;
+      const uint32_t bits = __shfl_sync(FULL, my_nz, t);
+      const uint32_t neg = __shfl_sync(FULL, my_ng, t);
+      const int cc = (s0 + t) / nrw, j = warp + FT_WARPS * ((s0 + t) % nrw);
+      const int cnt = __popc(bits);
+      if (cnt >= FT_STAGE) {
+        if (staged != cc) {
+          __syncwarp();
+          ft_stage(xs, x, row0, rows, m, cc, lane);
+          __syncwarp();
+          staged = cc;
+        }
+        float y = sm.ys[j][pl];
+        uint32_t b2 = bits;
+        while (b2) {
+          const int bit = __ffs(b2) - 1;
+          b2 &= b2 - 1;
+          const float xv = xs[bit][lane];
+          y += ((neg >> bit) & 1u) ? -xv : xv;
+        }
+        sm.ys[j][pl] = y;
+      } else {
+        if (qlen + cnt > FT_QUEUE) {
+          __syncwarp();
+          ft_flush(q, qlen, sm.ys, xrow, row_in, pl);
+          qlen = 0;
+          __syncwarp();
+        }
+        if ((bits >> lane) & 1u)
+          q[qlen + __popc(bits & ((1u << lane) - 1u))] =
+              ((cc * 32 + lane) << 7) | (j << 1) | (int)((neg >> lane) & 1u);
+        qlen += cnt;
+      }
+    }
+  }
+  __syncwarp();
+  ft_flush(q, qlen, sm.ys, xrow, row_in, pl);
+  for (int i = 0; i < nrw; ++i) sm.ys[warp + FT_WARPS * i][pl] *= scale;
+
+  // out tile (32 rows x n) += y (32 x np) @ B[:, p0 : p0 + np]^T; thread
+  // (rg, cc) owns rows rg + 4 i (ys columns 8 rg + i) of output column cc
+  const int cc = tid % FT_NC, rg = tid / FT_NC;
+  if (b_whole) {
+    int c = tid / np1, j = tid % np1;
+#pragma unroll
+    for (int t = 0; t < FT_BPT; ++t) {
+      if (tid + FT_THREADS * t < nb) sm.bs[j * bld + c] = bpre[t];
+      j += dj;
+      c += dc;
+      if (j >= np1) {
+        j -= np1;
+        ++c;
+      }
+    }
+    for (int e = tid + FT_THREADS * FT_BPT; e < nb; e += FT_THREADS)
+      sm.bs[(e % np) * bld + e / np] = to_f32(bmat[(size_t)(e / np) * p + p0 + e % np]);
+  }
+  __syncthreads();   // ys and B's slice complete
+  // the summing pass may be scheduled from here on; it waits for this
+  // whole grid, and its writes, before it reads a partial
+  asm volatile("griddepcontrol.launch_dependents;");
+  for (int n0 = 0; n0 < n; n0 += FT_NC) {
+    if (!b_whole) {
+      if (n0 > 0) __syncthreads();   // the previous pass no longer reads bs
+      for (int e = tid; e < np * FT_NC; e += FT_THREADS) {
+        const int j = e % np, c = e / np;   // neighbouring threads: neighbouring p
+        sm.bs[j * bld + c] = n0 + c < n ? to_f32(bmat[(size_t)(n0 + c) * p + p0 + j]) : 0.f;
+      }
+      __syncthreads();
+    }
+    const float* bcol = sm.bs + (b_whole ? n0 : 0) + cc;
+    float acc[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < np; ++j) {
+      const float bv = bcol[j * bld];
+      const float4 a = *reinterpret_cast<const float4*>(&sm.ys[j][8 * rg]);
+      const float4 b = *reinterpret_cast<const float4*>(&sm.ys[j][8 * rg + 4]);
+      acc[0] = fmaf(a.x, bv, acc[0]);
+      acc[1] = fmaf(a.y, bv, acc[1]);
+      acc[2] = fmaf(a.z, bv, acc[2]);
+      acc[3] = fmaf(a.w, bv, acc[3]);
+      acc[4] = fmaf(b.x, bv, acc[4]);
+      acc[5] = fmaf(b.y, bv, acc[5]);
+      acc[6] = fmaf(b.z, bv, acc[6]);
+      acc[7] = fmaf(b.w, bv, acc[7]);
+    }
+    const int gn = n0 + cc;
+    if (gn < n) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int g = row0 + rg + 4 * k;
+        if (g >= rows) continue;
+        if (gridDim.y == 1)
+          out[(size_t)g * n + gn] = from_f32<TB>(acc[k]);
+        else
+          part[((size_t)blockIdx.y * rows + g) * n + gn] = acc[k];
+      }
+    }
+  }
+}
+
+// out = the partials summed over p tiles in order, rounded once to B's dtype;
+// a thread's reads (32 at the wide shape) are all in flight at once.  It is
+// launched as a programmatic dependent of the main kernel, so its launch
+// overlaps that kernel's last CTAs; griddepcontrol.wait holds it until the
+// main grid has finished and its partials are visible.
+template <typename TB>
+__global__ void __launch_bounds__(FT_SUM_THREADS)
+fused_transform_sum_kernel(const float* __restrict__ part, TB* __restrict__ out,
+                           size_t count, int splits) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const size_t i = (size_t)blockIdx.x * FT_SUM_THREADS + threadIdx.x;
+  if (i >= count) return;
+  float s = 0.f;
+  for (int t0 = 0; t0 < splits; t0 += FT_SUM_BATCH) {
+    float v[FT_SUM_BATCH];
+#pragma unroll
+    for (int u = 0; u < FT_SUM_BATCH; ++u)
+      v[u] = t0 + u < splits ? part[(size_t)(t0 + u) * count + i] : 0.f;
+#pragma unroll
+    for (int u = 0; u < FT_SUM_BATCH; ++u) s += v[u];   // + 0 past splits leaves s as it is
+  }
+  out[i] = from_f32<TB>(s);
+}
+
+template <typename TX, typename TB>
+cudaError_t launch(const void* x, const int8_t* r, const void* bmat, void* out, float* part,
+                   int rows, int m, int p, int n, int tiles, float scale, cudaStream_t stream) {
+  const TX* xt = static_cast<const TX*>(x);
+  const TB* bt = static_cast<const TB*>(bmat);
+  TB* ot = static_cast<TB*>(out);
+  if (tiles == 0) {
+    const dim3 grid(ceil_div(rows, TILE), ceil_div(n, FT_DN));
+    fused_transform_dense_kernel<TX, TB><<<grid, dim3(HALF, HALF), 0, stream>>>(
+        xt, r, bt, ot, rows, m, p, n, scale);
+    return cudaGetLastError();
+  }
+  constexpr int bytes = (int)sizeof(FtSmem);   // above 48 KB: opt in
+  const cudaError_t rc = cudaFuncSetAttribute(fused_transform_kernel<TX, TB>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return rc;
+  const int pt = ceil_div(p, tiles);
+  const dim3 grid(ceil_div(rows, FT_ROWS), tiles);
+  fused_transform_kernel<TX, TB><<<grid, FT_THREADS, bytes, stream>>>(
+      xt, r, bt, ot, part, rows, m, p, n, pt, scale);
+  if (tiles > 1) {
+    const size_t count = (size_t)rows * n;
+    cudaLaunchAttribute pdl[1];
+    pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    pdl[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)((count + FT_SUM_THREADS - 1) / FT_SUM_THREADS));
+    cfg.blockDim = dim3(FT_SUM_THREADS);
+    cfg.stream = stream;
+    cfg.attrs = pdl;
+    cfg.numAttrs = 1;
+    const cudaError_t rc2 = cudaLaunchKernelEx(&cfg, fused_transform_sum_kernel<TB>,
+                                               static_cast<const float*>(part), ot, count, tiles);
+    if (rc2 != cudaSuccess) return rc2;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// The body a call of (rows, m, p) takes on the current device: *tiles = 0
+// for the dense body (one launch), else the number of p tiles of the sparse
+// body (one launch, and a second, the summing pass, when *tiles > 1).
+extern "C" int repro_fused_transform_tiles(int rows, int m, int p, int* tiles) {
+  if (rows < 1 || m < 0 || p < 0 || tiles == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)p * m < FT_DENSE_MAX_R) {
+    *tiles = 0;
+    return 0;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int row_tiles = ceil_div(rows, FT_ROWS), target = FT_CTAS_PER_SM * sms;
+  int splits = ceil_div(p, FT_PMAX);
+  if (row_tiles < target)   // more p tiles, down to FT_PMIN rows of R each
+    splits = max(splits, min(ceil_div(p, FT_PMIN), ceil_div(target, row_tiles)));
+  *tiles = ceil_div(p, ceil_div(p, splits));
+  return 0;
+}
+
+// tiles: what repro_fused_transform_tiles gave for (rows, m, p).  part: f32
+// scratch of tiles * rows * n values, written and read only when tiles > 1
+// (may be null otherwise).
 extern "C" int repro_fused_transform(const void* x, const void* r, const void* bmat, void* out,
-                                     int rows, int m, int p, int n, float scale, int x_dtype,
-                                     int b_dtype, void* stream) {
+                                     void* part, int rows, int m, int p, int n, int tiles,
+                                     float scale, int x_dtype, int b_dtype, void* stream) {
+  if (rows < 1 || n < 1 || m < 0 || m >= (1 << 24) || p < 0 || tiles < 0 ||
+      (tiles > 0 && (p < tiles || ceil_div(p, tiles) > FT_PMAX ||
+                     ceil_div(p, ceil_div(p, tiles)) != tiles)) ||
+      (tiles > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* r8 = static_cast<const int8_t*>(r);
+  float* pf = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc;
   if (x_dtype == kF32 && b_dtype == kF32) {
-    launch<float, float>(x, r8, bmat, out, rows, m, p, n, scale, s);
+    rc = launch<float, float>(x, r8, bmat, out, pf, rows, m, p, n, tiles, scale, s);
   } else if (x_dtype == kF32 && b_dtype == kBF16) {
-    launch<float, __nv_bfloat16>(x, r8, bmat, out, rows, m, p, n, scale, s);
+    rc = launch<float, __nv_bfloat16>(x, r8, bmat, out, pf, rows, m, p, n, tiles, scale, s);
   } else if (x_dtype == kBF16 && b_dtype == kF32) {
-    launch<__nv_bfloat16, float>(x, r8, bmat, out, rows, m, p, n, scale, s);
+    rc = launch<__nv_bfloat16, float>(x, r8, bmat, out, pf, rows, m, p, n, tiles, scale, s);
   } else if (x_dtype == kBF16 && b_dtype == kBF16) {
-    launch<__nv_bfloat16, __nv_bfloat16>(x, r8, bmat, out, rows, m, p, n, scale, s);
+    rc = launch<__nv_bfloat16, __nv_bfloat16>(x, r8, bmat, out, pf, rows, m, p, n, tiles, scale,
+                                              s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rc);
 }

@@ -1,19 +1,28 @@
-"""CUDA kernel: flash attention forward (causal / sliding-window / GQA).
+"""CUDA kernels: flash attention forward (causal / sliding-window / GQA).
 
 Replaces the Pallas TPU kernel `src/repro/kernels/flash_attention.py`
 (`flash_attention_fwd` / `_kernel`).  The kernel source is
 `csrc/flash_attention.cu`; its header says what bounds it on the H100 and
-what its design does about that.  In short: one CTA per (batch, query
-head, 64-row query tile) loops over the kv tiles that tile can see,
-keeping the online-softmax state (m, l, acc) in registers, with f32
-accumulation and p rounded to v's dtype before the p·v product.
+what its design does about that.  It holds two kernels, and the C entry
+point picks one by dtype:
 
-Masked entries get p = 0, so a row that sees no key returns 0 here and in
-the plain version (`ref.flash_attention_ref`); every row that sees a key
-gets the reference's value.
+  - bf16 (the LM path): a tensor-core kernel, FA2-style.  Each CTA of 8
+    warps owns a 128-row query tile (16 rows a warp, Q in registers; under
+    GQA the rows of a group's heads share the CTA and its K/V tiles); K
+    and V tiles stay bf16 in shared memory, double-buffered with cp.async;
+    S = QKᵀ and P·V run on `mma.sync` m16n8k16 with f32 accumulation,
+    p rounded to bf16 in registers; only tiles cut by a mask edge evaluate
+    the mask.
+  - f32: an FP32 FMA kernel (TF32 would not hold the f32 tolerance), one
+    CTA per (batch, query head, 64-row query tile).
+
+Both keep the online-softmax state (m, l, acc) on chip and loop over the kv
+tiles the query tile can see.  Masked entries get p = 0, so a row that sees
+no key returns 0 here and in the plain version (`ref.flash_attention_ref`);
+every row that sees a key gets the reference's value.
 
 For a CPU tensor the wrapper runs the plain version; for a CUDA tensor it
-launches the kernel or raises.
+launches the kernel for its dtype or raises.
 """
 
 from __future__ import annotations

@@ -3,17 +3,25 @@
 Replaces the Pallas TPU kernel `src/repro/kernels/fused_transform.py`
 (`fused_transform` / `_kernel`).  The kernel source is
 `csrc/fused_transform.cu`; its header says what bounds it on the H100 and
-what its design does about that.  In short: one CTA per 32 rows × 64
-output columns loops over p tiles, builds each y tile over the whole
-contraction, keeps it in shared memory (the (b, p) intermediate never
-reaches device memory) and adds y·Bᵀ into an f32 output tile that is
-rounded to B's dtype once.
+what its design does about that.  In short: the C entry
+`repro_fused_transform_tiles` picks the body from R's size.  A small R (the
+paper's 24 × 32) takes a dense body, one CTA per 32 rows × 64 output
+columns.  A larger R takes a sparse body that works in proportion to R's
+nonzeros: each CTA takes 32 rows of x and a tile of rows of R, encodes
+them as "nonzero" / "negative" bit masks (built with warp ballots, never
+cached), adds or subtracts x's entries where the bits are set, in f32, and
+multiplies the scaled y tile, held in shared memory, by B's matching slice.
+When p is split over CTAs, they write f32 partials to a scratch buffer this
+wrapper allocates, and a second launch sums them in p-tile order and rounds
+once to B's dtype.  `launches` counts both launches.
 
 For a CPU tensor the wrapper runs the plain version (`ref.fused_transform_ref`);
 for a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -23,6 +31,16 @@ from repro_torch.kernels.ref import fused_transform_ref
 launches = 0   # kernel launches made by `fused_transform` in this process
 
 plain = fused_transform_ref
+
+
+def tiles(rows: int, m: int, p: int) -> int:
+    """The body a call of x (rows, m) and R (p, m) takes on the current
+    device: 0 for the dense body, else the sparse body's number of p tiles
+    (more than one adds the summing launch)."""
+    out = ctypes.c_int(-1)
+    _build.raise_on_error("fused_transform",
+                          _build.library().repro_fused_transform_tiles(rows, m, p, out))
+    return out.value
 
 
 def fused_transform(x: torch.Tensor, r_int8: torch.Tensor, b_mat: torch.Tensor, *,
@@ -46,9 +64,13 @@ def fused_transform(x: torch.Tensor, r_int8: torch.Tensor, b_mat: torch.Tensor, 
     out = torch.empty((rows, n), dtype=b_mat.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    n_tiles = tiles(rows, m, p)
+    part = (torch.empty((n_tiles, rows, n), dtype=torch.float32, device=x.device)
+            if n_tiles > 1 else None)
     rc = _build.library().repro_fused_transform(
         _build.ptr(x), _build.ptr(r_int8), _build.ptr(b_mat), _build.ptr(out),
-        rows, m, p, n, float(scale), x_code, b_code, _build.stream(x))
+        None if part is None else _build.ptr(part), rows, m, p, n, n_tiles, float(scale),
+        x_code, b_code, _build.stream(x))
     _build.raise_on_error(name, rc)
-    launches += 1
+    launches += 2 if n_tiles > 1 else 1   # the kernel, and the summing pass after it
     return out

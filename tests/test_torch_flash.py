@@ -29,6 +29,10 @@ KERNEL_CASES = [
     (2, 64, 64, 9, 3, 64, False, None, 64, 128),    # encoder, odd heads
     (1, 1, 160, 4, 1, 64, True, None, 8, 128),      # decode-like (q=1, MQA)
     (1, 70, 133, 8, 2, 120, True, 48, 32, 128),     # dh 120, odd skv, SWA, q_offset
+    (1, 192, 192, 8, 1, 72, True, 40, 64, 64),      # dh 72, GQA 8, window hides tiles
+    (1, 160, 160, 4, 2, 120, True, 24, 32, 64),     # dh 120, window hides tiles
+    (1, 1, 200, 8, 1, 120, True, 64, 8, 64),        # Sq = 1 at q_offset 199, GQA 8, SWA
+    (2, 1, 75, 4, 4, 72, True, None, 8, 64),        # Sq = 1 at q_offset 74, dh 72
 ]
 # (b, s, hq, hkv, dh, causal, window, qc, kc): tests/test_blocks.py
 BLOCK_CASES = [

@@ -85,6 +85,48 @@ def test_fused_transform_matches_pallas_and_oracle(rows, m, p, n, dt):
     _close(got, j_ref.fused_transform_ref(xj, jnp.asarray(r), bj, scale=0.37), tol)
 
 
+def _ternary_s(rng, p, m, s):
+    """Ternary int8 R (p, m) of density 1/s (s = 1: every entry is ±1)."""
+    u = rng.random((p, m))
+    return np.where(u < 0.5 / s, 1, np.where(u < 1.0 / s, -1, 0)).astype(np.int8)
+
+
+# ragged rows, m and p: rows not a multiple of 32, m not of 32, p not of 8
+# (rows, m, p, n): ragged everywhere; the second has rows past one 32-row
+# tile, m past one 32-column chunk and n past one 64-column tile
+DENSITY_SHAPES = [(37, 70, 21, 10), (70, 100, 40, 70)]
+
+
+@pytest.mark.parametrize("shape", DENSITY_SHAPES)
+@pytest.mark.parametrize("s", [1, 3, "p"])
+@pytest.mark.parametrize("zero_rows", [False, True])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_fused_transform_at_densities(shape, s, zero_rows, dt):
+    """The plain version (the card's oracle) against the Pallas kernel at
+    density 1/s, down to s = 1, and with rows of R that are all zero.  bf16
+    is held against the Pallas kernel only: the jnp oracle rounds its
+    intermediate to x's dtype (ROADMAP C1)."""
+    dtype, tol = DTYPES[dt]
+    rows, m, p, n = shape
+    rng = np.random.default_rng(100 + (p if s == "p" else s) + 7 * zero_rows + rows)
+    xj, xt = _pair(rng.standard_normal((rows, m)), dtype)
+    bj, bt = _pair(rng.standard_normal((n, p)) / np.sqrt(p), dtype)
+    r = _ternary_s(rng, p, m, p if s == "p" else s)
+    if zero_rows:
+        r[::3] = 0
+    got = fused_transform.fused_transform(xt, torch.from_numpy(r), bt, scale=0.37)
+    assert got.dtype == bt.dtype and tuple(got.shape) == (rows, n)
+    _close(got, pallas_fused_transform(xj, jnp.asarray(r), bj, scale=0.37, interpret=True),
+           tol)
+    if dt == "f32":
+        _close(got, j_ref.fused_transform_ref(xj, jnp.asarray(r), bj, scale=0.37), tol)
+    if zero_rows:   # a row of R that is all zero adds nothing
+        r2 = r.copy()
+        r2[::3] = 1
+        moved = fused_transform.fused_transform(xt, torch.from_numpy(r2), bt, scale=0.37)
+        assert not torch.equal(moved, got)
+
+
 def test_fused_transform_exact_on_integers():
     rng = np.random.default_rng(0)
     x = rng.integers(-8, 8, (16, 64)).astype(np.float32)

@@ -10,9 +10,13 @@ Phases (the first that fails ends the run with a non-zero exit code):
   2. kernels  — each kernel against its plain PyTorch version on the card,
                 at the reference tests' shapes (ragged odd sizes included),
                 in f32 and bf16, plus integer exactness; fused_transform
-                also at R densities down to s = 1, with all-zero rows of R,
-                in each of its bodies (dense; sparse with one p tile; sparse
-                with p split over CTAs, two launches)
+                and ternary_matmul also at R densities down to s = 1, with
+                all-zero rows of R, in each of their bodies (`tiles` /
+                `plan`: dense, sparse; fused_transform's sparse body with
+                one p tile or p split); easi_apply in each of its bodies
+                (`plan`: small, one launch; split, two) under each
+                (so, ho), each g, f32 and bf16; integers exact at the wide
+                shape for s = 1, 3 and p; two calls give the same bits
   3. paper    — the paper's model rp24_easi_n16 (RP 32→24, rotation EASI
                 24→16, block 32) on Waveform-V2: init → fit (4000 rows, 40
                 epochs) → transform (1000 rows) → train-while-serve over
@@ -21,7 +25,9 @@ Phases (the first that fails ends the run with a non-zero exit code):
   4. wide     — the repo's wide DR row (1024 → 256 → 128, block 256):
                 update + transform through the kernels, then each kernel
                 timed beside its plain version, a cuBLAS yardstick and its
-                bound (fused_transform again with R at s = 3)
+                bound (fused_transform again with R at s = 3, ternary_matmul
+                at s = 3 and 1), and its launches per call counted around
+                one call at the wide shape and one at the paper block
   5. flash    — the flash-attention kernels (bf16: tensor cores; f32: FMA)
                 against their plain version (the reference tests' shapes,
                 Dh 72 / 120 / 128 and one not a multiple of 8, GQA groups
@@ -91,6 +97,27 @@ FUSED_EDGE = [(256, 1024, 256, 128, 1, False), (256, 1024, 256, 128, 3, False),
 EASI_SHAPES = [(1, 8, 32), (32, 16, 32), (8, 24, 24), (64, 7, 100), (128, 128, 512),
                (16, 100, 300)]
 SO_HO = [(True, True), (True, False), (False, True)]
+# (rows, m, p, s, zero_rows) for ternary_matmul's two bodies: the wide row at
+# densities 1/p, 1/3 and 1, ragged shapes with every third row of R zero,
+# many row tiles, a single row, R exactly at the sparse body's 65536 entries,
+# and two shapes on the dense side
+TMM_EDGE = [(256, 1024, 256, None, False), (256, 1024, 256, 3, False),
+            (256, 1024, 256, 1, False), (77, 1000, 130, None, True), (8500, 1100, 60, 3, False),
+            (1, 1024, 256, None, False), (33, 2048, 32, None, False), (300, 2100, 70, 3, False),
+            (256, 555, 77, None, False), (4000, 32, 24, None, False)]
+# (b, n, m, so, ho, g, zeros in Y, dtype) for easi_apply's two bodies: the wide
+# row under each (so, ho), a single sample, ragged shapes with each g, long
+# blocks, n at the small body's edge (64) and just past it (65), bf16 on both
+EASI_EDGE = ([(256, 128, 256, so, ho, "cubic", False, "f32") for so, ho in SO_HO]
+             + [(1, 128, 256, True, True, "cubic", False, "f32"),
+                (300, 100, 77, True, True, "tanh", False, "f32"),
+                (33, 200, 300, True, True, "sign_cubic", True, "f32"),
+                (4000, 16, 24, False, True, "cubic", False, "f32"),
+                (32, 16, 24, False, True, "cubic", False, "f32"),
+                (32, 64, 100, True, True, "cubic", False, "f32"),
+                (32, 65, 100, True, True, "cubic", False, "f32"),
+                (32, 16, 48, True, True, "cubic", False, "bf16"),
+                (256, 128, 256, False, True, "cubic", False, "bf16")])
 
 WIDE = dict(m=1024, p=256, n=128, block=256)    # benchmarks/throughput.py:41
 PAPER = dict(m=32, p=24, n=16, block=32, mu=2e-4, epochs=40)  # configs/waveform_paper.py
@@ -302,6 +329,33 @@ def phase_kernels(dev, errs):
     if not torch.equal(tmm(xi, ri), ternary_matmul.plain(xi, ri)):
         fail("ternary_matmul: integer inputs are not exact")
     n_checks += 1
+    bodies = set()
+    for (b, m, p, s, zero_rows) in TMM_EDGE:
+        tiles = ternary_matmul.plan(b, m, p)
+        bodies.add("dense" if tiles == 0 else "sparse")
+        cfg = rp.RPConfig(m=m, p=p, sparsity=s)      # scale sqrt(s/m), as the model's
+        r = rp.sample_ternary(gen, cfg, ensure_nonzero_rows=not zero_rows)
+        if zero_rows:
+            r[::3] = 0
+        r = r.to(dev)
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            x = normal(b, m, dtype=dtype)
+            got = tmm(x, r, scale=cfg.scale)
+            note("ternary_matmul", dtype, check_close(
+                f"ternary_matmul b={b} m={m} p={p} s={cfg.s} zero_rows={zero_rows} tiles={tiles} "
+                f"{dtype}", got, ternary_matmul.plain(x, r, scale=cfg.scale), **tol))
+            if not torch.equal(got, tmm(x, r, scale=cfg.scale)):
+                fail(f"ternary_matmul b={b} m={m} p={p} s={cfg.s} {dtype}: two calls differ")
+            n_checks += 1
+    if bodies != {"dense", "sparse"}:
+        fail(f"ternary_matmul: the edge cases reach only {sorted(bodies)}")
+    for s in (1, 3, None):                         # integers stay exact at every density
+        r = rp.sample_ternary(gen, rp.RPConfig(m=WIDE["m"], p=WIDE["p"], sparsity=s)).to(dev)
+        xi = torch.randint(-8, 8, (WIDE["block"], WIDE["m"]), generator=gen).to(torch.float32)
+        xi = xi.to(dev)
+        if not torch.equal(tmm(xi, r), ternary_matmul.plain(xi, r)):
+            fail(f"ternary_matmul: integer inputs are not exact at the wide shape, s={s}")
+        n_checks += 1
 
     ft = fused_transform.fused_transform
     for (rows, m, p, n) in FUSED_SHAPES + [(WIDE["block"], WIDE["m"], WIDE["p"], WIDE["n"]),
@@ -371,6 +425,24 @@ def phase_kernels(dev, errs):
     note("easi_apply", torch.bfloat16, check_close(
         "easi_apply bf16", ea(bm, y, mu=5e-4), easi_update.plain(bm, y, mu=5e-4), **BF16_TOL))
     n_checks += 2
+    bodies = set()
+    for (b, n, m, so, ho, g, zeros, dt) in EASI_EDGE:
+        slices, _ = easi_update.plan(b, n, m, so, ho)
+        bodies.add("small" if slices == 0 else "split")
+        dtype, tol = ((torch.float32, EASI_TOL) if dt == "f32" else (torch.bfloat16, BF16_TOL))
+        bm, y = normal(n, m, dtype=dtype, scale=0.3), normal(b, n, dtype=dtype)
+        if zeros:
+            y[:, ::5] = 0.0
+        kw = dict(mu=1e-3, second_order=so, higher_order=ho, g_name=g)
+        got = ea(bm, y, **kw)
+        note("easi_apply", dtype, check_close(
+            f"easi_apply b={b} n={n} m={m} so={so} ho={ho} g={g} zeros={zeros} slices={slices} "
+            f"{dtype}", got, easi_update.plain(bm, y, **kw), **tol))
+        if not torch.equal(got, ea(bm, y, **kw)):
+            fail(f"easi_apply b={b} n={n} m={m} so={so} ho={ho} {dtype}: two calls differ")
+        n_checks += 1
+    if bodies != {"small", "split"}:
+        fail(f"easi_apply: the edge cases reach only {sorted(bodies)}")
     torch.cuda.synchronize()
     print(f"[kernels] {n_checks} checks against the plain versions passed; largest |err|: "
           + ", ".join(f"{k[0]}/{k[1]} {v:.3e}" for k, v in sorted(errs.items())))
@@ -604,12 +676,104 @@ def phase_wide(dev, errs):
               f"{dev_ms:.4f} ms; plain {plain_ms:.4f} ms (device {plain_dev_ms:.4f}); "
               f"library {lib_ms:.4f} ms (device {lib_dev_ms:.4f}); bound {bms:.6f} ms "
               f"({bby})")
-    fused_row = next(row for row in rows if row["name"] == "fused_transform")
-    fused_transform.launches = 0
-    fused_transform.fused_transform(x, r, b_mat, scale=scale)
-    fused_row["kernel_launches_per_call"] = fused_transform.launches
-    fused_row["density_s3"] = fused_density_timing(x, b_mat, bt)
+    # launches per call, counted around one call at the wide shape and one at
+    # the paper block (32, 32, 24, 16)
+    gen = torch.Generator().manual_seed(8)
+    px = torch.randn((PAPER["block"], PAPER["m"]), generator=gen).to(dev)
+    pr = (torch.randint(-1, 2, (PAPER["p"], PAPER["m"]), generator=gen)).to(torch.int8).to(dev)
+    pb = (torch.randn((PAPER["n"], PAPER["p"]), generator=gen) * 0.2).to(dev)
+    py = torch.randn((PAPER["block"], PAPER["n"]), generator=gen).to(dev)
+    calls = {
+        "ternary_matmul": (ternary_matmul, lambda: ternary_matmul.ternary_matmul(x, r, scale=scale),
+                           lambda: ternary_matmul.ternary_matmul(px, pr, scale=0.2)),
+        "fused_transform": (fused_transform,
+                            lambda: fused_transform.fused_transform(x, r, b_mat, scale=scale),
+                            lambda: fused_transform.fused_transform(px, pr, pb, scale=0.2)),
+        "easi_apply": (easi_update,
+                       lambda: easi_update.easi_apply(b_mat, y, mu=mu, second_order=False),
+                       lambda: easi_update.easi_apply(pb, py, mu=mu, second_order=False)),
+    }
+    for row in rows:
+        mod, wide_call, paper_call = calls[row["name"]]
+        per_call = {}
+        for shape, call in (("wide", wide_call), ("paper", paper_call)):
+            mod.launches = 0
+            call()
+            torch.cuda.synchronize()
+            per_call[shape] = mod.launches
+        row["kernel_launches_per_call"] = per_call
+        print(f"[launches] {row['name']}: {per_call['wide']} a call at the wide shape, "
+              f"{per_call['paper']} at the paper block")
+    by_name = {row["name"]: row for row in rows}
+    by_name["fused_transform"]["density_s3"] = fused_density_timing(x, b_mat, bt)
+    for s in (3, 1):
+        by_name["ternary_matmul"][f"density_s{s}"] = tmm_density_timing(x, s)
+    by_name["easi_apply"]["bodies"] = easi_body_timing(dev)
     return rows
+
+
+# (b, n, m, so) on either side of easi_apply's choice of body
+EASI_BODY_SHAPES = [(32, 16, 24, False), (64, 16, 256, False), (128, 32, 256, False),
+                    (32, 64, 100, True), (1024, 16, 24, False), (256, 64, 256, False),
+                    (4000, 16, 24, False)]
+
+
+def easi_body_timing(dev):
+    """easi_apply's two bodies, each forced through the C entry, at shapes on
+    either side of the plan's choice (n <= 64 here, one tile of G or a few,
+    so the split body takes up to 8 slices of at least 32 samples, as the
+    plan would give it): the measurement behind the plan's threshold."""
+    import torch
+    from repro_torch.kernels import _build, easi_update
+
+    lib, gen, out = _build.library(), torch.Generator().manual_seed(11), []
+    for (b, n, m, so) in EASI_BODY_SHAPES:
+        bm = (torch.randn((n, m), generator=gen) * 0.3).to(dev)
+        y = torch.randn((b, n), generator=gen).to(dev)
+        res = torch.empty_like(bm)
+        scratch = torch.empty((2 * n * n,), device=dev)
+        split = min(8, -(-b // 32))
+        split = -(-b // -(-b // split))
+        row = {"shape": [b, n, m], "so": so, "plan": easi_update.plan(b, n, m, so, True)[0]}
+        for body, slices in (("small", 0), ("split", split)):
+            def call():
+                _build.raise_on_error("easi_apply", lib.repro_easi_apply(
+                    _build.ptr(y), _build.ptr(bm), _build.ptr(scratch), _build.ptr(res), b, n, m,
+                    2e-4, 1.0 / b, int(so), 1, 0, slices, 0, 0, _build.stream(bm)))
+            row[f"{body}_device_ms"] = time_graph(call)
+        out.append(row)
+    print("[time] easi_apply bodies, device-only ms (small / split; the plan's choice): " + "; ".join(
+        f"{tuple(r['shape'])}{' so' if r['so'] else ''} {r['small_device_ms']:.4f} / "
+        f"{r['split_device_ms']:.4f} ({'small' if r['plan'] == 0 else 'split'})" for r in out))
+    return out
+
+
+def tmm_density_timing(x, s):
+    """ternary_matmul at the wide shape with R of density 1/s, beside
+    torch.mm on a float R: how its time follows R's density.  No target."""
+    import torch
+    from repro_torch.core import random_projection as rp
+    from repro_torch.kernels import ternary_matmul
+
+    blk, m = x.shape
+    cfg = rp.RPConfig(m=m, p=WIDE["p"], sparsity=s)
+    r = rp.sample_ternary(torch.Generator().manual_seed(10 + s), cfg).to(x.device)
+    nnz = int((r != 0).sum())
+    w = (r.to(torch.float32) * cfg.scale).T.contiguous()
+    kern = lambda: ternary_matmul.ternary_matmul(x, r, scale=cfg.scale)
+    plain = lambda: ternary_matmul.plain(x, r, scale=cfg.scale)
+    lib = lambda: torch.mm(x, w)
+    err = check_close(f"ternary_matmul at the wide shape, s = {s}", kern(), plain(), **F32_TOL)
+    dev_ms, plain_dev_ms, lib_dev_ms = time_graph(kern), time_graph(plain), time_graph(lib)
+    flops = 2.0 * blk * nnz
+    nbytes = 4 * blk * m + WIDE["p"] * m + 4 * blk * WIDE["p"]
+    bms, bby = bound_ms(flops, nbytes)
+    print(f"[time] ternary_matmul {(blk, m, WIDE['p'])} R at s = {s} ({nnz} nonzeros): "
+          f"device-only {dev_ms:.4f} ms; plain (device) {plain_dev_ms:.4f} ms; torch.mm "
+          f"(device) {lib_dev_ms:.4f} ms; bound {bms:.6f} ms ({bby}); max |err| {err:.3e}")
+    return {"s": s, "nnz": nnz, "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+            "library_device_ms": lib_dev_ms, "bound_ms": bms, "bound_by": bby,
+            "max_abs_err": err, "flops": flops, "bytes": nbytes}
 
 
 def fused_density_timing(x, b_mat, bt):

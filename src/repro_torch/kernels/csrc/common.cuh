@@ -12,9 +12,10 @@ namespace repro_torch {
 // dtype codes; kernels/_build.py holds the same table (DTYPE_CODES)
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
-// The tiling of ternary_matmul, easi_update and fused_transform's dense
-// body (fused_transform's sparse body and flash_attention define their own
-// in their sources): a 32 x 32 output tile with 16 x 16 threads, each thread owning the 2 x 2 patch
+// The tiling of the dense bodies of ternary_matmul and fused_transform and of
+// easi_update's Gram kernel (the sparse bodies, ternary_encode.cuh, easi's
+// other kernels and flash_attention define their own): a 32 x 32 output
+// tile with 16 x 16 threads, each thread owning the 2 x 2 patch
 // {ty, ty + 16} x {tx, tx + 16} (strided so a warp reads consecutive
 // shared-memory words), walking the contraction in chunks of TK held in
 // shared memory.  Shared arrays are padded by one column so that the
@@ -34,5 +35,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 __host__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// The current device's SM count.
+__host__ inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return rc;
+}
 
 }  // namespace repro_torch

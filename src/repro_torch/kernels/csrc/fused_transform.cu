@@ -24,24 +24,12 @@
 //         64) is chosen so that a small batch still puts about two CTAs on
 //         each SM (256 CTAs at (256, 1024, 256, 128)); where the row tiles
 //         alone fill the card, pt is 64.
-//       - Encoding, built inside the CTA and never cached: warp w owns rows
-//         w, w + 8, ... of the CTA's rows of R.  For each row and 32-column
-//         chunk it makes two 32-bit words, "nonzero" and "negative", with
-//         __ballot_sync over one coalesced 32-byte read; 16 reads are in
-//         flight at a time.
-//       - Projection: lanes run over the 32 rows of x, so the warp walks
-//         each word without diverging: for each set bit, y += neg ? -x : x.
-//         It visits only the nonzero words of a batch (a ballot lists them).
-//         A word with few set bits (the density-1/p case) queues its
-//         columns, and the warp reads them straight from device memory, 8
-//         reads in flight a lane; a word with 8 or more stages its 32 x 32
-//         chunk of x in the warp's own shared memory, transposed and
-//         zero-filled, and reads it there.  No step of the projection waits
-//         on another warp.
-//       - Code size and occupancy: the staging and the queue's reads are
-//         out-of-line functions (called from several places, kept once),
-//         and the kernel is held to 128 registers so that two CTAs share an
-//         SM and the wide grid runs in one wave.
+//       - Encoding and projection: ternary_encode.cuh (shared with
+//         ternary_matmul's sparse body): per-warp "nonzero" / "negative"
+//         ballot masks of R, built per call and never cached; lanes run
+//         over 32 rows of x and add or subtract x where bits are set.
+//       - Occupancy: the kernel is held to 128 registers so that two CTAs
+//         share an SM and the wide grid runs in one wave.
 //       - Whitening: the scaled y tile (32 x pt, f32, shared memory) times
 //         B's matching slice, which is loaded before the encoding when it
 //         fits in shared memory.  With one p tile the CTA rounds the sum to
@@ -50,27 +38,13 @@
 //         p-tile order (no float atomics, the same result on every run) and
 //         rounds once to B's dtype.  That launch is a programmatic
 //         dependent (Hopper's PDL), scheduled while the main grid drains.
-#include "common.cuh"
+#include "ternary_encode.cuh"
 
 using namespace repro_torch;
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int FT_ROWS = 32;        // rows of x per CTA: one per lane
-constexpr int FT_WARPS = 8;
-constexpr int FT_THREADS = 32 * FT_WARPS;
-constexpr int FT_PMAX = 64;        // rows of R per CTA at most
-constexpr int FT_PMIN = FT_WARPS;  // and at least one for each warp, where p allows
-constexpr int FT_CTAS_PER_SM = 2;  // the sparse grid's target
-constexpr int FT_DENSE_MAX_R = 65536;   // a smaller R (p * m entries) takes the dense body
 constexpr int FT_DN = 64;          // dense body: output columns per CTA
-constexpr int FT_EB = 16;          // reads of R in flight per warp
-constexpr int FT_SB = 16;          // reads of x in flight per lane while staging
-constexpr int FT_STAGE = 8;        // a word with this many set bits stages its chunk
-constexpr int FT_BATCH = 8;        // direct reads of x in flight per lane
-constexpr int FT_QUEUE = 64;       // queued direct reads per warp
-constexpr int FT_XLD = 33;         // padded row of a staged chunk
 constexpr int FT_NC = 64;          // output columns per pass of the product
 constexpr int FT_BCAP = 4224;      // floats of B's slice held in shared memory
 constexpr int FT_BPT = 16;         // of them loaded per thread before the encoding
@@ -163,56 +137,6 @@ struct FtSmem {
                                     // pass's out-of-range columns inside the array)
 };
 
-// An empty asm that needs v: the loads that feed v are all issued before it,
-// so loads written together are in flight together.
-__device__ __forceinline__ void hold(uint32_t v) { asm volatile("" ::"r"(v)); }
-
-// stage chunk cc of x for the warp: lane l loads column 32 cc + l of the
-// 32 rows, transposed into xs[l][row], zero past rows and m
-template <typename TX>
-__device__ __noinline__ void ft_stage(float (*xs)[FT_XLD], const TX* __restrict__ x, int row0,
-                                int rows, int m, int cc, int lane) {
-  const int col = cc * 32 + lane;
-#pragma unroll
-  for (int h0 = 0; h0 < FT_ROWS; h0 += FT_SB) {
-    float xv[FT_SB];
-    uint32_t hh = 0;
-#pragma unroll
-    for (int u = 0; u < FT_SB; ++u) {
-      const int g = row0 + h0 + u;
-      xv[u] = (g < rows && col < m) ? to_f32(x[(size_t)g * m + col]) : 0.f;
-      hh |= __float_as_uint(xv[u]);
-    }
-    hold(hh);
-#pragma unroll
-    for (int u = 0; u < FT_SB; ++u) xs[lane][h0 + u] = xv[u];
-  }
-}
-
-// add the queued columns of x into y, FT_BATCH reads in flight
-template <typename TX>
-__device__ __noinline__ void ft_flush(const int* q, int qlen, float (*ys)[FT_ROWS],
-                                         const TX* xrow, bool row_in, int pl) {
-  for (int i0 = 0; i0 < qlen; i0 += FT_BATCH) {
-    int ent[FT_BATCH];
-    float xv[FT_BATCH];
-    uint32_t h = 0;
-#pragma unroll
-    for (int t = 0; t < FT_BATCH; ++t) {
-      ent[t] = i0 + t < qlen ? q[i0 + t] : -1;
-      xv[t] = (row_in && ent[t] >= 0) ? to_f32(xrow[ent[t] >> 7]) : 0.f;
-      h |= __float_as_uint(xv[t]);
-    }
-    hold(h);
-#pragma unroll
-    for (int t = 0; t < FT_BATCH; ++t) {
-      if (ent[t] < 0) continue;
-      float& y = ys[(ent[t] >> 1) & (FT_PMAX - 1)][pl];
-      y += (ent[t] & 1) ? -xv[t] : xv[t];
-    }
-  }
-}
-
 template <typename TX, typename TB>
 __global__ void __launch_bounds__(FT_THREADS, 2)
 fused_transform_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
@@ -224,12 +148,6 @@ fused_transform_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * FT_ROWS, p0 = blockIdx.y * pt;
   const int np = min(pt, p - p0);
-  const int gr = row0 + lane;
-  const bool row_in = gr < rows;
-  const TX* xrow = x + (size_t)(row_in ? gr : 0) * m;
-  const int pl = (lane & 3) * 8 + (lane >> 2);   // this lane's column of ys
-  const int nchunks = (m + 31) / 32;
-
   // B's slice is held whole when it fits (else it is staged 64 output
   // columns at a time in the product); a thread's first FT_BPT elements
   // (B[c][p0 + j], j fastest) are loaded now, their round trip overlapping
@@ -254,86 +172,8 @@ fused_transform_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
     }
   }
 
-  // rows of R this warp owns: j = warp + 8 i, i < nrw; ys[j][pl] is this lane's
-  const int nrw = np > warp ? (np - 1 - warp) / FT_WARPS + 1 : 0;
-  for (int i = 0; i < nrw; ++i) sm.ys[warp + FT_WARPS * i][pl] = 0.f;
-  float(*xs)[FT_XLD] = sm.xs[warp];
-  int* q = sm.queue[warp];
-  int qlen = 0, staged = -1;   // warp-uniform
-
-  // (chunk, row) pairs in order, row fastest
-  const int npairs = nrw * nchunks;
-  for (int s0 = 0; s0 < npairs; s0 += FT_EB) {
-    int v[FT_EB];
-    uint32_t h = 0;
-    {
-      int c = s0 / nrw, i = s0 % nrw;
-#pragma unroll
-      for (int t = 0; t < FT_EB; ++t) {
-        const int col = c * 32 + lane;
-        v[t] = (s0 + t < npairs && col < m)
-                   ? r[(size_t)(p0 + warp + FT_WARPS * i) * m + col] : 0;
-        h |= (uint32_t)v[t];
-        if (++i == nrw) {
-          i = 0;
-          ++c;
-        }
-      }
-    }
-    hold(h);
-    uint32_t my_nz = 0, my_ng = 0;   // lane t keeps the words of slot t
-#pragma unroll
-    for (int t = 0; t < FT_EB; ++t) {
-      const uint32_t nz = __ballot_sync(FULL, v[t] != 0);
-      const uint32_t ng = __ballot_sync(FULL, v[t] < 0);
-      if (lane == t) {
-        my_nz = nz;
-        my_ng = ng;
-      }
-    }
-    // only the slots with a nonzero word, in order (about 1 in 8 of them at
-    // density 1/p); slots past npairs read zeros
-    uint32_t live = __ballot_sync(FULL, my_nz != 0);
-    while (live) {
-      const int t = __ffs(live) - 1;
-      live &= live - 1;
-      const uint32_t bits = __shfl_sync(FULL, my_nz, t);
-      const uint32_t neg = __shfl_sync(FULL, my_ng, t);
-      const int cc = (s0 + t) / nrw, j = warp + FT_WARPS * ((s0 + t) % nrw);
-      const int cnt = __popc(bits);
-      if (cnt >= FT_STAGE) {
-        if (staged != cc) {
-          __syncwarp();
-          ft_stage(xs, x, row0, rows, m, cc, lane);
-          __syncwarp();
-          staged = cc;
-        }
-        float y = sm.ys[j][pl];
-        uint32_t b2 = bits;
-        while (b2) {
-          const int bit = __ffs(b2) - 1;
-          b2 &= b2 - 1;
-          const float xv = xs[bit][lane];
-          y += ((neg >> bit) & 1u) ? -xv : xv;
-        }
-        sm.ys[j][pl] = y;
-      } else {
-        if (qlen + cnt > FT_QUEUE) {
-          __syncwarp();
-          ft_flush(q, qlen, sm.ys, xrow, row_in, pl);
-          qlen = 0;
-          __syncwarp();
-        }
-        if ((bits >> lane) & 1u)
-          q[qlen + __popc(bits & ((1u << lane) - 1u))] =
-              ((cc * 32 + lane) << 7) | (j << 1) | (int)((neg >> lane) & 1u);
-        qlen += cnt;
-      }
-    }
-  }
-  __syncwarp();
-  ft_flush(q, qlen, sm.ys, xrow, row_in, pl);
-  for (int i = 0; i < nrw; ++i) sm.ys[warp + FT_WARPS * i][pl] *= scale;
+  ft_project<FT_ROWS>(sm.ys, sm.xs[warp], sm.queue[warp], x, r, row0, rows, m, p0, np, scale,
+                      warp, lane);
 
   // out tile (32 rows x n) += y (32 x np) @ B[:, p0 : p0 + np]^T; thread
   // (rg, cc) owns rows rg + 4 i (ys columns 8 rg + i) of output column cc
@@ -473,15 +313,10 @@ extern "C" int repro_fused_transform_tiles(int rows, int m, int p, int* tiles) {
     *tiles = 0;
     return 0;
   }
-  int dev = 0, sms = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t rc = sm_count(&sms);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const int row_tiles = ceil_div(rows, FT_ROWS), target = FT_CTAS_PER_SM * sms;
-  int splits = ceil_div(p, FT_PMAX);
-  if (row_tiles < target)   // more p tiles, down to FT_PMIN rows of R each
-    splits = max(splits, min(ceil_div(p, FT_PMIN), ceil_div(target, row_tiles)));
-  *tiles = ceil_div(p, ceil_div(p, splits));
+  *tiles = ft_p_tiles(rows, p, sms);
   return 0;
 }
 

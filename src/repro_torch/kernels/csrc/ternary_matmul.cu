@@ -3,20 +3,33 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/ternary_matmul.py
 // (ternary_matmul / _kernel).
 //
-// Bound on the H100: the dense work is 2*b*m*p FMA operations in f32 (no
-// tensor cores in this kernel), the bytes are x once, R once at one byte an
-// entry and y once.  At the repo's wide row (b=256, m=1024, p=256) the dense
-// FLOPs dominate; the work R's sparsity actually needs (2*b*nnz(R)) is
-// bytes-bound.
+// Bound on the H100: the work R's nonzeros need, 2*b*nnz(R) adds, against
+// x, R (one byte an entry) and y moved once.  At the repo's wide row (b = 256,
+// m = 1024, p = 256, R of density 1/p, about 1,030 nonzeros) the bytes bound
+// it, and a kernel is bound by latency: launch and a few round trips to
+// memory.  A dense product would do 256 times the work, 99.6% of it on zeros.
 //
-// Design: one CTA owns one 32 x 32 output tile and loops over the whole
-// contraction in chunks of 32 (the TPU grid's k axis becomes this loop,
-// since CTAs keep no scratch between them).  R is loaded as int8 and widened
-// to f32 on its way into shared memory, so the device-memory traffic for R
-// stays one byte an entry.  The sum is kept in f32 across all of k, scaled
-// once and rounded once to x's dtype (the TPU kernel rounds once per k tile
-// in bf16).  Ragged edges are masked with zeros, which keeps them exact.
-#include "common.cuh"
+// Two bodies, chosen by R's size (repro_ternary_matmul_plan), one launch
+// each, both f32 exact (adds or FMAs in f32, never TF32; bf16 x widened; the
+// sum scaled once and rounded once to x's dtype; no atomics, so the same
+// inputs give the same bits on every run):
+//   - dense, for R of fewer than FT_DENSE_MAX_R entries (the paper's 24 x
+//     32): one CTA owns one 32 x 32 output tile and loops over the whole
+//     contraction in chunks of 32 (the TPU grid's k axis becomes this loop).
+//     R is widened to f32 on its way into shared memory.  At these sizes its
+//     one short round trip per chunk beats any encoding.
+//   - sparse, for larger R: work in proportion to R's nonzeros, with the
+//     encoding and projection of ternary_encode.cuh (B1's): each warp builds
+//     "nonzero" / "negative" ballot masks of its rows of R per call, visits
+//     only the nonzero words, and adds or subtracts x where bits are set,
+//     lanes running over 32 rows of x.  Each column of y depends on one row
+//     of R alone, so the p tiles are independent: no partials and no second
+//     launch.  Grid: (row tiles of 32) x (p tiles), the p tile chosen as for
+//     B1 so that a small batch still puts about two CTAs on each SM (8 x 32 =
+//     256 CTAs at the wide row).  The scaled y tile sits in shared memory,
+//     padded so that the epilogue reads it without bank conflicts, and is
+//     written coalesced along p.
+#include "ternary_encode.cuh"
 
 using namespace repro_torch;
 
@@ -24,8 +37,8 @@ namespace {
 
 template <typename TX>
 __global__ void __launch_bounds__(NTHREADS)
-ternary_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
-                      TX* __restrict__ out, int b, int m, int p, float scale) {
+ternary_matmul_dense_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
+                            TX* __restrict__ out, int b, int m, int p, float scale) {
   __shared__ float xs[TK][TILE + 1];  // x tile, transposed: xs[k][row]
   __shared__ float rs[TK][TILE + 1];  // R tile widened to f32: rs[k][col]
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -63,25 +76,79 @@ ternary_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
   }
 }
 
+// ---- sparse body -----------------------------------------------------------
+
+struct TmSmem {
+  float ys[FT_PMAX][FT_ROWS + 1];   // y tile; row r of x sits in column (r % 4) * 8 + r / 4
+  float xs[FT_WARPS][32][FT_XLD];   // a warp's staged chunk of x, transposed: xs[w][k][row]
+  int queue[FT_WARPS][FT_QUEUE];    // a warp's queued reads: col << 7 | j << 1 | negative
+};
+
 template <typename TX>
-void launch(const void* x, const int8_t* r, void* out, int b, int m, int p, float scale,
-            cudaStream_t stream) {
-  const dim3 grid(ceil_div(b, TILE), ceil_div(p, TILE));
-  const dim3 block(HALF, HALF);
-  ternary_matmul_kernel<TX><<<grid, block, 0, stream>>>(
-      static_cast<const TX*>(x), r, static_cast<TX*>(out), b, m, p, scale);
+__global__ void __launch_bounds__(FT_THREADS, 2)
+ternary_matmul_sparse_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
+                             TX* __restrict__ out, int b, int m, int p, int pt, float scale) {
+  __shared__ TmSmem sm;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * FT_ROWS, p0 = blockIdx.y * pt;
+  const int np = min(pt, p - p0);
+  ft_project<FT_ROWS + 1>(sm.ys, sm.xs[warp], sm.queue[warp], x, r, row0, b, m, p0, np, scale,
+                          warp, lane);
+  __syncthreads();
+  // neighbouring threads write neighbouring columns of a row of y
+  const int nr = min(FT_ROWS, b - row0);
+  for (int e = tid; e < nr * np; e += FT_THREADS) {
+    const int i = e / np, j = e % np;
+    out[(size_t)(row0 + i) * p + p0 + j] = from_f32<TX>(sm.ys[j][(i & 3) * 8 + (i >> 2)]);
+  }
+}
+
+template <typename TX>
+void launch(const void* x, const int8_t* r, void* out, int b, int m, int p, int tiles,
+            float scale, cudaStream_t stream) {
+  const TX* xt = static_cast<const TX*>(x);
+  TX* ot = static_cast<TX*>(out);
+  if (tiles == 0) {
+    const dim3 grid(ceil_div(b, TILE), ceil_div(p, TILE));
+    ternary_matmul_dense_kernel<TX><<<grid, dim3(HALF, HALF), 0, stream>>>(xt, r, ot, b, m, p,
+                                                                            scale);
+    return;
+  }
+  const dim3 grid(ceil_div(b, FT_ROWS), tiles);
+  ternary_matmul_sparse_kernel<TX><<<grid, FT_THREADS, 0, stream>>>(xt, r, ot, b, m, p,
+                                                                    ceil_div(p, tiles), scale);
 }
 
 }  // namespace
 
+// The body a call of x (b, m) and R (p, m) takes on the current device:
+// *tiles = 0 for the dense body, else the sparse body's number of p tiles.
+// Either body is one launch.
+extern "C" int repro_ternary_matmul_plan(int b, int m, int p, int* tiles) {
+  if (b < 1 || m < 0 || p < 1 || tiles == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)p * m < FT_DENSE_MAX_R) {
+    *tiles = 0;
+    return 0;
+  }
+  int sms = 0;
+  const cudaError_t rc = sm_count(&sms);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  *tiles = ft_p_tiles(b, p, sms);
+  return 0;
+}
+
 extern "C" int repro_ternary_matmul(const void* x, const void* r, void* out, int b, int m,
                                     int p, float scale, int x_dtype, void* stream) {
+  if (m >= (1 << 24)) return static_cast<int>(cudaErrorInvalidValue);   // queue entries
+  int tiles = 0;
+  const int rc = repro_ternary_matmul_plan(b, m, p, &tiles);
+  if (rc != 0) return rc;
   const int8_t* r8 = static_cast<const int8_t*>(r);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == kF32) {
-    launch<float>(x, r8, out, b, m, p, scale, s);
+    launch<float>(x, r8, out, b, m, p, tiles, scale, s);
   } else if (x_dtype == kBF16) {
-    launch<__nv_bfloat16>(x, r8, out, b, m, p, scale, s);
+    launch<__nv_bfloat16>(x, r8, out, b, m, p, tiles, scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -7,12 +7,14 @@ Replaces the Pallas TPU kernel `src/repro/kernels/easi_update.py`
     B ← B − μ G B
 
 The kernel source is `csrc/easi_update.cu`; its header says what bounds it
-on the H100 and what its design does about that.  In short: two launches
-on one stream.  The TPU kernel computed G once into scratch on grid step 0
-and reused it across column tiles; CTAs share no scratch, so a first launch
-reduces G (f32, n × n) over the whole block inside each of its CTAs into a
-buffer this wrapper allocates, and a second computes B − μ G B tile by tile.
-One call of `easi_apply` is one launch in `launches`.
+on the H100 and what its design does about that.  In short: the C entry
+picks the body (`plan`).  Where G is small (the paper's n = 16) one launch
+does it all, as the TPU kernel does: each CTA builds G (f32, n × n) in
+shared memory from the whole block, then updates its columns of B.  A
+larger G takes two launches: the Gram products over (tiles of G) × (slices
+of the samples), each tile's slices summed in order inside a thread block
+cluster into f32 scratch this wrapper allocates, then B − μ G B tile by
+tile.  `launches` counts the kernel launches made: 1 or 2 a call.
 
 For a CPU tensor the wrapper runs the plain version (`ref.easi_apply_ref`);
 for a CUDA tensor it launches the kernel or raises.
@@ -20,16 +22,30 @@ for a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import easi_apply_ref
 
-launches = 0   # easi_apply kernel calls (G launch + update launch) in this process
+launches = 0   # kernel launches made by `easi_apply` in this process
 
 plain = easi_apply_ref
 
 G_KINDS = {"cubic": 0, "tanh": 1, "sign_cubic": 2}
+
+
+def plan(b: int, n: int, m: int, second_order: bool = True,
+         higher_order: bool = True) -> tuple[int, int]:
+    """The body a call with y (b, n) and B (n, m) takes on the current
+    device, as (slices, scratch): slices 0 for the one-launch small body,
+    else the split body's number of sample slices (two launches); scratch,
+    the f32 values of scratch the call needs."""
+    out = (ctypes.c_int * 2)(-1, -1)
+    _build.raise_on_error("easi_apply", _build.library().repro_easi_apply_plan(
+        b, n, m, int(second_order), int(higher_order), out))
+    return out[0], out[1]
 
 
 def easi_apply(b_mat: torch.Tensor, y: torch.Tensor, *, mu: float,
@@ -56,11 +72,13 @@ def easi_apply(b_mat: torch.Tensor, y: torch.Tensor, *, mu: float,
     out = torch.empty_like(b_mat)
     if out.numel() == 0:
         return out
-    g_scratch = torch.empty((n, n), dtype=torch.float32, device=b_mat.device)
+    slices, n_scratch = plan(bsz, n, m, second_order, higher_order)
+    scratch = (torch.empty((n_scratch,), dtype=torch.float32, device=b_mat.device)
+               if n_scratch else None)
     rc = _build.library().repro_easi_apply(
-        _build.ptr(y), _build.ptr(b_mat), _build.ptr(g_scratch), _build.ptr(out),
-        bsz, n, m, float(mu), 1.0 / bsz, int(second_order), int(higher_order),
-        G_KINDS[g_name], y_code, b_code, _build.stream(b_mat))
+        _build.ptr(y), _build.ptr(b_mat), None if scratch is None else _build.ptr(scratch),
+        _build.ptr(out), bsz, n, m, float(mu), 1.0 / bsz, int(second_order),
+        int(higher_order), G_KINDS[g_name], slices, y_code, b_code, _build.stream(b_mat))
     _build.raise_on_error(name, rc)
-    launches += 1
+    launches += 2 if slices else 1   # the Gram launch and the update, or the one small body
     return out

@@ -3,16 +3,21 @@
 Replaces the Pallas TPU kernel `src/repro/kernels/ternary_matmul.py`
 (`ternary_matmul` / `_kernel`).  The kernel source is
 `csrc/ternary_matmul.cu`; its header says what bounds it on the H100 and
-what its design does about that.  In short: one CTA per 32 × 32 output
-tile loops over the whole contraction, R travels as int8 and is widened on
-its way into shared memory, and the sum stays in f32 until one final
-rounding to x's dtype.
+what its design does about that.  In short: the C entry picks the body from
+R's size (`plan`).  A small R (the paper's 24 × 32) takes a dense body, one
+CTA per 32 × 32 output tile looping over the whole contraction.  A larger R
+takes a sparse body that works in proportion to R's nonzeros, with
+fused_transform's encoding (`csrc/ternary_encode.cuh`): per-call "nonzero" /
+"negative" bit masks of R, and x added or subtracted where bits are set.
+Either body is one launch, sums in f32 and rounds once to x's dtype.
 
 For a CPU tensor the wrapper runs the plain version (`ref.ternary_matmul_ref`);
 for a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -22,6 +27,16 @@ from repro_torch.kernels.ref import ternary_matmul_ref
 launches = 0   # kernel launches made by `ternary_matmul` in this process
 
 plain = ternary_matmul_ref
+
+
+def plan(b: int, m: int, p: int) -> int:
+    """The body a call of x (b, m) and R (p, m) takes on the current device:
+    0 for the dense body, else the sparse body's number of p tiles (one
+    launch either way)."""
+    out = ctypes.c_int(-1)
+    _build.raise_on_error("ternary_matmul",
+                          _build.library().repro_ternary_matmul_plan(b, m, p, out))
+    return out.value
 
 
 def ternary_matmul(x: torch.Tensor, r_int8: torch.Tensor, *,

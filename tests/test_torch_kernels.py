@@ -127,6 +127,41 @@ def test_fused_transform_at_densities(shape, s, zero_rows, dt):
         assert not torch.equal(moved, got)
 
 
+# (b, m, p, s, zero_rows): the two ragged density shapes at s = 1, 3 and p,
+# with and without all-zero rows of R, then the shapes of chip_smoke.py's
+# TMM_EDGE that interpret mode runs in seconds (the wide row at each density,
+# ragged with zero rows, a single row, R at exactly 65536 entries, many row
+# tiles on the dense side)
+TMM_DENSITY_CASES = (
+    [(b, m, p, s, z) for (b, m, p) in [(37, 70, 21), (70, 100, 40)] for s in (1, 3, "p")
+     for z in (False, True)]
+    + [(256, 1024, 256, "p", False), (256, 1024, 256, 3, False), (256, 1024, 256, 1, False),
+       (77, 1000, 130, "p", True), (1, 1024, 256, "p", False), (33, 2048, 32, "p", False),
+       (300, 2100, 70, 3, False), (256, 555, 77, "p", False), (4000, 32, 24, "p", False)])
+
+
+@pytest.mark.parametrize("b,m,p,s,zero_rows", TMM_DENSITY_CASES)
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_ternary_matmul_at_densities(b, m, p, s, zero_rows, dt):
+    """The plain version (the card's oracle) against the Pallas kernel and
+    the jnp oracle at density 1/s, down to s = 1, and with rows of R that
+    are all zero, at the model's scale sqrt(s / m) (RPConfig.scale)."""
+    dtype, tol = DTYPES[dt]
+    s = p if s == "p" else s
+    rng = np.random.default_rng(200 + s + 7 * zero_rows + b + m)
+    xj, xt = _pair(rng.standard_normal((b, m)), dtype)
+    r = _ternary_s(rng, p, m, s)
+    if zero_rows:
+        r[::3] = 0
+    scale = float(np.sqrt(s / m))
+    got = ternary_matmul.ternary_matmul(xt, torch.from_numpy(r), scale=scale)
+    assert got.dtype == xt.dtype and tuple(got.shape) == (b, p)
+    _close(got, pallas_ternary_matmul(xj, jnp.asarray(r), scale=scale, interpret=True), tol)
+    _close(got, j_ref.ternary_matmul_ref(xj, jnp.asarray(r), scale=scale), tol)
+    if zero_rows:   # a row of R that is all zero gives a zero column of y
+        assert not got[:, ::3].to(torch.float32).any()
+
+
 def test_fused_transform_exact_on_integers():
     rng = np.random.default_rng(0)
     x = rng.integers(-8, 8, (16, 64)).astype(np.float32)
@@ -150,6 +185,32 @@ def _easi_inputs(seed, b, n, m, scale=0.3):
 def test_easi_apply_matches_pallas_and_oracle(b, n, m, so, ho):
     b_mat, y = _easi_inputs(b + n * 31 + m * 7, b, n, m)
     kw = dict(mu=1e-3, second_order=so, higher_order=ho)
+    got = easi_update.easi_apply(torch.from_numpy(b_mat), torch.from_numpy(y), **kw)
+    want_p = pallas_easi_apply(jnp.asarray(b_mat), jnp.asarray(y), interpret=True, **kw)
+    want_o = j_ref.easi_apply_ref(jnp.asarray(b_mat), jnp.asarray(y), **kw)
+    for want in (want_p, want_o):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-6)
+
+
+# (b, n, m, so, ho, g, zeros in Y): a single sample, n = 200, a ragged shape
+# with each g, the wide row under each (so, ho), a long block, and n at the
+# edge of the card's one-launch body and past it
+EASI_EDGE_CASES = (
+    [(1, 128, 256, True, True, "cubic", False),
+     (33, 200, 300, True, True, "sign_cubic", True)]
+    + [(300, 100, 77, True, True, g, False) for g in ("cubic", "tanh", "sign_cubic")]
+    + [(256, 128, 256, so, ho, "cubic", False)
+       for so, ho in [(True, True), (True, False), (False, True)]]
+    + [(4000, 16, 24, False, True, "cubic", False), (32, 64, 100, True, True, "cubic", False),
+       (32, 65, 100, True, True, "cubic", False)])
+
+
+@pytest.mark.parametrize("b,n,m,so,ho,g_name,zeros", EASI_EDGE_CASES)
+def test_easi_apply_edge_shapes(b, n, m, so, ho, g_name, zeros):
+    b_mat, y = _easi_inputs(b + 3 * n + m, b, n, m)
+    if zeros:
+        y[:, ::5] = 0.0
+    kw = dict(mu=1e-3, second_order=so, higher_order=ho, g_name=g_name)
     got = easi_update.easi_apply(torch.from_numpy(b_mat), torch.from_numpy(y), **kw)
     want_p = pallas_easi_apply(jnp.asarray(b_mat), jnp.asarray(y), interpret=True, **kw)
     want_o = j_ref.easi_apply_ref(jnp.asarray(b_mat), jnp.asarray(y), **kw)

@@ -28,13 +28,25 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 bound (fused_transform again with R at s = 3, ternary_matmul
                 at s = 3 and 1), and its launches per call counted around
                 one call at the wide shape and one at the paper block
-  5. flash    — the flash-attention kernels (bf16: tensor cores; f32: FMA)
+  5. serve    — the serving engine (`repro_torch.serve.DRService`) with the
+                wide model and the kernel backend in the reference's default
+                buckets (8 … 1024): `register` captures one CUDA graph per
+                bucket (launches counted per captured program, the body each
+                reaches); a ragged stream of requests through submit + flush,
+                each answer bit-identical to the eager kernel call on the
+                padded bucket and within OUT_TOL of the torch backend;
+                promote / rollback with no rebuild; train-while-serve (the
+                paper model's 5000 blocks of a 40-epoch fit and 8 wide blocks,
+                then promote, against `fit` on the torch backend); a threaded
+                DeadlineScheduler with four clients while a fifth thread
+                registers a second model; stand-in latency and rate numbers
+  6. flash    — the flash-attention kernels (bf16: tensor cores; f32: FMA)
                 against their plain version (the reference tests' shapes,
                 Dh 72 / 120 / 128 and one not a multiple of 8, GQA groups
                 1 / 4 / 8, windows that hide whole 64-key tiles, q_offset
                 with Sq = 1, Skv not a multiple of 64; f32 and bf16; rows
                 that see no key are 0)
-  6. lm       — h2o-danube-3-4b at full width and depth (24 layers, seeded
+  7. lm       — h2o-danube-3-4b at full width and depth (24 layers, seeded
                 random weights) served through `serve_step.make_prefill` /
                 `make_decode` with the kernel backend: request A (4 prompts
                 of 1024 tokens, 16 greedy decode steps) and request B (one
@@ -263,6 +275,35 @@ def time_graph(fn, iters: int = 100, replays: int = 10) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
+def time_queued(fn, iters: int = 50, warmup: int = 10):
+    """ms per call on the device alone of `iters` back-to-back calls made as a
+    caller makes them (host code, copies, replays): a spin kernel holds the
+    device while the host queues the calls, so the CUDA events around them see
+    every device op of the calls and no host gap.  None when the host was
+    still queueing as the spin ended, even at the longest spin."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    cycles = 10 ** 8
+    for _ in range(3):
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t_host = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if t_host < spin.elapsed_time(start):
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    return None
+
+
 def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -453,33 +494,41 @@ def phase_kernels(dev, errs):
 # ---------------------------------------------------------------------------
 
 def reset_counts():
-    from repro_torch.kernels import easi_update, fused_transform, ternary_matmul
+    """Every kernel wrapper's launch count set to 0."""
+    from repro_torch.kernels import easi_update, flash_attention, fused_transform, ternary_matmul
 
-    for mod in (ternary_matmul, fused_transform, easi_update):
+    for mod in (ternary_matmul, fused_transform, easi_update, flash_attention):
         mod.launches = 0
 
 
 def read_counts():
-    from repro_torch.kernels import easi_update, fused_transform, ternary_matmul
+    """The DR kernels' launch counts (each wrapper's `launches`)."""
+    from repro_torch import kernels
 
-    return {"ternary_matmul": ternary_matmul.launches,
-            "fused_transform": fused_transform.launches,
-            "easi_apply": easi_update.launches}
+    counts = kernels.launch_counts()
+    return {k: counts[k] for k in ("ternary_matmul", "fused_transform", "easi_apply")}
+
+
+def paper_data(dev):
+    """Waveform-V2's paper split on `dev`: centred, one global scalar scale
+    fitted on the 4000 training rows."""
+    import torch
+    from repro_torch.data import waveform
+
+    (xtr, _), (xte, _) = waveform.paper_split(seed=0)
+    xtr, xte = torch.from_numpy(xtr).to(dev), torch.from_numpy(xte).to(dev)
+    mean = xtr.mean(0)
+    scale = torch.sqrt(torch.mean(torch.var(xtr - mean, dim=0, correction=0))) + 1e-8
+    return (xtr - mean) / scale, (xte - mean) / scale
 
 
 def phase_paper(dev):
     import numpy as np
     import torch
     from repro_torch.core.easi import whiteness_kl
-    from repro_torch.data import waveform
     from repro_torch.dr import DRModel, EASIStage, Execution, RPStage
 
-    (xtr, _), (xte, _) = waveform.paper_split(seed=0)
-    xtr, xte = torch.from_numpy(xtr).to(dev), torch.from_numpy(xte).to(dev)
-    # centre + one global scalar scale, fitted on the training rows
-    mean = xtr.mean(0)
-    scale = torch.sqrt(torch.mean(torch.var(xtr - mean, dim=0, correction=0))) + 1e-8
-    xtr, xte = (xtr - mean) / scale, (xte - mean) / scale
+    xtr, xte = paper_data(dev)
 
     rng = np.random.RandomState(0)
     sizes = np.clip(np.rint(rng.lognormal(mean=1.6, sigma=0.9, size=8)), 1, 48).astype(int)
@@ -805,7 +854,507 @@ def fused_density_timing(x, b_mat, bt):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: flash attention against its plain version
+# phase 5: the serving engine on the card, every bucket program a CUDA graph
+# ---------------------------------------------------------------------------
+
+SERVE_BUCKETS = dict(min_bucket=8, max_bucket=1024)   # src/repro/serve/batching.py:52-53
+SERVE_REQUESTS = 256     # ragged requests, rows drawn as benchmarks/serve_latency.py:112-116
+SERVE_WINDOW = 8         # requests coalesced per flush
+SERVE_BIG = [1024, 1500, 2600]   # a full bucket, and requests chunked past max_bucket
+SCHED_CLIENTS = 4
+
+
+def ragged_requests(n_req, m, dev, seed):
+    """Lognormal row counts (mean 1.6, sigma 0.9, clipped to [1, 48]) and
+    standard-normal rows, from a seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    sizes = np.clip(np.rint(rng.lognormal(mean=1.6, sigma=0.9, size=n_req)), 1, 48).astype(int)
+    return [torch.from_numpy(rng.randn(k, m).astype(np.float32)).to(dev) for k in sizes]
+
+
+def bucket_program(svc, name, bucket):
+    """The program the service serves `name`'s bucket with (a cache hit)."""
+    import torch
+
+    prog = svc._transform_fn(svc.registry.get(name), bucket, torch.float32)
+    return getattr(prog, "fn", prog)
+
+
+def program_stats(prog):
+    """(launches the wrappers counted while `prog` was captured, its replays);
+    fails unless `prog` is a captured CUDA graph."""
+    return dict(captured(prog).captured_launches), captured(prog).replays
+
+
+def captured(prog):
+    """`prog` (or the program a TunedProgram holds), which must be a captured
+    CUDA graph."""
+    from repro_torch.kernels.autotune import TunedProgram
+    from repro_torch.serve.engine import CapturedProgram
+
+    if isinstance(prog, TunedProgram):
+        prog = prog.fn
+    if not isinstance(prog, CapturedProgram):
+        fail(f"serve: a cached program is a {type(prog).__name__}, not a captured CUDA graph")
+    return prog
+
+
+def serve_program_launches(svc):
+    """Per kernel, over every program in `svc`'s compile cache: the launches
+    counted in the eager warm-up call before each capture, those counted during
+    the captures, and the kernel runs the programs' replays have made so far
+    (replays × captured launches)."""
+    from repro_torch import kernels
+
+    out = {what: dict.fromkeys(kernels.launch_counts(), 0)
+           for what in ("warmup", "captured", "replayed")}
+    for prog in list(svc.cache._d.values()):
+        prog = captured(prog)
+        for k, v in prog.warmup_launches.items():
+            out["warmup"][k] += v
+        for k, v in prog.captured_launches.items():
+            out["captured"][k] += v
+            out["replayed"][k] += v * prog.replays
+    return out
+
+
+def eager_served(model, state, xs, policy):
+    """What a flush of `xs` must return bit for bit: the requests coalesced,
+    cut into max_bucket chunks, each padded to its bucket and run through the
+    model's own eager call."""
+    import torch
+
+    xcat = torch.cat(xs)
+    outs = []
+    for i in range(0, xcat.shape[0], policy.max_bucket):
+        chunk = xcat[i:i + policy.max_bucket]
+        pad = chunk.new_zeros((policy.bucket_for(chunk.shape[0]) - chunk.shape[0], chunk.shape[1]))
+        outs.append(model.transform(state, torch.cat([chunk, pad]))[:chunk.shape[0]])
+    y, per, off = torch.cat(outs), [], 0
+    for x in xs:
+        per.append(y[off:off + x.shape[0]])
+        off += x.shape[0]
+    return per
+
+
+def check_equal(what, got, want):
+    import torch
+
+    if got.shape != want.shape or not torch.equal(got, want):
+        fail(f"{what}: not bit-identical to the eager kernel call (max |err| "
+             f"{max_err(got, want) if got.shape == want.shape else 'shape'})")
+
+
+def phase_serve(dev, card_line):
+    """DRService at the wide width (and the paper model's train-while-serve),
+    each bucket program and each fused update program a CUDA graph captured
+    once; then the threaded DeadlineScheduler with a concurrent register."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.dr import DRModel, EASIStage, Execution, RPStage
+    from repro_torch.kernels import easi_update, fused_transform, ternary_matmul
+    from repro_torch.serve import BucketPolicy, DRService
+
+    m, p, n, blk = WIDE["m"], WIDE["p"], WIDE["n"], WIDE["block"]
+    policy = BucketPolicy(**SERVE_BUCKETS)
+
+    def wide_model(backend, mu=2e-4):
+        return DRModel(stages=(RPStage(m, p), EASIStage.rotation(p, n, mu=mu)),
+                       execution=Execution(backend=backend, device=dev), block_size=blk)
+
+    def paper_model(backend):
+        return DRModel(stages=(RPStage(PAPER["m"], PAPER["p"]),
+                               EASIStage.rotation(PAPER["p"], PAPER["n"], mu=PAPER["mu"])),
+                       execution=Execution(backend=backend, device=dev),
+                       block_size=PAPER["block"])
+
+    wk, wt = wide_model("kernel"), wide_model("torch")
+    pk, pt = paper_model("kernel"), paper_model("torch")
+    st1 = wk.init(torch.Generator().manual_seed(0))
+    st2 = wk.init(torch.Generator().manual_seed(1))
+    pst = pk.init(torch.Generator().manual_seed(0))
+    xtr, _ = paper_data(dev)
+    gen = torch.Generator().manual_seed(21)
+    wide_blocks = [torch.randn((blk, m), generator=gen).to(dev) for _ in range(8)]
+    reqs = ragged_requests(SERVE_REQUESTS, m, dev, seed=0)
+    windows = [reqs[i:i + SERVE_WINDOW] for i in range(0, len(reqs), SERVE_WINDOW)]
+    windows += [[torch.randn((k, m), generator=gen).to(dev)] for k in SERVE_BIG]
+    probe = [torch.randn((k, m), generator=gen).to(dev) for k in (5, 64, 300)]
+    torch.cuda.synchronize()
+
+    # ---- the main path: counts set to 0 just before, read just after ------
+    svc = DRService(buckets=policy)
+    reset_counts()
+    t0 = time.perf_counter()
+    svc.register("wide", wk, st1)                                  # 1. register
+    torch.cuda.synchronize()
+    t_register = time.perf_counter() - t0
+    met = svc.metrics()
+    if met["compile_cache"]["misses"] != len(policy.buckets()) or \
+            met["autotunes"] != len(policy.buckets()):
+        fail(f"serve: register built {met['compile_cache']['misses']} programs and "
+             f"{met['autotunes']} sweeps, want {len(policy.buckets())} each")
+    at_register = kernels.launch_counts()
+    per_bucket = {}
+    for b in policy.buckets():
+        launched, _ = program_stats(bucket_program(svc, "wide", b))
+        tiles = fused_transform.tiles(b, m, p)
+        if launched != {"fused_transform": 2 if tiles > 1 else 1}:
+            fail(f"serve: bucket {b} captured {launched}, want fused_transform's "
+                 f"{'two launches (p split)' if tiles > 1 else 'one launch'}")
+        per_bucket[b] = {"captured_launches": launched, "tiles": tiles,
+                         "body": "dense" if tiles == 0 else "sparse, one p tile" if tiles == 1
+                         else f"sparse, p split in {tiles} (+ summing launch)"}
+
+    def replays():
+        return sum(program_stats(bucket_program(svc, "wide", b))[1] for b in policy.buckets())
+
+    before, r0 = kernels.launch_counts(), replays()                  # 2. ragged stream
+    served = []
+    t0 = time.perf_counter()
+    for win in windows:
+        tickets = [svc.submit("wide", x) for x in win]
+        svc.flush()
+        served.append([t.result() for t in tickets])
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    stream_launches = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    stream_replays = replays() - r0
+    stream_batches = svc.metrics()["batches_run"]
+    if any(stream_launches.values()):
+        fail(f"serve: the ragged stream launched kernels outside a graph: {stream_launches}")
+    misses0 = svc.cache.misses
+
+    v = svc.registry.push("wide", st2)                              # 3. promote, rollback
+    svc.promote("wide", v)
+    after_promote = [svc.transform("wide", x) for x in probe]
+    svc.rollback("wide")
+    after_rollback = [svc.transform("wide", x) for x in probe]
+    if svc.cache.misses != misses0:
+        fail(f"serve: promote / rollback built programs ({misses0} -> {svc.cache.misses})")
+
+    svc.register("paper", pk, pst)                                  # 4. train-while-serve
+    paper_blocks = xtr[:(4000 // PAPER["block"]) * PAPER["block"]].reshape(
+        -1, PAPER["block"], PAPER["m"])
+    paper_answers = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for e in range(PAPER["epochs"]):
+        for i, xb in enumerate(paper_blocks):
+            y = svc.serve_and_update("paper", xb)
+            if i == e:                       # one answer a block, kept for the check
+                paper_answers.append((i, y))
+    torch.cuda.synchronize()
+    t_paper_tws = time.perf_counter() - t0
+    svc.promote("paper")
+    wide_live = svc.registry.get("wide").state
+    wide_answers = [svc.serve_and_update("wide", xb) for xb in wide_blocks]
+    torch.cuda.synchronize()
+    svc.promote("wide")
+    counts = kernels.launch_counts()
+    by_program = serve_program_launches(svc)
+    # ---- end of the main path ----------------------------------------------
+
+    # Every launch the wrappers counted on the main path is a program's
+    # warm-up call or its capture: nothing ran eagerly besides.
+    for k, v in counts.items():
+        if v != by_program["warmup"][k] + by_program["captured"][k]:
+            fail(f"serve: {k} counted {v} launches on the serving path, but the programs' "
+                 f"warm-up calls and captures account for {by_program['warmup'][k]} + "
+                 f"{by_program['captured'][k]}")
+
+    missing = [k for k in ("ternary_matmul", "fused_transform", "easi_apply") if counts[k] <= 0]
+    if missing:
+        fail(f"serve: kernels never launched on the serving path: {missing}")
+    fused_programs = {}
+    models = {(PAPER["block"], PAPER["m"]): pk, (blk, m): wk}
+    for key in list(svc.cache._d):
+        if key[0] != "fused":
+            continue
+        launched, reps = program_stats(svc.cache._d[key])
+        mdl, rows = models[key[2]], key[2][0]
+        mi, pi, ni = mdl.in_dim, mdl.stages[0].out_dim, mdl.out_dim
+        bodies = {"ternary_matmul": ternary_matmul.plan(rows, mi, pi),
+                  "fused_transform": fused_transform.tiles(rows, mi, pi),
+                  "easi_apply": easi_update.plan(rows, ni, pi, False, True)[0]}
+        want = {"ternary_matmul": 1, "fused_transform": 2 if bodies["fused_transform"] > 1 else 1,
+                "easi_apply": 2 if bodies["easi_apply"] else 1}
+        if launched != want:
+            fail(f"serve: the fused update program {key[2]} captured {launched}, want {want} "
+                 f"(bodies {bodies})")
+        fused_programs[str(key[2])] = {"captured_launches": launched, "replays": reps,
+                                       "bodies (plan / tiles / easi slices)": bodies}
+
+    # ---- checks ------------------------------------------------------------
+    n_req = 0
+    for win, outs in zip(windows, served):
+        for x, got, want in zip(win, outs, eager_served(wk, st1, win, policy)):
+            check_equal(f"serve: a request of {x.shape[0]} rows", got, want)
+            check_close(f"serve: a request of {x.shape[0]} rows against the torch backend",
+                        got, wt.transform(st1, x), **OUT_TOL)
+            n_req += 1
+    for x, a, r in zip(probe, after_promote, after_rollback):
+        check_equal(f"serve: {x.shape[0]} rows after promote", a,
+                    eager_served(wk, st2, [x], policy)[0])
+        check_equal(f"serve: {x.shape[0]} rows after rollback", r,
+                    eager_served(wk, st1, [x], policy)[0])
+    for i, y in paper_answers:
+        check_equal(f"serve: paper answer to block {i}", y, pk.transform(pst, paper_blocks[i]))
+    fitted = pt.fit(pst, xtr, epochs=PAPER["epochs"])
+    promoted = svc.registry.get("paper").state
+    if int(promoted.steps) != int(fitted.steps):
+        fail(f"serve: paper steps {int(promoted.steps)} after stream + promote, fit "
+             f"{int(fitted.steps)}")
+    err_paper = check_close("serve: paper B after stream + promote against fit (torch)",
+                            promoted.b, fitted.b, **TRAJ_TOL)
+    check_close("serve: paper R", promoted.r, fitted.r, rtol=0, atol=0)
+    for xb, y in zip(wide_blocks, wide_answers):
+        check_equal("serve: wide answer while training", y, wk.transform(wide_live, xb))
+    wfit = wt.fit(wide_live, torch.cat(wide_blocks), epochs=1)
+    wprom = svc.registry.get("wide").state
+    if int(wprom.steps) != int(wfit.steps):
+        fail(f"serve: wide steps {int(wprom.steps)}, fit {int(wfit.steps)}")
+    err_wide = check_close("serve: wide B after stream + promote against fit (torch)",
+                           wprom.b, wfit.b, **TRAJ_TOL)
+    print(f"[serve] ({card_line}) register: {len(policy.buckets())} bucket programs captured in "
+          f"{t_register:.3f} s ({met['autotunes']} sweeps, one candidate each); per bucket: "
+          + "; ".join(f"{b}: {v['captured_launches']} ({v['body']})" for b, v in per_bucket.items()))
+    print(f"[serve] ({card_line}) ragged stream: {n_req} requests ({sum(x.shape[0] for w in windows for x in w)} "
+          f"rows, windows of {SERVE_WINDOW}, plus {SERVE_BIG}) in {stream_batches} device "
+          f"batches = {stream_replays} graph replays, no eager launch; bit-identical to the "
+          f"eager kernel call on the padded buckets, within OUT_TOL of the torch backend; "
+          f"promote / rollback followed, cache misses {misses0} before and after")
+    print(f"[serve] ({card_line}) train-while-serve: paper {len(paper_blocks) * PAPER['epochs']} blocks of "
+          f"{PAPER['block']} then promote = fit (torch) within TRAJ_TOL (max |dB| "
+          f"{err_paper:.3e}, steps {int(promoted.steps)}); wide 8 blocks of {blk} (max |dB| "
+          f"{err_wide:.3e}); answers bit-identical to the live state's eager call; fused "
+          f"programs {json.dumps(fused_programs)}; launches on the serving path "
+          f"{json.dumps(counts)} (at register {json.dumps(at_register)}) = warm-up calls "
+          f"{json.dumps(by_program['warmup'])} + captures {json.dumps(by_program['captured'])}; "
+          f"kernel runs in graph replays {json.dumps(by_program['replayed'])}")
+
+    sched_reqs = ragged_requests(SERVE_REQUESTS, m, dev, seed=1)
+    other = (wide_model("kernel", mu=1e-4), wk.init(torch.Generator().manual_seed(5)))
+    sched_stats = {"with_register": run_scheduler(dev, policy, wk, wt, st1, sched_reqs,
+                                                  card_line, other),
+                   "steady": run_scheduler(dev, policy, wk, wt, st1, sched_reqs, card_line),
+                   "steady_switch_0.1ms": run_scheduler(dev, policy, wk, wt, st1, sched_reqs,
+                                                        card_line, switch_ms=0.1)}
+    timings = serve_timings(dev, svc, wk, pk, st1, pst, xtr, policy, card_line)
+    out = {
+        "card": card_line, "launches": counts, "launches_at_register": at_register,
+        "launches_by_program": by_program,
+        "per_bucket": {str(b): v for b, v in per_bucket.items()},
+        "fused_programs": fused_programs,
+        "stream": {"requests": n_req, "rows": sum(x.shape[0] for w in windows for x in w),
+                   "batches": stream_batches, "replays": stream_replays, "s": t_stream,
+                   "rows_per_s": sum(x.shape[0] for w in windows for x in w) / t_stream,
+                   "slo": svc.metrics()["slo"]["wide"]},
+        "train_while_serve": {
+            "paper_blocks": len(paper_blocks) * PAPER["epochs"], "paper_s": t_paper_tws,
+            "paper_rows_per_s": len(paper_blocks) * PAPER["epochs"] * PAPER["block"] / t_paper_tws,
+            "paper_max_abs_dB": err_paper, "wide_max_abs_dB": err_wide},
+        "scheduler": sched_stats, "timings": timings, "register_s": t_register,
+    }
+    print(f"[serve] ({card_line}) served {out['stream']['rows_per_s']:.0f} rows/s over the "
+          f"ragged stream (host clock, ends in a synchronize); train-while-serve "
+          f"{out['train_while_serve']['paper_rows_per_s']:.0f} rows/s at the paper width")
+    return out
+
+
+def run_scheduler(dev, policy, wk, wt, st1, reqs, card_line, other=None, switch_ms=None):
+    """SCHED_CLIENTS client threads submit `reqs` (each a window of
+    SERVE_WINDOW at a time) to a threaded DeadlineScheduler (real clock, 2 ms
+    budget, 1 ms wake lead) over a fresh service holding the wide model.
+    With `other` = (model, state), one more thread registers it meanwhile:
+    its programs are captured while the loop replays the wide model's.  With
+    `switch_ms`, the interpreter's thread switch interval is set to it for the
+    run (Python's default is 5 ms)."""
+    import threading
+
+    import torch
+    from repro_torch.serve import DeadlineScheduler, DRService, MonotonicClock
+
+    svc = DRService(buckets=policy, clock=MonotonicClock())
+    svc.register("wide", wk, st1)
+    torch.cuda.synchronize()
+    results, errors = {}, []
+
+    def client(c):
+        try:
+            mine = list(range(c, len(reqs), SCHED_CLIENTS))
+            for i in range(0, len(mine), SERVE_WINDOW):
+                win = mine[i:i + SERVE_WINDOW]
+                tickets = [(j, sched.submit("wide", reqs[j])) for j in win]
+                for j, t in tickets:
+                    if not t.wait(60.0):
+                        errors.append(f"client {c}: request {j} unresolved after 60 s")
+                        return
+                    results[j] = t.result()
+        except Exception as e:                    # noqa: BLE001 — reported below
+            errors.append(f"client {c}: {e!r}")
+
+    def registrar():
+        try:
+            svc.register("other", *other)
+        except Exception as e:                    # noqa: BLE001 — reported below
+            errors.append(f"register: {e!r}")
+
+    sched = DeadlineScheduler(svc, default_max_delay_ms=2.0, wake_lead_ms=1.0)
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SCHED_CLIENTS)]
+    if other is not None:
+        threads.append(threading.Thread(target=registrar))
+    default_switch = sys.getswitchinterval()
+    if switch_ms is not None:
+        sys.setswitchinterval(switch_ms / 1e3)
+    t0 = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120.0)
+        sched.shutdown()
+        torch.cuda.synchronize()
+    finally:
+        sys.setswitchinterval(default_switch)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"serve scheduler: {errors or 'a thread did not finish'}")
+    if len(results) != len(reqs):
+        fail(f"serve scheduler: {len(results)} of {len(reqs)} tickets resolved")
+    for j, x in enumerate(reqs):
+        check_close(f"serve scheduler: request {j} ({x.shape[0]} rows)", results[j],
+                    wt.transform(st1, x), **OUT_TOL)
+    met = svc.metrics()
+    nb = len(policy.buckets()) * (1 if other is None else 2)
+    if met["compile_cache"]["misses"] != nb or met["autotunes"] != nb:
+        fail(f"serve scheduler: {met['compile_cache']['misses']} programs built, want {nb}")
+    if other is not None:
+        for b in policy.buckets():
+            program_stats(bucket_program(svc, "other", b))
+        model, state = other
+        check_close("serve scheduler: the model registered under load",
+                    svc.transform("other", reqs[0]),
+                    model.with_execution(wt.execution).transform(state, reqs[0]), **OUT_TOL)
+    n_dl = met["deadline_met"] + met["deadline_missed"]
+    cells = {str(b): {"count": c["e2e"]["count"], "p50_ms": c["e2e"]["p50_ms"],
+                      "p99_ms": c["e2e"]["p99_ms"], "queue_p99_ms": c["queue_delay"]["p99_ms"],
+                      "deadline_miss_rate": c["deadline_miss_rate"]}
+             for b, c in sorted(met["slo"]["wide"].items())}
+    rows = sum(x.shape[0] for x in reqs)
+    print(f"[serve] ({card_line}) scheduler, {SCHED_CLIENTS} clients"
+          f"{', a second model registered meanwhile' if other is not None else ''}"
+          f"{f', thread switch interval {switch_ms} ms' if switch_ms is not None else ''}: "
+          f"{len(reqs)} requests in {wall:.3f} s ({rows / wall:.0f} rows/s), "
+          f"{met['batches_run']} device batches, deadline misses {met['deadline_missed']} of "
+          f"{n_dl}; e2e per bucket (host clock, ms, p50 / p99): "
+          + "; ".join(f"{b}: {c['p50_ms']:.3f} / {c['p99_ms']:.3f} (n {c['count']})"
+                      for b, c in cells.items()))
+    return {"requests": len(reqs), "rows": rows, "s": wall, "rows_per_s": rows / wall,
+            "batches": met["batches_run"], "deadline_met": met["deadline_met"],
+            "deadline_missed": met["deadline_missed"],
+            "deadline_miss_share": met["deadline_missed"] / n_dl if n_dl else None,
+            "e2e_by_bucket": cells}
+
+
+def serve_timings(dev, svc, wk, pk, st1, pst, xtr, policy, card_line):
+    """Device-only ms per wide bucket program: its bare graph replay and one
+    call of the service's CapturedProgram (copy-in, replay, copy-out), each
+    queued behind a spin.  At the paper and wide widths: host-paced ms (CUDA
+    events around back-to-back calls) of a `transform` and a
+    `serve_and_update`, through the service's captured programs and as the
+    model's eager calls; the device-only ms of the served call (all its device
+    work, queued) and of its kernels alone (the eager body in one graph); and
+    the idle share, 1 - served device ms / host-paced ms."""
+    import torch
+
+    gen = torch.Generator().manual_seed(23)
+    per_bucket = {}
+    for b in policy.buckets():
+        xb = torch.randn((b, wk.in_dim), generator=gen).to(dev)
+        prog = captured(bucket_program(svc, "wide", b))
+        per_bucket[str(b)] = {"replay_ms": time_queued(prog.graph.replay),
+                              "call_ms": time_queued(lambda: prog(st1, xb))}
+    print(f"[serve-time] ({card_line}) device-only ms per wide bucket program, bare replay / "
+          f"the program's call with its copies: "
+          + "; ".join(f"{b}: {fmt_ms(t['replay_ms'])} / {fmt_ms(t['call_ms'])}"
+                      for b, t in per_bucket.items()))
+    out = {"bucket_device_ms": per_bucket}
+    pblk = xtr[:PAPER["block"]]
+    wblk = torch.randn((WIDE["block"], WIDE["m"]), generator=gen).to(dev)
+    for width, name, model, state, x in (("paper", "paper", pk, pst, pblk),
+                                         ("wide", "wide", wk, st1, wblk)):
+        live = svc.registry.get(name).state
+        chain = [live]
+
+        def eager_tws():
+            y = model.transform(live, x)
+            chain[0] = model.update(chain[0], x)
+            return y
+
+        snap = svc.registry.get(name)
+        prog = captured(bucket_program(svc, name, policy.bucket_for(x.shape[0])))
+        fused = captured(svc._fused_update_fn(snap, x))
+        xr = x[:x.shape[0] * 3 // 4]
+        row = {
+            # the captured path's host time, split: the service around the
+            # program, the program's own call (copies, replay, clones), and
+            # the bare replay
+            "transform_program_call_ms": time_events(lambda: prog(live, x)),
+            "transform_replay_ms": time_events(prog.graph.replay),
+            "serve_and_update_program_call_ms": time_events(lambda: fused(live, live, x)),
+            "serve_and_update_replay_ms": time_events(fused.graph.replay),
+            "transform_captured_ms": time_events(lambda: svc.transform(name, x)),
+            "transform_eager_ms": time_events(lambda: model.transform(live, x)),
+            "transform_served_device_ms": time_queued(lambda: svc.transform(name, x)),
+            "transform_kernels_device_ms": time_graph(lambda: model.transform(live, x)),
+            # 3/4 of the rows: the program pads them in its own buffer
+            "transform_ragged_captured_ms": time_events(lambda: svc.transform(name, xr)),
+            "transform_ragged_served_device_ms": time_queued(lambda: svc.transform(name, xr)),
+            "serve_and_update_captured_ms": time_events(lambda: svc.serve_and_update(name, x)),
+            "serve_and_update_eager_ms": time_events(eager_tws),
+            "serve_and_update_served_device_ms": time_queued(
+                lambda: svc.serve_and_update(name, x)),
+            "serve_and_update_kernels_device_ms": time_graph(
+                lambda: (model.transform(live, x), model.update(live, x))),
+            "rows": int(x.shape[0]), "ragged_rows": int(xr.shape[0]),
+        }
+        for what in ("transform", "serve_and_update"):
+            dev_ms = row[f"{what}_served_device_ms"]
+            row[f"{what}_idle_share"] = (None if dev_ms is None
+                                         else 1 - dev_ms / row[f"{what}_captured_ms"])
+        out[width] = row
+        print(f"[serve-time] ({card_line}) {width} ({x.shape[0]} rows): transform "
+              f"{row['transform_captured_ms']:.4f} ms captured / {row['transform_eager_ms']:.4f} "
+              f"eager, host-paced; on the device {fmt_ms(row['transform_served_device_ms'])} for "
+              f"the served call, {row['transform_kernels_device_ms']:.4f} for its kernels (idle "
+              f"share captured {fmt_share(row['transform_idle_share'])}); {xr.shape[0]} rows "
+              f"padded in the program: {row['transform_ragged_captured_ms']:.4f} host-paced, "
+              f"{fmt_ms(row['transform_ragged_served_device_ms'])} on the device; serve_and_update "
+              f"{row['serve_and_update_captured_ms']:.4f} captured / "
+              f"{row['serve_and_update_eager_ms']:.4f} eager; on the device "
+              f"{fmt_ms(row['serve_and_update_served_device_ms'])} served, "
+              f"{row['serve_and_update_kernels_device_ms']:.4f} kernels (idle share captured "
+              f"{fmt_share(row['serve_and_update_idle_share'])}); of the captured calls, the "
+              f"program's own call {row['transform_program_call_ms']:.4f} / "
+              f"{row['serve_and_update_program_call_ms']:.4f}, a bare replay "
+              f"{row['transform_replay_ms']:.4f} / {row['serve_and_update_replay_ms']:.4f}")
+    return out
+
+
+def fmt_ms(t):
+    return "not measured" if t is None else f"{t:.4f}"
+
+
+def fmt_share(x):
+    return "not measured" if x is None else f"{x:.2f}"
+
+
+# ---------------------------------------------------------------------------
+# phase 6: flash attention against its plain version
 # ---------------------------------------------------------------------------
 
 def phase_flash(dev, errs):
@@ -852,7 +1401,7 @@ def phase_flash(dev, errs):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: h2o-danube-3-4b served through the kernels at full width and depth
+# phase 7: h2o-danube-3-4b served through the kernels at full width and depth
 # ---------------------------------------------------------------------------
 
 def logits_diff(what: str, got, want):
@@ -1145,6 +1694,7 @@ def main() -> int:
         phase_kernels(dev, errs)
         counts, paper_times = phase_paper(dev)
         rows = phase_wide(dev, errs)
+        serve = phase_serve(dev, card_line)
         phase_flash(dev, errs)
         lm_launches, lm_by_entry, lm_steps, lm_worst = phase_lm(dev)
         flash_row = flash_timing(dev, errs)
@@ -1157,8 +1707,15 @@ def main() -> int:
     flash_row.update(launches=lm_launches, launches_by_request=lm_by_entry,
                      lm_max_rel_norm=lm_worst[0], lm_max_abs_err=lm_worst[1])
     rows.append(flash_row)
+    for row in rows:           # the serving path counts only warm-up calls and captures
+        name = row["name"]
+        row["launches_serve"] = serve["launches"][name]
+        row["launches_serve_warmup"] = serve["launches_by_program"]["warmup"][name]
+        row["launches_serve_captured"] = serve["launches_by_program"]["captured"][name]
+        row["runs_serve_replayed"] = serve["launches_by_program"]["replayed"][name]
     print(f"[paper-steps] {json.dumps({k: paper_times[k] for k in ('update', 'transform', 'transform_1000')})}")
     print(f"[lm-steps] {json.dumps(lm_steps)}")
+    print(f"[serve-steps] {json.dumps(serve)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

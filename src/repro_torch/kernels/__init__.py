@@ -7,13 +7,25 @@ spots:
   flash_attention — online-softmax attention forward (causal / SWA / GQA)
   ops             — the entry points the DR and LM layers call
   ref             — plain PyTorch versions (the CPU path and the ground truth)
+  autotune        — the serving engine's per-bucket tile sweep
 
 Sources live in `csrc/`; `_build` compiles them with nvcc at first use and
 loads them through ctypes.  Importing this package builds nothing.
 """
 
-from repro_torch.kernels import (easi_update, flash_attention, fused_transform, ops, ref,
-                                 ternary_matmul)
+from typing import Dict
 
-__all__ = ["easi_update", "flash_attention", "fused_transform", "ops", "ref",
-           "ternary_matmul"]
+from repro_torch.kernels import (autotune, easi_update, flash_attention, fused_transform, ops,
+                                 ref, ternary_matmul)
+
+__all__ = ["autotune", "easi_update", "flash_attention", "fused_transform", "launch_counts",
+           "ops", "ref", "ternary_matmul"]
+
+
+def launch_counts() -> Dict[str, int]:
+    """The kernel launches each wrapper has made in this process (its
+    module-level `launches`)."""
+    return {"ternary_matmul": ternary_matmul.launches,
+            "fused_transform": fused_transform.launches,
+            "easi_apply": easi_update.launches,
+            "flash_attention": flash_attention.launches}

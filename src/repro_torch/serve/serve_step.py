@@ -5,7 +5,8 @@ the serving engine's LRU (`BoundedCompileCache`) as the reference does, by
 (step, config hash, mesh, params signature, batch or cache signature[,
 cache size]), plus the `Execution` the step runs with.  PyTorch runs
 eagerly, so there is nothing to jit: the cached value is the step callable
-itself.  (A CUDA graph per bucket is ROADMAP A7's work.)
+itself; only the DR engine's bucket programs are captured as CUDA graphs
+(`serve/engine.py`).
 
 Decode updates the cache it is given in place, as the reference donates
 it.  One card has no mesh: `mesh` must be None until ROADMAP A10 brings

@@ -22,6 +22,17 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 epochs) → transform (1000 rows) → train-while-serve over
                 ragged requests, through the kernels; the same sequence on
                 the plain torch backend is the reference
+  3b. table1  — the paper's experiment: the four Table I rows (easi_n16,
+                rp24_easi_n16, easi_n8, rp16_easi_n8) through
+                `pipeline.fit_two_stage` and `evaluate` at the protocol's full
+                epochs on Waveform-V2, kernel backend then torch backend: R
+                equal, B after fit within TRAJ_TOL, accuracies one point
+                apart at most and above tests/test_waveform_repro.py's
+                floors, |Δ(n=16)| < 0.08, every DR kernel launched; the Table
+                II rows against the reference's ratios; the ICA benchmark's
+                Amari distances, kernel against torch; and a registered
+                state's B written in place, which the captured bucket
+                program must answer from
   4. wide     — the repo's wide DR row (1024 → 256 → 128, block 256):
                 update + transform through the kernels, then each kernel
                 timed beside its plain version, a cuBLAS yardstick and its
@@ -133,6 +144,19 @@ EASI_EDGE = ([(256, 128, 256, so, ho, "cubic", False, "f32") for so, ho in SO_HO
 
 WIDE = dict(m=1024, p=256, n=128, block=256)    # benchmarks/throughput.py:41
 PAPER = dict(m=32, p=24, n=16, block=32, mu=2e-4, epochs=40)  # configs/waveform_paper.py
+# Table I on Waveform-V2 at the protocol's full epochs: the accuracy floors of
+# tests/test_waveform_repro.py:49-71, the kernel and torch backends' accuracies
+# at most one point apart, and the paper's claim |Δ(n=16)| < 0.08
+TABLE1_FLOORS = {"easi_n16": 0.74, "rp24_easi_n16": 0.72, "easi_n8": 0.62,
+                 "rp16_easi_n8": 0.65}
+TABLE1_ACC_GAP = 0.01
+TABLE1_CLAIM = 0.08
+# Table II is arithmetic: the ratios of EXPERIMENTS.md §Reference numbers
+TABLE2_WANT = {"table2/mac_ratio_paper_row": "ratio=1.94",
+               "table2/weight_bytes_ratio": "ratio=2.00",
+               "table2/scaling_p24": "mac_ratio=1.34", "table2/scaling_p16": "mac_ratio=1.94",
+               "table2/scaling_p8": "mac_ratio=3.53"}
+ICA_AMARI_TOL = 1e-3
 
 FLASH_TOL = {"f32": dict(rtol=2e-5, atol=2e-5),  # tests/test_flash_kernel.py:37
              "bf16": dict(rtol=2e-2, atol=2e-2)}
@@ -596,6 +620,216 @@ def phase_paper(dev):
     if missing:
         fail(f"paper: kernels never launched on the main path: {missing}")
     return counts, paper_timings(k["model"], k["state"], xtr[:PAPER["block"]], xte)
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the paper's experiment — Table I, Table II, ICA quality
+# ---------------------------------------------------------------------------
+
+def phase_table1(dev):
+    """The four Table I rows through `pipeline.fit_two_stage` and `evaluate`
+    at the protocol's full epochs, kernel backend (the main path: counts set
+    to 0 just before, read just after) and torch backend; Table II; the ICA
+    benchmark on both backends; and an in-place write to a served state."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import waveform_paper as wp
+    from repro_torch.core import pipeline
+    from repro_torch.data import waveform
+    from repro_torch.dr import Execution
+    from repro_torch.experiments import ica_quality, table2_cost
+
+    (xtr, ytr), (xte, yte) = waveform.paper_split(seed=0)
+    xtr, ytr, xte, yte = (torch.from_numpy(a).to(dev) for a in (xtr, ytr, xte, yte))
+
+    def run(backend):
+        exe = Execution(backend=backend, device=dev)
+        out, marks = {}, [read_counts()]
+        for name, cfg in wp.TABLE1_ROWS.items():
+            c = dataclasses.replace(cfg, seed=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = pipeline.fit_two_stage(c, xtr, ytr, execution=exe)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            marks.append(read_counts())
+            acc = pipeline.evaluate(model, xte, yte, execution=exe)
+            t2 = time.perf_counter()
+            marks.append(read_counts())
+            out[name] = dict(model=model, acc=acc, t_fit=t1 - t0, t_eval=t2 - t1,
+                             dr_epochs=c.dr_epochs, head_epochs=c.head_epochs)
+        by_entry = {}
+        for i, name in enumerate(out):
+            before, fitted, evaluated = marks[2 * i], marks[2 * i + 1], marks[2 * i + 2]
+            by_entry[name] = {"fit_two_stage": {k: fitted[k] - before[k] for k in before},
+                              "evaluate": {k: evaluated[k] - fitted[k] for k in before}}
+        return out, by_entry
+
+    reset_counts()
+    k, k_by_entry = run("kernel")
+    all_counts = kernels.launch_counts()
+    counts = read_counts()
+    t, _ = run("torch")
+
+    accs = {}
+    for name in wp.TABLE1_ROWS:
+        ks, ts = k[name]["model"]["dr_state"], t[name]["model"]["dr_state"]
+        if (ks.r is None) != (ts.r is None):
+            fail(f"table1 {name}: R present on one backend only")
+        if ks.r is not None:
+            check_close(f"table1 {name} R", ks.r, ts.r, rtol=0, atol=0)
+        err_b = check_close(f"table1 {name} B after fit", ks.b, ts.b, **TRAJ_TOL)
+        acc_k, acc_t = k[name]["acc"], t[name]["acc"]
+        if not abs(acc_k - acc_t) <= TABLE1_ACC_GAP:
+            fail(f"table1 {name}: accuracy {acc_k:.4f} (kernel) vs {acc_t:.4f} (torch)")
+        for backend, acc in (("kernel", acc_k), ("torch", acc_t)):
+            if not acc > TABLE1_FLOORS[name]:
+                fail(f"table1 {name}: accuracy {acc:.4f} ({backend}) not above the floor "
+                     f"{TABLE1_FLOORS[name]}")
+        accs[name] = {"kernel": acc_k, "torch": acc_t, "paper": wp.PAPER_TABLE1[name] / 100,
+                      "max_abs_err_b": err_b,
+                      "fit_s": {"kernel": k[name]["t_fit"], "torch": t[name]["t_fit"]},
+                      "evaluate_s": {"kernel": k[name]["t_eval"], "torch": t[name]["t_eval"]},
+                      "dr_epochs": k[name]["dr_epochs"], "head_epochs": k[name]["head_epochs"]}
+        print(f"[table1] {name}: accuracy {100 * acc_k:.1f}% (kernel) / {100 * acc_t:.1f}% "
+              f"(torch), paper {wp.PAPER_TABLE1[name]}%; max |B_kernel - B_torch| {err_b:.3e}; "
+              f"fit_two_stage ({k[name]['dr_epochs']} DR epochs, {k[name]['head_epochs']} head "
+              f"epochs) {k[name]['t_fit']:.2f} s (kernel) / {t[name]['t_fit']:.2f} s (torch), "
+              f"evaluate {1e3 * k[name]['t_eval']:.2f} ms / {1e3 * t[name]['t_eval']:.2f} ms")
+    for backend, res in (("kernel", k), ("torch", t)):
+        d16 = res["rp24_easi_n16"]["acc"] - res["easi_n16"]["acc"]
+        d8 = res["rp16_easi_n8"]["acc"] - res["easi_n8"]["acc"]
+        if not abs(d16) < TABLE1_CLAIM:
+            fail(f"table1: |Δ(n=16)| = {abs(d16):.4f} ({backend}), want < {TABLE1_CLAIM}")
+        print(f"[table1] claim check ({backend}): Δ(n=16) = {100 * d16:+.1f}, "
+              f"Δ(n=8) = {100 * d8:+.1f} points (paper: -0.1 / -0.1)")
+    print(f"[table1] launches on the Table I path (kernel backend, 4 rows of fit_two_stage + "
+          f"evaluate): {json.dumps(counts)}; by row and entry point: {json.dumps(k_by_entry)}")
+    missing = [name for name, c in counts.items() if c <= 0]
+    if missing:
+        fail(f"table1: kernels never launched on the Table I path: {missing}")
+
+    # ---- Table II: the cost model's rows ---------------------------------
+    t2 = {name: detail for name, _, detail in table2_cost.run()}
+    for name, want in TABLE2_WANT.items():
+        if want not in t2.get(name, "").split(";"):
+            fail(f"table2 {name}: {t2.get(name)!r}, want {want}")
+    for name, detail in t2.items():
+        print(f"[table2] {name} {detail}")
+
+    # ---- ICA quality: the benchmark's fast sizes, kernel against torch ----
+    ica = {}
+    for backend in ("kernel", "torch"):
+        marks = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = ica_quality.run(fast=True, execution=Execution(backend=backend, device=dev))
+        ica[backend] = {"amari": {n: float(d.split("=")[1]) for n, _, d in rows},
+                        "s": time.perf_counter() - t0,
+                        "launches": {c: v - marks[c] for c, v in read_counts().items()}}
+    for name, a_k in ica["kernel"]["amari"].items():
+        a_t = ica["torch"]["amari"][name]
+        if not (math.isfinite(a_k) and abs(a_k - a_t) <= ICA_AMARI_TOL):
+            fail(f"ica {name}: Amari distance {a_k:.5f} (kernel) vs {a_t:.5f} (torch)")
+        print(f"[ica] {name}: Amari distance {a_k:.4f} (kernel) / {a_t:.4f} (torch)")
+    if ica["kernel"]["launches"]["easi_apply"] <= 0:
+        fail("ica: easi_apply never launched through the kernel backend")
+    print(f"[ica] benchmark {ica['kernel']['s']:.2f} s (kernel) / {ica['torch']['s']:.2f} s "
+          f"(torch); launches (kernel): {json.dumps(ica['kernel']['launches'])}")
+
+    check_in_place_write(dev, k["rp24_easi_n16"]["model"], xte)
+    split = table1_timings(dev, k, xtr, ytr)
+    return all_counts, {"rows": accs, "launches_by_row": k_by_entry, "time_split": split,
+                    "ica": {b: {"amari": v["amari"], "s": v["s"]} for b, v in ica.items()},
+                    "ica_launches": ica["kernel"]["launches"]}
+
+
+def table1_timings(dev, fitted, xtr, ytr):
+    """Where a Table I row's fit goes: the DR stage alone (init + fit, each
+    backend, host clock around a synchronize), and one epoch of the head's
+    AdamW steps on the kernel run's features, host-paced and, from a
+    torch.profiler trace of a second epoch, the device's busy time and the
+    kernels it ran (None where the trace shows no device work)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import waveform_paper as wp
+    from repro_torch.core import pipeline
+    from repro_torch.dr import Execution
+    from repro_torch.models import mlp
+    from repro_torch.train import optimizer as opt
+
+    out = {}
+    for name, cfg in wp.TABLE1_ROWS.items():
+        row, fit = {}, fitted[name]["model"]
+        x_dr, _ = pipeline.center_global_scale(xtr, fit["dr_stats"])
+        for backend in ("kernel", "torch"):
+            model = cfg.dr.with_execution(Execution(backend=backend, device=dev))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.fit(model.init(pipeline.generators(0)[0]), x_dr, epochs=cfg.dr_epochs)
+            torch.cuda.synchronize()
+            row[f"dr_fit_s_{backend}"] = time.perf_counter() - t0
+        feats, _ = pipeline.standardize(fit["dr_model"].transform(fit["dr_state"], x_dr),
+                                        fit["head_stats"])
+        adamw = opt.AdamWConfig(lr=cfg.head_lr, grad_clip=None, weight_decay=cfg.head_wd)
+        params = mlp.init(torch.Generator().manual_seed(0), feats.shape[-1], cfg.head_hidden,
+                          cfg.head_classes, device=dev)
+        state = opt.init(params)
+        steps = feats.shape[0] // cfg.head_batch
+        perm = torch.randperm(feats.shape[0], generator=torch.Generator().manual_seed(1))
+        mlp.train_epoch(params, state, feats, ytr, perm, adamw, batch=cfg.head_batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mlp.train_epoch(params, state, feats, ytr, perm, adamw, batch=cfg.head_batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            mlp.train_epoch(params, state, feats, ytr, perm, adamw, batch=cfg.head_batch)
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / steps
+        row.update(head_step_ms=step_ms, head_steps=cfg.head_epochs * steps,
+                   head_step_device_ms=busy_ms if device else None,
+                   head_step_device_ops=len(device) / steps if device else None,
+                   head_idle_share=1.0 - busy_ms / step_ms if device else None)
+        out[name] = row
+        dev_txt = (f"{busy_ms:.4f} ms on the device in {len(device) / steps:.0f} device ops "
+                   f"(idle share {1.0 - busy_ms / step_ms:.2f})" if device
+                   else "device time not measured (the trace shows no device work)")
+        print(f"[table1-time] {name}: DR init + fit alone {row['dr_fit_s_kernel']:.2f} s "
+              f"(kernel) / {row['dr_fit_s_torch']:.2f} s (torch); the head's AdamW step "
+              f"{step_ms:.3f} ms host-paced, {dev_txt}; {row['head_steps']} steps a fit")
+    return out
+
+
+def check_in_place_write(dev, fitted, xte):
+    """A state registered in a DRService and then written in place: the
+    captured bucket program's next answer is the eager transform of the
+    written state (ROADMAP C4)."""
+    import torch
+    from repro_torch.core import pipeline
+    from repro_torch.serve import BucketPolicy, DRService
+
+    model, trained = fitted["dr_model"], fitted["dr_state"]
+    live = trained._replace(stages=tuple(s.clone() for s in trained.stages))
+    policy = BucketPolicy(min_bucket=8, max_bucket=64)
+    x, _ = pipeline.center_global_scale(xte[:20], fitted["dr_stats"])
+    svc = DRService(buckets=policy)
+    svc.register("in_place", model, live)
+    captured(bucket_program(svc, "in_place", policy.bucket_for(x.shape[0])))
+    before = svc.transform("in_place", x)
+    check_equal("in-place write: answer before", before, eager_served(model, live, [x], policy)[0])
+    live.b.mul_(-0.5)                                  # the write, in place
+    after = svc.transform("in_place", x)
+    check_equal("in-place write: captured answer after the write", after,
+                eager_served(model, live, [x], policy)[0])
+    if torch.equal(after, before):
+        fail("in-place write: the captured program answered from the old state")
+    print(f"[c4] B of a registered state written in place: the captured bucket program "
+          f"answers the written state bit for bit (max |after - before| "
+          f"{max_err(after, before):.3e})")
 
 
 def paper_timings(model, state, blk, xte):
@@ -1693,6 +1927,7 @@ def main() -> int:
         card_line = phase_card()
         phase_kernels(dev, errs)
         counts, paper_times = phase_paper(dev)
+        t1_counts, table1 = phase_table1(dev)
         rows = phase_wide(dev, errs)
         serve = phase_serve(dev, card_line)
         phase_flash(dev, errs)
@@ -1703,8 +1938,10 @@ def main() -> int:
         return 1
     for row in rows:
         row["launches"] = counts[row["name"]]
+        row["launches_table1"] = t1_counts[row["name"]]
         row["paper"] = paper_times[row["name"]]
-    flash_row.update(launches=lm_launches, launches_by_request=lm_by_entry,
+    flash_row.update(launches=lm_launches, launches_table1=t1_counts["flash_attention"],
+                     launches_by_request=lm_by_entry,
                      lm_max_rel_norm=lm_worst[0], lm_max_abs_err=lm_worst[1])
     rows.append(flash_row)
     for row in rows:           # the serving path counts only warm-up calls and captures
@@ -1714,6 +1951,7 @@ def main() -> int:
         row["launches_serve_captured"] = serve["launches_by_program"]["captured"][name]
         row["runs_serve_replayed"] = serve["launches_by_program"]["replayed"][name]
     print(f"[paper-steps] {json.dumps({k: paper_times[k] for k in ('update', 'transform', 'transform_1000')})}")
+    print(f"[table1-steps] {json.dumps(table1)}")
     print(f"[lm-steps] {json.dumps(lm_steps)}")
     print(f"[serve-steps] {json.dumps(serve)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

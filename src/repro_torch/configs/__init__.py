@@ -2,7 +2,7 @@
 `configs/<arch>.py` (data only, over the port's own `ArchConfig`).
 
 `repro_torch.configs.registry.get(arch_id)` returns the full-size config and
-`get_smoke(arch_id)` the reduced same-family config the CPU tests use.  The
-paper's experiment config (`waveform_paper.py`) is not ported yet (ROADMAP
-A6).
+`get_smoke(arch_id)` the reduced same-family config the CPU tests use.
+`waveform_paper` holds the paper's own experiment: the Table I rows on
+Waveform-V2, the ablations, a 3-stage cascade and the Table II pair.
 """

@@ -76,3 +76,12 @@ def resolve_device(device: Any) -> torch.device:
 
 TORCH = Execution(backend="torch")
 KERNEL = Execution(backend="kernel")
+
+
+def resolve(execution: Execution | None = None, use_kernel: bool = False) -> Execution:
+    """Back-compat shim: an explicit Execution wins; else map the legacy
+    `use_kernel` flag onto the default policy for that backend (both on the
+    card)."""
+    if execution is not None:
+        return execution
+    return KERNEL if use_kernel else TORCH

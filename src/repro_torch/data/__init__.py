@@ -1,3 +1,3 @@
-from repro_torch.data import waveform
+from repro_torch.data import mixtures, waveform
 
-__all__ = ["waveform"]
+__all__ = ["mixtures", "waveform"]

@@ -11,9 +11,12 @@ reduction, in PyTorch:
     state = model.init(torch.Generator().manual_seed(0))
     state = model.fit(state, x, epochs=3)
     y = model.transform(state, x)
+
+`repro_torch.dr.legacy` maps the legacy `DRConfig` kinds onto stage chains.
 """
 
 from repro_torch.core.execution import KERNEL, TORCH, Execution
+from repro_torch.dr.legacy import model_from_config
 from repro_torch.dr.model import DRModel, ModelState
 from repro_torch.dr.stages import EASIStage, RPStage, Stage
 
@@ -21,4 +24,5 @@ __all__ = [
     "DRModel", "ModelState",
     "Stage", "RPStage", "EASIStage",
     "Execution", "TORCH", "KERNEL",
+    "model_from_config",
 ]

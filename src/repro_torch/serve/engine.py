@@ -98,6 +98,17 @@ def _rebuild(tree: Any, leaves) -> Any:
     return next(leaves)
 
 
+def _version(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t._version
+
+
+def needs_reload(t: torch.Tensor, loaded: torch.Tensor, version: int) -> bool:
+    """Whether a static buffer last loaded from `loaded`, when that tensor
+    was at `version`, must be loaded again from `t`: `t` is another tensor,
+    or the same tensor written in place since (its `_version` moved)."""
+    return t is not loaded or t._version != version
+
+
 # One capture at a time in this process: `torch.cuda.graph` synchronises
 # the device and empties the allocator's cache before it begins, which must
 # not land inside another thread's capture.  Replays are never held up.
@@ -110,8 +121,9 @@ class CapturedProgram:
     The graph reads static buffers: a copy of each state's stage tensors
     and an input buffer of x's shape.  A call copies x in, reloads a
     state's buffers only where the caller's state holds another tensor
-    than the one last loaded (so a promote or rollback is a reload, never
-    a re-capture), replays, and returns copies of the outputs — the next
+    than the one last loaded, or the same tensor written in place since
+    (`needs_reload`; so a promote or rollback is a reload, never a
+    re-capture), replays, and returns copies of the outputs — the next
     replay overwrites the graph's own output buffers, so nothing handed
     out may alias them.  A call with fewer rows than the buffer (a bucket's
     ragged batch) writes them straight into it over zero padding, and
@@ -143,6 +155,7 @@ class CapturedProgram:
         self._lock = threading.Lock()
         self._dirty = x.shape[0]       # guarded-by: _lock (rows of _x that may be nonzero)
         self._loaded = [tuple(st.stages) for st in states]  # guarded-by: _lock
+        self._versions = [tuple(map(_version, st.stages)) for st in states]  # guarded-by: _lock
         self._done: Optional[torch.cuda.Event] = None        # guarded-by: _lock
         self.replays = 0                                     # guarded-by: _lock
         stream = torch.cuda.Stream(dev)
@@ -183,10 +196,12 @@ class CapturedProgram:
             if self._done is not None:
                 stream.wait_event(self._done)
             for i, st in enumerate(states):
-                for t, b, old in zip(st.stages, self._bufs[i], self._loaded[i]):
-                    if b is not None and t is not old:
+                for t, b, old, ver in zip(st.stages, self._bufs[i], self._loaded[i],
+                                          self._versions[i]):
+                    if b is not None and needs_reload(t, old, ver):
                         b.copy_(t)
                 self._loaded[i] = tuple(st.stages)
+                self._versions[i] = tuple(map(_version, st.stages))
             self._x[:rows].copy_(x)
             if self._dirty > rows:
                 self._x[rows:self._dirty].zero_()

@@ -976,3 +976,19 @@ class TestRegistryFaultInjection:
             th.join(60.0)
         assert not any(th.is_alive() for th in readers + [mut]) and not errors, errors
         assert svc.registry.n_versions("m") == 32
+
+
+# ---------------------------------------------------------------------------
+# CapturedProgram's reload decision (an in-place write to a registered state)
+# ---------------------------------------------------------------------------
+
+def test_a_buffer_reloads_after_an_in_place_write():
+    from repro_torch.serve.engine import needs_reload
+
+    t = torch.zeros((4, 3))
+    version = t._version
+    assert not needs_reload(t, t, version)          # the same tensor, untouched
+    t.add_(1.0)
+    assert needs_reload(t, t, version)              # the same tensor, written in place
+    assert not needs_reload(t, t, t._version)       # ... and once reloaded, not again
+    assert needs_reload(t.clone(), t, t._version)   # another tensor

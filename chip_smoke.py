@@ -68,6 +68,30 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 plain version, scaled_dot_product_attention and its bound,
                 and at request B's (1 x 4608, window 4096); at both, the
                 relative norm of kernel − plain over each (batch, head)
+  8. lm-queue — request A again, through a `DRService`'s admission queue:
+                the threaded `DeadlineScheduler`'s `lm_prefill`, then 4
+                `lm_decode` steps; logits equal to the direct run's bit for
+                bit, two builds in the service's LRU, SLO kinds prefill and
+                decode
+     kv-rp    — the same weights with the RP-compressed KV cache (kv_rp=2,
+                keys 120 -> 60): request A with 16 teacher-forced decode
+                steps; K cache half as wide (0.75 of the bytes), every row's
+                logits rank-correlated above 0.8 with the exact run's, kernel
+                vs torch backend within the LM bounds
+     flash-time — the flash kernel timed at request A's shape and, beside
+                its plain version, SDPA and its bound, at the three head
+                geometries of the phases below
+  9. moe      — phi3.5-moe-42b-a6.6b at full width, 8 of its 32 layers:
+                request A (capacity 640 a expert at prefill, 8 at decode),
+                16 decode steps, kernel vs torch backend teacher-forced; the
+                share of expert choices that agree, by layer, and the
+                choices dropped at capacity
+ 10. frontend — hubert-xlarge and internvl2-1b CONFIG_DR at full width and
+                depth: raw frames / patches through the paper's RP→EASI DR
+                front-end (init, one update on 4096 normalised rows, the
+                transform: ternary_matmul, easi_apply, fused_transform), then
+                prefill (hubert non-causal, Dh 80; internvl2 GQA 7, Dh 64) and
+                16 decode steps for internvl2; kernel vs torch backend
 
 It prints a `{"kernels": [...]}` JSON line, the card's line from nvidia-smi,
 and as its last line `{"ok": true, "device": {...}}`.  It imports nothing of
@@ -185,6 +209,11 @@ FLASH_SHAPES = [
     (1, 300, 300, 8, 1, 72, True, 100), (2, 517, 517, 8, 8, 128, True, 70),
     (1, 200, 200, 8, 8, 72, False, None), (1, 7, 999, 16, 2, 120, True, 130),
     (1, 1, 777, 8, 1, 128, True, 64), (1, 129, 190, 4, 4, 13, True, None),
+    # the head geometries of the later LM phases: phi3.5-moe (Dh 128, GQA 4),
+    # hubert-xlarge (Dh 80, non-causal, no GQA), internvl2-1b (Dh 64, GQA 7)
+    (2, 300, 300, 32, 8, 128, True, None), (2, 333, 333, 16, 16, 80, False, None),
+    (1, 190, 190, 16, 16, 80, True, None), (2, 290, 290, 14, 2, 64, True, None),
+    (1, 77, 211, 14, 2, 64, False, None),
 ]
 # h2o-danube-3-4b (src/repro/configs/h2o_danube3_4b.py): request A and B
 LM_ARCH = "h2o_danube3_4b"
@@ -198,6 +227,27 @@ LM_REQUESTS = {"A": dict(batch=4, prompt=1024, decode=16, cache=1040),
 # every single logit within 0.125 = 16 bf16 ulps at |logit| ~ 1.
 LM_REL_NORM = 2e-2
 LM_MAX_ABS = 0.125
+# request A through DRService's queue: decode steps, and the scheduler's budget
+LMQ_DECODE = 4
+LMQ_DELAY_MS = 2.0
+# the RP-compressed KV cache on h2o-danube-3-4b (Dh 120 -> 60), held to
+# tests/test_kv_rp.py:41's rank-correlation bound against the exact cache
+KV_RP = 2
+KV_RP_RANK_CORR = 0.8
+# phi3.5-moe-42b-a6.6b (src/repro/configs/phi35_moe.py) at full width, cut to
+# 8 of its 32 layers: its f32 experts take 16 x 3 x 4096 x 6400 x 4 B = 5.03 GB
+# a layer, so 8 layers and the embeddings come to about 42 GB of the 80
+MOE_ARCH = "phi35_moe"
+MOE_LAYERS = 8
+# hubert-xlarge and internvl2-1b CONFIG_DR (src/repro/configs/{hubert_xlarge,
+# internvl2_1b}.py): 4 samples of 1024 positions (internvl2: 256 patches, then
+# 768 tokens), 16 decode steps for the decoder
+FRONTEND_BATCH = 4
+FRONTEND_SEQ = 1024
+FRONTEND_DECODE = 16
+# the head geometries flash first runs at in those phases: (Hq, Hkv, Dh, causal)
+FLASH_GEOMETRIES = {"phi3.5-moe": (32, 8, 128, True), "hubert-xlarge": (16, 16, 80, False),
+                    "internvl2-1b": (14, 2, 64, True)}
 
 
 class SmokeFailure(Exception):
@@ -1714,9 +1764,8 @@ def phase_lm(dev):
         for name in LM_REQUESTS:
             serve(exe, name)
     reset_counts()
-    flash_attention.launches = 0
     kern = {name: serve(kexe, name) for name in LM_REQUESTS}
-    counts = dict(read_counts(), flash_attention=flash_attention.launches)
+    counts = all_counts()
     ref = {name: serve(texe, name, forced=kern[name]["tokens"]) for name in LM_REQUESTS}
 
     worst = (0.0, 0.0)
@@ -1773,7 +1822,8 @@ def phase_lm(dev):
               f"{row['decode_step_ms']:.2f} ms host-paced, {row['decode_step_device_ms']:.2f} ms "
               f"on the device alone (idle share "
               f"{1 - row['decode_step_device_ms'] / row['decode_step_ms']:.2f})")
-    return counts["flash_attention"], by_entry, steps, worst
+    lm = dict(cfg=cfg, params=params, prompts=prompts["A"], kern=kern["A"])
+    return counts["flash_attention"], by_entry, steps, worst, lm
 
 
 def flash_timing(dev, errs):
@@ -1904,6 +1954,475 @@ def flash_request_b_timing(dev):
             "library_max_abs_err": lib_err, "flops": flops, "bytes": nbytes}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the LM through DRService's queue, the RP-compressed KV cache
+# ---------------------------------------------------------------------------
+
+def all_counts():
+    """Every kernel wrapper's launch count, flash included."""
+    from repro_torch import kernels
+
+    return dict(kernels.launch_counts())
+
+
+def wait_ticket(what: str, ticket, timeout_s: float = 300.0):
+    if not ticket.wait(timeout_s):
+        fail(f"{what}: the ticket was not resolved within {timeout_s} s")
+    return ticket.result()
+
+
+def phase_lm_queue(dev, lm):
+    """Request A through a `DRService`'s admission queue: the threaded
+    `DeadlineScheduler`'s `lm_prefill`, then LMQ_DECODE `lm_decode` steps on
+    the kernel run's tokens, each flushed by the scheduler's loop at its
+    deadline.  The logits must equal phase_lm's direct `serve_step` results
+    bit for bit, the service's LRU must hold the two step builds, and the
+    SLO report must carry both kinds."""
+    import torch
+    from repro_torch.core.execution import Execution
+    from repro_torch.serve import DeadlineScheduler, DRService
+
+    cfg, params, prompts, kern = lm["cfg"], lm["params"], lm["prompts"], lm["kern"]
+    spec = LM_REQUESTS["A"]
+    kexe = Execution(backend="kernel", device=dev)
+    svc = DRService()
+    outs = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with DeadlineScheduler(svc, default_max_delay_ms=LMQ_DELAY_MS) as sched:
+        ticket = sched.lm_prefill(cfg, None, params, {"tokens": prompts}, spec["cache"],
+                                  execution=kexe)
+        logits, cache = wait_ticket("lm-queue prefill", ticket)
+        outs.append(logits)
+        for i in range(LMQ_DECODE):
+            ticket = sched.lm_decode(cfg, None, params, kern["tokens"][i], cache,
+                                     execution=kexe)
+            logits, cache = wait_ticket(f"lm-queue decode {i + 1}", ticket)
+            outs.append(logits)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = all_counts()
+    for i, (got, want) in enumerate(zip(outs, kern["logits"])):
+        if not torch.equal(got, want):
+            fail(f"lm-queue: {'prefill' if i == 0 else f'decode {i}'} logits differ from the "
+                 f"direct serve_step run; max |err| {max_err(got, want):.3e}")
+    if int(cache["pos"]) != spec["prompt"] + LMQ_DECODE:
+        fail(f"lm-queue: cache pos {int(cache['pos'])}")
+    if svc.cache.misses != 2:
+        fail(f"lm-queue: {svc.cache.misses} builds in the service's cache, want 2")
+    slo = svc.metrics()["slo"].get("lm", {})
+    if set(slo) != {"prefill", "decode"}:
+        fail(f"lm-queue: SLO keys {sorted(slo)}, want prefill and decode")
+    if counts["flash_attention"] != cfg.n_layers or any(
+            counts[k] for k in ("ternary_matmul", "fused_transform", "easi_apply")):
+        fail(f"lm-queue: launches {counts}, want {cfg.n_layers} flash launches and no other")
+    e2e = {kind: slo[kind]["e2e"] for kind in ("prefill", "decode")}
+    print(f"[lm-queue] request A through DeadlineScheduler.lm_prefill / lm_decode "
+          f"({LMQ_DELAY_MS} ms budget, the loop's own thread): prefill + {LMQ_DECODE} decode "
+          f"steps equal the direct serve_step logits bit for bit; {svc.cache.misses} builds in "
+          f"the service's LRU; e2e p50 prefill {e2e['prefill']['p50_ms']:.1f} ms, decode "
+          f"{e2e['decode']['p50_ms']:.1f} ms (max {e2e['decode']['max_ms']:.1f}); "
+          f"{wall:.2f} s in all; launches {json.dumps(counts)}")
+    return counts, {"e2e": e2e, "wall_s": wall, "builds": svc.cache.misses}
+
+
+def rank_corr(a, b):
+    """Per-row rank correlation of (B, V) logits (ranks by argsort, as
+    tests/test_kv_rp.py takes them)."""
+    import torch
+
+    ra, rb = (x.argsort(-1).argsort(-1).to(torch.float64) for x in (a, b))
+    ra, rb = ra - ra.mean(-1, keepdim=True), rb - rb.mean(-1, keepdim=True)
+    return (ra * rb).sum(-1) / (ra.norm(dim=-1) * rb.norm(dim=-1))
+
+
+def phase_kv_rp(dev, lm):
+    """h2o-danube-3-4b with `kv_rp=KV_RP` (keys sketched Dh 120 -> 60 by the
+    port's ternary R): request A, 16 decode steps teacher-forced with the
+    exact kernel run's tokens, kernel backend then torch backend."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.execution import Execution
+    from repro_torch.serve import serve_step
+
+    exact, params, prompts, kern = lm["cfg"], lm["params"], lm["prompts"], lm["kern"]
+    cfg = dataclasses.replace(exact, kv_rp=KV_RP)
+    spec = LM_REQUESTS["A"]
+    batch = {"tokens": prompts}
+
+    def run(exe):
+        prefill = serve_step.make_prefill(cfg, None, params, batch, spec["cache"], execution=exe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        decode = serve_step.make_decode(cfg, None, params, cache, execution=exe)
+        outs = [logits]
+        t0 = time.perf_counter()
+        for tok in kern["tokens"]:
+            logits, cache = decode(params, tok, cache)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        return dict(logits=outs, cache=cache, t_prefill=t_prefill,
+                    t_decode=(time.perf_counter() - t0) / len(kern["tokens"]))
+
+    kexe, texe = Execution(backend="kernel", device=dev), Execution(backend="torch", device=dev)
+    for exe in (kexe, texe):              # warm-up: first calls, allocator growth
+        run(exe)
+    reset_counts()
+    k = run(kexe)
+    counts = all_counts()
+    t = run(texe)
+    kc, ec = k["cache"], kern["cache"]
+    if kc["k"].shape[-1] != exact.dh // KV_RP or kc["v"].shape != ec["v"].shape:
+        fail(f"kv-rp: cache k {tuple(kc['k'].shape)}, v {tuple(kc['v'].shape)}")
+    nbytes = lambda c: sum(c[n].numel() * c[n].element_size() for n in ("k", "v"))
+    ratio = nbytes(kc) / nbytes(ec)
+    if abs(ratio - 0.75) > 1e-9:
+        fail(f"kv-rp: cache bytes {ratio:.4f} of the exact cache, want 0.75")
+    worst = (0.0, 0.0)
+    for i, (gk, gt) in enumerate(zip(k["logits"], t["logits"])):
+        rel, mx = logits_diff(f"kv-rp {'prefill' if i == 0 else f'decode {i}'}", gk, gt)
+        worst = (max(worst[0], rel), max(worst[1], mx))
+    for leaf in ("k", "v"):
+        a, b = kc[leaf].to(torch.float32), t["cache"][leaf].to(torch.float32)
+        rel = float((a - b).norm() / b.norm())
+        if not bool(torch.isfinite(a).all()) or rel > LM_REL_NORM:
+            fail(f"kv-rp: cache {leaf} relative norm {rel:.3e}")
+    corr = [float(rank_corr(gk, ge).min()) for gk, ge in
+            zip(k["logits"][1:], kern["logits"][1:])]
+    if min(corr) <= KV_RP_RANK_CORR:
+        fail(f"kv-rp: a row's logits rank correlation with the exact run fell to "
+             f"{min(corr):.4f} (bound {KV_RP_RANK_CORR}); by step {corr}")
+    if counts["flash_attention"] != cfg.n_layers:
+        fail(f"kv-rp: flash launches {counts['flash_attention']}, want {cfg.n_layers}")
+    agree = sum(bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+                for a, b in zip(k["logits"][1:], kern["logits"][1:]))
+    print(f"[kv-rp] {cfg.name} kv_rp={KV_RP}: K cache {tuple(kc['k'].shape)} (exact "
+          f"{tuple(ec['k'].shape)}), cache bytes {ratio:.4f} of the exact cache; over "
+          f"{len(corr)} teacher-forced decode steps every row's rank correlation with the exact "
+          f"run >= {min(corr):.4f} (bound {KV_RP_RANK_CORR}; mean {sum(corr) / len(corr):.4f}), "
+          f"greedy tokens equal the exact run's at {agree}/{len(corr)} steps")
+    print(f"[kv-rp] kernel vs torch backend: largest relative row norm {worst[0]:.3e}, largest "
+          f"|err| {worst[1]:.3e}; prefill {k['t_prefill'] * 1e3:.1f} ms kernel / "
+          f"{t['t_prefill'] * 1e3:.1f} torch, decode step {k['t_decode'] * 1e3:.2f} / "
+          f"{t['t_decode'] * 1e3:.2f} ms (host-paced); launches {json.dumps(counts)}")
+    return counts, {"cache_bytes_ratio": ratio, "min_rank_corr": min(corr),
+                    "rank_corr_by_step": corr, "max_rel_norm": worst[0], "max_abs_err": worst[1],
+                    "prefill_ms": k["t_prefill"] * 1e3, "decode_step_ms": k["t_decode"] * 1e3,
+                    "torch_prefill_ms": t["t_prefill"] * 1e3,
+                    "torch_decode_step_ms": t["t_decode"] * 1e3}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: phi3.5-moe, 8 of 32 layers at full width
+# ---------------------------------------------------------------------------
+
+def choice_agreement(a, b) -> float:
+    """Share of the (token, slot) expert choices in `a` (T, k) that `b`
+    made for the same token."""
+    import torch
+
+    return float((a[:, :, None] == b[:, None, :]).any(-1).to(torch.float32).mean())
+
+
+def phase_moe(dev):
+    """phi3.5-moe-42b-a6.6b at full width, cut to MOE_LAYERS layers (f32
+    experts are 5.03 GB a layer): request A, 16 greedy decode steps on the
+    kernel backend, the torch backend teacher-forced with its tokens.  Every
+    routing call is recorded (chosen experts, choices dropped at capacity)
+    to tell a routing flip from a numeric difference."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.execution import Execution
+    from repro_torch.models import api, blocks
+    from repro_torch.serve import serve_step
+
+    cfg = dataclasses.replace(registry.get(MOE_ARCH), n_layers=MOE_LAYERS)
+    spec = LM_REQUESTS["A"]
+    moe = cfg.moe
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device=dev).manual_seed(2), cfg,
+                             execution=Execution(device=dev))
+    torch.cuda.synchronize()
+    expert_gb = 3 * moe.n_experts * cfg.d_model * moe.d_ff_expert * 4 / 1e9
+    print(f"[moe] {cfg.name}: {cfg.n_layers} of {registry.get(MOE_ARCH).n_layers} layers, "
+          f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} (dh {cfg.dh}), "
+          f"{moe.n_experts} experts top-{moe.top_k} of d_ff {moe.d_ff_expert} "
+          f"({expert_gb:.2f} GB of f32 experts a layer); params drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (spec["batch"], spec["prompt"]),
+                                     generator=gen, device=dev, dtype=torch.int32)}
+    route = blocks._route
+    records = []
+
+    def recording_route(x, router, mspec):
+        r, aux = route(x, router, mspec)
+        c = blocks.moe_capacity(x.shape[0], mspec)
+        records.append((r.top_e, (r.pos >= c).sum(), c))
+        return r, aux
+
+    def serve(exe, forced=None):
+        records.clear()
+        prefill = serve_step.make_prefill(cfg, None, params, batch, spec["cache"], execution=exe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        decode = serve_step.make_decode(cfg, None, params, cache, execution=exe)
+        outs, toks = [logits], []
+        t0 = time.perf_counter()
+        for i in range(spec["decode"]):
+            tok = (logits.argmax(-1) if forced is None else forced[i]).to(torch.int32)
+            toks.append(tok)
+            logits, cache = decode(params, tok, cache)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        return dict(logits=outs, tokens=toks, cache=cache, routes=list(records),
+                    t_prefill=t_prefill, t_decode=(time.perf_counter() - t0) / spec["decode"])
+
+    kexe, texe = Execution(backend="kernel", device=dev), Execution(backend="torch", device=dev)
+    blocks._route = recording_route
+    try:
+        for exe in (kexe, texe):          # warm-up: first calls, allocator growth
+            serve(exe)
+        reset_counts()
+        k = serve(kexe)
+        counts = all_counts()
+        t = serve(texe, forced=k["tokens"])
+    finally:
+        blocks._route = route
+    n_calls = cfg.n_layers * (1 + spec["decode"])
+    if len(k["routes"]) != n_calls or len(t["routes"]) != n_calls:
+        fail(f"moe: {len(k['routes'])} / {len(t['routes'])} routing calls, want {n_calls}")
+    layers = range(cfg.n_layers)
+    agree_prefill = [choice_agreement(k["routes"][i][0], t["routes"][i][0]) for i in layers]
+    agree_decode = [min(choice_agreement(k["routes"][s * cfg.n_layers + i][0],
+                                         t["routes"][s * cfg.n_layers + i][0])
+                        for s in range(1, 1 + spec["decode"])) for i in layers]
+    dropped_prefill = [int(k["routes"][i][1]) for i in layers]
+    dropped_decode = sum(int(r[1]) for r in k["routes"][cfg.n_layers:])
+    caps = (k["routes"][0][2], k["routes"][cfg.n_layers][2])
+    print(f"[moe] capacity {caps[0]} a expert at prefill ({spec['batch']} x {spec['prompt']} "
+          f"tokens), {caps[1]} at decode; choices dropped at capacity by layer at prefill "
+          f"{dropped_prefill} (of {spec['batch'] * spec['prompt'] * moe.top_k}), "
+          f"{dropped_decode} in all decode steps")
+    print(f"[moe] (token, slot) expert choices agreeing between backends, by layer: prefill "
+          f"{[round(a, 6) for a in agree_prefill]}; fewest in a decode step "
+          f"{[round(a, 6) for a in agree_decode]}")
+    worst = (0.0, 0.0)
+    for i, (gk, gt) in enumerate(zip(k["logits"], t["logits"])):
+        rel, mx = logits_diff(f"moe {'prefill' if i == 0 else f'decode {i}'}", gk, gt)
+        worst = (max(worst[0], rel), max(worst[1], mx))
+    if counts["flash_attention"] != cfg.n_layers:
+        fail(f"moe: flash launches {counts['flash_attention']}, want {cfg.n_layers}")
+    agree = sum(bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+                for a, b in zip(k["logits"], t["logits"]))
+    print(f"[moe] kernel vs torch backend: largest relative row norm {worst[0]:.3e} (bound "
+          f"{LM_REL_NORM}), largest |err| {worst[1]:.3e} (bound {LM_MAX_ABS}); greedy tokens "
+          f"agree at {agree}/{len(k['logits'])} steps; launches {json.dumps(counts)}; peak "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    steps = {"layers": cfg.n_layers, "capacity": caps, "agree_prefill": agree_prefill,
+             "agree_decode_min": agree_decode, "dropped_prefill": dropped_prefill,
+             "dropped_decode": dropped_decode, "max_rel_norm": worst[0], "max_abs_err": worst[1]}
+    # device-only times of the steps (CUDA graph replay) beside the host-paced
+    # ones: the device's idle share of a step
+    tok = torch.zeros((spec["batch"],), dtype=torch.int32, device=dev)
+    for backend, exe, run in (("kernel", kexe, k), ("torch", texe, t)):
+        prefill = serve_step.make_prefill(cfg, None, params, batch, spec["cache"], execution=exe)
+        decode = serve_step.make_decode(cfg, None, params, run["cache"], execution=exe)
+        row = {"prefill_ms": run["t_prefill"] * 1e3, "decode_step_ms": run["t_decode"] * 1e3,
+               "prefill_device_ms": time_graph(lambda: prefill(params, batch), 1, 3),
+               "decode_step_device_ms": time_graph(lambda: decode(params, tok, run["cache"]),
+                                                   1, 5)}
+        steps[backend] = row
+        print(f"[moe-time] request A, {backend} backend: prefill {row['prefill_ms']:.1f} ms "
+              f"host-paced, {row['prefill_device_ms']:.1f} ms on the device alone; decode step "
+              f"{row['decode_step_ms']:.2f} ms host-paced, {row['decode_step_device_ms']:.2f} ms "
+              f"on the device alone (idle share "
+              f"{1 - row['decode_step_device_ms'] / row['decode_step_ms']:.2f})")
+    return counts, steps
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the audio / vision front-ends through the paper's DR front-end
+# ---------------------------------------------------------------------------
+
+def phase_frontend(dev):
+    """hubert-xlarge and internvl2-1b `CONFIG_DR` at full width and depth.
+    Raw features (frames or patches) drawn from a seed go through the DR
+    front-end as the reference's train step and serving read them: the DR
+    unit's init, one `dr_unit.update` on the first 4096 normalised rows
+    (ternary_matmul + easi_apply), `_apply_dr_frontend` (fused_transform),
+    then `api.prefill` (flash; non-causal for hubert) and, for internvl2,
+    16 greedy decode steps.  After a warm-up of both backends, the kernel
+    backend serves both models (counted), then the torch backend
+    teacher-forced, which must launch nothing."""
+    import torch
+    from repro_torch.configs import hubert_xlarge, internvl2_1b
+    from repro_torch.core import dr_unit
+    from repro_torch.core.execution import Execution
+    from repro_torch.models import api
+    from repro_torch.serve import serve_step
+    from repro_torch.train import train_step
+
+    kexe, texe = Execution(backend="kernel", device=dev), Execution(backend="torch", device=dev)
+    b, s = FRONTEND_BATCH, FRONTEND_SEQ
+    out = {}
+
+    def run(cfg, params, raw, tokens, exe, forced=None):
+        key = "frames" if cfg.frontend == "audio" else "patches"
+        dcfg = train_step._dr_cfg(cfg)
+        marks = [all_counts()]
+        t0 = time.perf_counter()
+        st = dr_unit.init(torch.Generator().manual_seed(7), dcfg, execution=exe)
+        flat = train_step._dr_normalize(raw.reshape(-1, cfg.frontend_dim))
+        st = dr_unit.update(st, dcfg, flat[:4096], execution=exe)
+        batch = train_step._apply_dr_frontend(st, dcfg, {key: raw, **tokens}, execution=exe)
+        torch.cuda.synchronize()
+        t_dr = time.perf_counter() - t0
+        marks.append(all_counts())
+        cache_size = batch[key].shape[1] + (tokens["tokens"].shape[1] if tokens else 0) + \
+            FRONTEND_DECODE * bool(cfg.causal)
+        prefill = serve_step.make_prefill(cfg, None, params, batch, cache_size, execution=exe)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        outs, toks = [logits], []
+        if cfg.causal:
+            decode = serve_step.make_decode(cfg, None, params, cache, execution=exe)
+            for i in range(FRONTEND_DECODE):
+                tok = (logits.argmax(-1) if forced is None else forced[i]).to(torch.int32)
+                toks.append(tok)
+                logits, cache = decode(params, tok, cache)
+                outs.append(logits)
+        torch.cuda.synchronize()
+        marks.append(all_counts())
+        launches = {what: {n: after[n] - before[n] for n in after}
+                    for what, before, after in zip(("dr", "lm"), marks, marks[1:])}
+        return dict(b=st.b, feats=batch[key], logits=outs, tokens=toks, t_dr=t_dr,
+                    t_prefill=t_prefill, launches=launches)
+
+    models = {}
+    for name, mod in (("hubert", hubert_xlarge), ("internvl2", internvl2_1b)):
+        cfg = mod.CONFIG_DR
+        t0 = time.perf_counter()
+        params = api.init_params(torch.Generator(device=dev).manual_seed(4), cfg, execution=kexe)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        if cfg.frontend == "audio":
+            raw, tokens = torch.randn((b, s, cfg.frontend_dim), generator=gen, device=dev), {}
+        else:
+            raw = torch.randn((b, cfg.frontend_seq, cfg.frontend_dim), generator=gen, device=dev)
+            tokens = {"tokens": torch.randint(0, cfg.vocab_size, (b, s - cfg.frontend_seq),
+                                              generator=gen, device=dev, dtype=torch.int32)}
+        raw = raw * 3.0 + 0.5          # raw features at their own scale and offset
+        torch.cuda.synchronize()
+        models[name] = (cfg, params, raw, tokens, time.perf_counter() - t0)
+        for exe in (kexe, texe):       # warm-up: first calls, allocator growth
+            run(cfg, params, raw, tokens, exe)
+    reset_counts()
+    kern = {name: run(*m[:4], kexe) for name, m in models.items()}
+    counts = all_counts()
+    for name, (cfg, params, raw, tokens, t_init) in models.items():
+        k = kern[name]
+        t = run(cfg, params, raw, tokens, texe, forced=k["tokens"])
+        if any(c for step in t["launches"].values() for c in step.values()):
+            fail(f"frontend {name}: the torch backend launched kernels {t['launches']}")
+        err_b = check_close(f"frontend {name} DR B after the update", k["b"], t["b"], **TRAJ_TOL)
+        err_f = check_close(f"frontend {name} reduced features", k["feats"], t["feats"],
+                            **TRAJ_TOL)
+        if tuple(k["feats"].shape[-1:]) != (cfg.dr_frontend.n,):
+            fail(f"frontend {name}: reduced features {tuple(k['feats'].shape)}")
+        worst = (0.0, 0.0)
+        for i, (gk, gt) in enumerate(zip(k["logits"], t["logits"])):
+            if tuple(gk.shape) != (b, cfg.padded_vocab):
+                fail(f"frontend {name}: logits shape {tuple(gk.shape)}")
+            rel, mx = logits_diff(f"frontend {name} {'prefill' if i == 0 else f'decode {i}'}",
+                                  gk, gt)
+            worst = (max(worst[0], rel), max(worst[1], mx))
+        want = {"dr": {"ternary_matmul": 1, "easi_apply": 1, "fused_transform": 1},
+                "lm": {"flash_attention": cfg.n_layers}}
+        for what, names in want.items():
+            for n, c in names.items():
+                if k["launches"][what][n] < c:
+                    fail(f"frontend {name}: {n} launched {k['launches'][what][n]} times in "
+                         f"{what}, want at least {c}")
+        print(f"[frontend] {cfg.name} CONFIG_DR ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"heads {cfg.n_heads}/{cfg.n_kv_heads} dh {cfg.dh}, causal {cfg.causal}): "
+              f"{cfg.frontend} features {tuple(raw.shape)} -> RP {cfg.dr_frontend.p} -> EASI "
+              f"{cfg.dr_frontend.n}; params drawn in {t_init:.2f} s; DR init + update + "
+              f"front-end {k['t_dr'] * 1e3:.1f} ms kernel / {t['t_dr'] * 1e3:.1f} torch; "
+              f"prefill {k['t_prefill'] * 1e3:.1f} ms / {t['t_prefill'] * 1e3:.1f} "
+              f"(host-paced), {len(k['logits']) - 1} decode steps")
+        print(f"[frontend] {name}: max |B_kernel - B_torch| {err_b:.3e}, max |features| err "
+              f"{err_f:.3e} (TRAJ_TOL); logits kernel vs torch: relative row norm "
+              f"{worst[0]:.3e}, |err| {worst[1]:.3e}; launches {json.dumps(k['launches'])}")
+        out[name] = {"max_abs_err_b": err_b, "max_abs_err_features": err_f,
+                     "max_rel_norm": worst[0], "max_abs_err": worst[1],
+                     "launches": k["launches"], "dr_ms": k["t_dr"] * 1e3,
+                     "prefill_ms": k["t_prefill"] * 1e3, "torch_dr_ms": t["t_dr"] * 1e3,
+                     "torch_prefill_ms": t["t_prefill"] * 1e3}
+    counts = all_counts()
+    missing = [n for n, c in counts.items() if c <= 0]
+    if missing:
+        fail(f"frontend: kernels never launched on the front-end path: {missing}")
+    print(f"[frontend] launches on the front-end path: {json.dumps(counts)}")
+    return counts, out
+
+
+def flash_geometry_timing(dev):
+    """The bf16 kernel at the prefill shape of each new head geometry (4 x
+    1024 positions), beside its plain version, SDPA (timed only) and its
+    bound; each checked against the plain version first."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention
+
+    rows = []
+    for name, (hq, hkv, dh, causal) in FLASH_GEOMETRIES.items():
+        b, s = LM_REQUESTS["A"]["batch"], LM_REQUESTS["A"]["prompt"]
+        gen = torch.Generator().manual_seed(97)
+        q, k, v = [torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+                   for shape in ((b, s, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh))]
+        kern = lambda: flash_attention.flash_attention(q, k, v, causal=causal)
+        plain = lambda: flash_attention.plain(q, k, v, causal=causal)
+        g = hq // hkv
+        qs, ks, vs = (q.transpose(1, 2), k.repeat_interleave(g, dim=2).transpose(1, 2),
+                      v.repeat_interleave(g, dim=2).transpose(1, 2))
+        lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        want, got = plain(), kern()
+        err = check_close(f"flash_attention at the {name} shape", got, want, **FLASH_TOL["bf16"])
+        wide = [t.to(torch.float32) for t in (q, k, v)]
+        norms = check_flash_norm(f"flash_attention at the {name} shape", got, want,
+                                 flash_attention.plain(*wide, causal=causal))
+        lib_err = max_err(lib().transpose(1, 2), want)
+        del got
+        dev_ms, plain_dev_ms, lib_dev_ms = (time_graph(kern, 10, 3), time_graph(plain, 3, 2),
+                                            time_graph(lib, 10, 3))
+        pairs = b * hq * (s * (s + 1) // 2 if causal else s * s)
+        flops = 4.0 * dh * pairs
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        bms, bby = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+        print(f"[time] flash_attention {name} {[b, s, hq, hkv, dh]} bf16 causal {causal}: "
+              f"device-only {dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} TFLOP/s); plain "
+              f"(device) {plain_dev_ms:.4f} ms; SDPA (device) {lib_dev_ms:.4f} ms (max |err| "
+              f"against the plain version {lib_err:.3e}); bound {bms:.6f} ms ({bby}); max "
+              f"|err| {err:.3e}, relative norm {norms['rel_norm']:.3e}")
+        rows.append({"geometry": name, "shape": [b, s, hq, hkv, dh], "causal": causal,
+                     "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+                     "library_device_ms": lib_dev_ms, "bound_ms": bms, "bound_by": bby,
+                     "max_abs_err": err, "library_max_abs_err": lib_err, **norms})
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1923,16 +2442,33 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     t_start = time.perf_counter()
     errs = {}
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[phase] {name}: {seconds[name]:.1f} s")
+        return out
+
     try:
-        card_line = phase_card()
-        phase_kernels(dev, errs)
-        counts, paper_times = phase_paper(dev)
-        t1_counts, table1 = phase_table1(dev)
-        rows = phase_wide(dev, errs)
-        serve = phase_serve(dev, card_line)
-        phase_flash(dev, errs)
-        lm_launches, lm_by_entry, lm_steps, lm_worst = phase_lm(dev)
-        flash_row = flash_timing(dev, errs)
+        card_line = timed("card", phase_card)
+        timed("kernels", phase_kernels, dev, errs)
+        counts, paper_times = timed("paper", phase_paper, dev)
+        t1_counts, table1 = timed("table1", phase_table1, dev)
+        rows = timed("wide", phase_wide, dev, errs)
+        serve = timed("serve", phase_serve, dev, card_line)
+        timed("flash", phase_flash, dev, errs)
+        lm_launches, lm_by_entry, lm_steps, lm_worst, lm = timed("lm", phase_lm, dev)
+        lmq_counts, lmq = timed("lm-queue", phase_lm_queue, dev, lm)
+        kvrp_counts, kvrp = timed("kv-rp", phase_kv_rp, dev, lm)
+        lm.clear()
+        torch.cuda.empty_cache()
+        flash_row = timed("flash-time", flash_timing, dev, errs)
+        flash_row["geometries"] = timed("flash-geometries", flash_geometry_timing, dev)
+        moe_counts, moe = timed("moe", phase_moe, dev)
+        torch.cuda.empty_cache()
+        front_counts, front = timed("frontend", phase_frontend, dev)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1950,10 +2486,16 @@ def main() -> int:
         row["launches_serve_warmup"] = serve["launches_by_program"]["warmup"][name]
         row["launches_serve_captured"] = serve["launches_by_program"]["captured"][name]
         row["runs_serve_replayed"] = serve["launches_by_program"]["replayed"][name]
+        row["launches_lm_queue"] = lmq_counts[name]
+        row["launches_kv_rp"] = kvrp_counts[name]
+        row["launches_moe"] = moe_counts[name]
+        row["launches_frontend"] = front_counts[name]
     print(f"[paper-steps] {json.dumps({k: paper_times[k] for k in ('update', 'transform', 'transform_1000')})}")
     print(f"[table1-steps] {json.dumps(table1)}")
     print(f"[lm-steps] {json.dumps(lm_steps)}")
     print(f"[serve-steps] {json.dumps(serve)}")
+    print(f"[lm-zoo-steps] {json.dumps({'lm_queue': lmq, 'kv_rp': kvrp, 'moe': moe, 'frontend': front})}")
+    print(f"[phase-seconds] {json.dumps(seconds)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

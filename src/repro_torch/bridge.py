@@ -3,11 +3,13 @@
 PyTorch cannot reproduce the JAX package's random draws, so a state made
 there (R, B₀, a whole `ModelState`, or an LM's parameter pytree) crosses
 over as numpy arrays: the reference's leaves go through `numpy.asarray`,
-`from_reference` loads them into a port `ModelState` and
+`from_reference` loads them into a port `ModelState`,
+`dr_state_from_reference` into a legacy `dr_unit.DRState`, and
 `params_from_reference` into the port's parameter dict (same keys, same
 stacked `[L, ...]` layout); `to_numpy` and `params_to_numpy` turn them back
 into numpy leaves.  Only the attributes `stages`, `steps` and `trainable`
-of a source state are read, so nothing of the JAX package is imported.
+(or `r`, `b` and `steps`) of a source state are read, so nothing of the
+JAX package is imported.
 
 Like every entry point of the port, the loaders put tensors on the card
 unless the caller passes `device="cpu"`; with no card they raise.
@@ -20,6 +22,7 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.dr_unit import DRState
 from repro_torch.core.execution import resolve_device
 from repro_torch.dr.model import ModelState
 
@@ -48,6 +51,16 @@ def from_reference(ref_state: Any, *, device="cuda") -> ModelState:
     stages = tuple(None if s is None else to_tensor(s, device) for s in ref_state.stages)
     steps = torch.tensor(int(np.asarray(ref_state.steps)), dtype=torch.int32)
     return ModelState(stages=stages, steps=steps, trainable=ref_state.trainable)
+
+
+def dr_state_from_reference(ref_state: Any, *, device="cuda") -> DRState:
+    """A port `DRState` holding a reference `dr_unit.DRState`'s R, B and
+    step count."""
+    def load(a):
+        return None if a is None else to_tensor(a, device)
+
+    return DRState(r=load(ref_state.r), b=load(ref_state.b),
+                   steps=torch.tensor(int(np.asarray(ref_state.steps)), dtype=torch.int32))
 
 
 def to_numpy(state: ModelState) -> Tuple[Tuple[Any, ...], np.int32, Any]:

@@ -1,26 +1,29 @@
 """Shared model building blocks, the serving subset: norms, RoPE, attention
-(prefill and decode), the dense MLP and the param-init helpers.
+(prefill and decode), the dense MLP, the MoE layer and the param-init
+helpers.
 
 Plain functions over tensors and parameter dicts, mirroring the JAX
 package's `models/blocks.py` and its (B, S, H, Dh) attention layout.
 `flash_attention` is the forward pass only: with `backend="kernel"` it goes
 through the hand-written CUDA kernel (`kernels.ops.flash_attention`; the
 plain version for CPU tensors), otherwise through the plain double-chunked
-version (`kernels.ref.flash_attention_ref`).  MoE, the chunked
-cross-entropy and the attention backward are not ported yet (ROADMAP A9b,
-A9g).
+version (`kernels.ref.flash_attention_ref`).  The MoE layer is the
+reference's single-device capacity dispatch; its expert-parallel
+all-to-all path needs a mesh (ROADMAP A10).  The chunked cross-entropy and
+the attention backward are not ported yet (ROADMAP A9g).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
+from repro_torch.models.config import MoESpec
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +138,92 @@ def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, act: str) -> torch.Ten
     else:  # plain 2-matrix MLP (starcoder2-style)
         h = act_fn(act)(x @ params["w_in"])
     return h @ params["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, sort-based capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_capacity(n_tokens: int, spec: MoESpec) -> int:
+    """Slots per expert.  The round-up to 8 is the reference's, and it
+    decides which tokens drop."""
+    c = int(math.ceil(n_tokens * spec.top_k * spec.capacity_factor / spec.n_experts))
+    return max(8, -(-c // 8) * 8)
+
+
+class Routing(NamedTuple):
+    """Routing metadata of T tokens over E experts, the T·k choices sorted
+    by expert (a stable sort, so each expert's tokens keep token order)."""
+    top_e: torch.Tensor     # (T, k) chosen experts, highest probability first
+    se: torch.Tensor        # (T·k,) expert of each sorted choice
+    stok: torch.Tensor      # (T·k,) its token
+    sw: torch.Tensor        # (T·k,) its renormalised weight, f32
+    pos: torch.Tensor       # (T·k,) its slot in the expert's queue
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, spec: MoESpec):
+    """Shared routing: (Routing, aux losses), the router in f32."""
+    t = x.shape[0]
+    e, k = spec.n_experts, spec.top_k
+    logits = x.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                           # (T, E)
+    top_w, top_e = torch.topk(probs, k, dim=-1)                     # (T, k)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)                      # as jnp.argsort
+    se = flat_e[order]
+    stok = torch.arange(t, device=x.device).repeat_interleave(k)[order]
+    sw = top_w.reshape(-1)[order]
+    starts = torch.searchsorted(se, torch.arange(e, device=x.device))
+    pos = torch.arange(t * k, device=x.device) - starts[se]
+
+    me = probs.mean(dim=0)
+    ce = F.one_hot(top_e[:, 0], e).to(torch.float32).mean(dim=0)
+    lb = e * torch.sum(me * ce)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return Routing(top_e, se, stok, sw, pos), {"moe_lb": lb, "moe_z": z * spec.router_z_coef}
+
+
+def _moe_compute(params: Dict[str, torch.Tensor], x: torch.Tensor, spec: MoESpec,
+                 act: str, c: int):
+    """Dispatch / compute / combine over every expert, x (T, d) -> y (T, d).
+
+    A choice past its expert's capacity `c` drops: its row goes to a sink
+    row past the E·c slots, which is cut off before the expert products
+    (the reference's out-of-bounds `mode="drop"`; nothing indexes out of
+    bounds).  Each token's k contributions are summed in a fixed order,
+    ascending expert (the stable sort's), where the reference's
+    segment_sum adds them; no atomics, so a run repeats bit for bit."""
+    t, d = x.shape
+    e, k = spec.n_experts, spec.top_k
+    r, aux = _route(x, params["router"], spec)
+    keep = r.pos < c
+    dest = torch.where(keep, r.se * c + r.pos, e * c)               # drop -> sink row
+    xe = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device)
+    xe[dest] = x[r.stok]
+    xe = xe[: e * c].reshape(e, c, d)
+
+    h = act_fn(act)(torch.einsum("ecd,edf->ecf", xe, params["w_gate"])) \
+        * torch.einsum("ecd,edf->ecf", xe, params["w_in"])
+    ye = torch.einsum("ecf,efd->ecd", h, params["w_out"]).reshape(e * c, d)
+
+    gathered = ye[torch.where(keep, dest, 0)] * keep[:, None].to(x.dtype)
+    contrib = gathered * r.sw[:, None].to(x.dtype)                  # (T·k, d), sorted
+    # each token's k sorted rows, in sorted (ascending expert) order
+    mine = torch.argsort(r.stok, stable=True).reshape(t, k)
+    y = contrib[mine[:, 0]]
+    for j in range(1, k):
+        y = y + contrib[mine[:, j]]
+    return y, aux
+
+
+def moe_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, spec: MoESpec, act: str):
+    """x (B, S, d) -> (y (B, S, d), aux dict), dropped-on-overflow capacity
+    over the B·S tokens.  The reference's single-device path."""
+    b, s, d = x.shape
+    y, aux = _moe_compute(params, x.reshape(b * s, d), spec, act, moe_capacity(b * s, spec))
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

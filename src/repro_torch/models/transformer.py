@@ -1,4 +1,4 @@
-"""Config-driven dense decoder LM: GQA + RoPE (+ SWA), text tokens only.
+"""Config-driven transformer LM: GQA + RoPE (+ SWA, MoE, encoder, VLM/audio).
 
 The port of the JAX package's `models/transformer.py` for serving:
 `init_params`, `prefill`, `decode_step`, and `hidden_states` / `forward`
@@ -8,19 +8,22 @@ maps the JAX pytree leaf by leaf; the layer stack is a Python loop in place
 of `lax.scan`.  Attention's forward goes through the CUDA kernel when the
 `Execution` says `backend="kernel"`.
 
-MoE layers, modality front-ends (with or without the DR front-end) and the
-RP-compressed KV cache raise `NotImplementedError` (ROADMAP A9b, A9d,
-A9c).  The mesh constraint of the reference's layer body is dropped: one
-card has no mesh (ROADMAP A10).
+Every option of the reference's transformer runs: MoE layers (the
+single-device capacity dispatch, `blocks.moe_layer`), the audio and vision
+front-ends (`embed_inputs`; with a DR front-end the caller reduces the raw
+features first, `train.train_step._apply_dr_frontend`) and the
+RP-compressed KV cache (`kv_rp`).  The mesh constraint of the reference's
+layer body is dropped: one card has no mesh (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import random_projection as rp_mod
 from repro_torch.core.execution import Execution
 from repro_torch.models import blocks
 from repro_torch.models.config import ArchConfig
@@ -28,22 +31,11 @@ from repro_torch.models.config import ArchConfig
 Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_MOE_KEYS = ("router", "w_in", "w_gate", "w_out")
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the options of the reference this port does not run yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet (ROADMAP A9b)")
-    if cfg.kv_rp is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the RP-compressed KV cache (kv_rp) is not ported yet (ROADMAP A9c)")
-    if cfg.frontend is not None or cfg.dr_frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: modality front-ends ({cfg.frontend}) are not ported yet (ROADMAP A9d)")
 
 
 def _cast(lp: Params, cdt: torch.dtype) -> Params:
@@ -65,15 +57,22 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *,
     """Random params drawn from `gen` (on the generator's device), placed on
     `device` (default: the generator's)."""
     cfg.validate()
-    check_supported(cfg)
     dtype = torch_dtype(cfg.param_dtype)
     d, dh = cfg.d_model, cfg.dh
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     v = cfg.padded_vocab
     device = gen.device if device is None else device
 
-    def dense(d_in, d_out, scale=None):
-        return blocks.dense_init(gen, d_in, d_out, dtype, scale).to(device)
+    def dense(d_in, d_out, scale=None, dt=dtype):
+        return blocks.dense_init(gen, d_in, d_out, dt, scale).to(device)
+
+    def experts(d_in, d_out, scale=None):
+        # drawn expert by expert into one (E, d_in, d_out) tensor, so a
+        # layer's experts never exist twice
+        w = torch.empty((cfg.moe.n_experts, d_in, d_out), dtype=dtype, device=device)
+        for j in range(cfg.moe.n_experts):
+            w[j] = dense(d_in, d_out, scale)
+        return w
 
     def layer_init(i):
         p = {
@@ -84,11 +83,18 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *,
             "wv": dense(d, hkv * dh),
             "wo": dense(hq * dh, d, scale=1.0 / math.sqrt(2 * cfg.n_layers * hq * dh)),
         }
-        f = cfg.d_ff
-        p["w_in"] = dense(d, f)
-        if cfg.gated_mlp:
-            p["w_gate"] = dense(d, f)
-        p["w_out"] = dense(f, d, scale=1.0 / math.sqrt(2 * cfg.n_layers * f))
+        if cfg.moe is not None:
+            e, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
+            p["router"] = dense(d, e, dt=torch.float32)
+            p["w_in"] = experts(d, f)
+            p["w_gate"] = experts(d, f)
+            p["w_out"] = experts(f, d, scale=1.0 / math.sqrt(2 * cfg.n_layers * f))
+        else:
+            f = cfg.d_ff
+            p["w_in"] = dense(d, f)
+            if cfg.gated_mlp:
+                p["w_gate"] = dense(d, f)
+            p["w_out"] = dense(f, d, scale=1.0 / math.sqrt(2 * cfg.n_layers * f))
         return p
 
     params = {
@@ -98,6 +104,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(d, v)
+    if cfg.frontend is not None:
+        # with a DR front-end the projection reads the REDUCED features
+        f_in = cfg.dr_frontend.n if cfg.dr_frontend is not None else cfg.frontend_dim
+        params["frontend_proj"] = dense(f_in, d)
     return params
 
 
@@ -117,13 +127,18 @@ def _attn_proj(lp, x, cfg: ArchConfig, positions):
     return q, k, vv
 
 
-def _mlp_params(lp):
-    return {k: lp[k] for k in ("w_in", "w_gate", "w_out") if k in lp}
+def _ffn(lp: Params, h: torch.Tensor, cfg: ArchConfig):
+    """The layer's MLP or MoE on normed h -> (y, aux)."""
+    if cfg.moe is not None:
+        return blocks.moe_layer({k: lp[k] for k in _MOE_KEYS}, h, cfg.moe, cfg.act)
+    y = blocks.mlp({k: lp[k] for k in ("w_in", "w_gate", "w_out") if k in lp}, h, cfg.act)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    return y, {"moe_lb": zero, "moe_z": zero}
 
 
 def _layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
            backend: str):
-    """One block on the full sequence -> (x, (k, v))."""
+    """One block on the full sequence -> (x, aux, (k, v))."""
     b, s, _ = x.shape
     h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, vv = _attn_proj(lp, h, cfg, positions)
@@ -131,22 +146,34 @@ def _layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor
         q, k, vv, causal=cfg.causal, window=cfg.sliding_window,
         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, backend=backend)
     x = x + (attn.reshape(b, s, -1) @ lp["wo"])
-    h = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    x = x + blocks.mlp(_mlp_params(lp), h, cfg.act)
-    return x, (k, vv)
+    y, aux = _ffn(lp, blocks.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    return x + y, aux, (k, vv)
 
 
 # ---------------------------------------------------------------------------
-# embedding
+# embedding / front-end
 # ---------------------------------------------------------------------------
 
 def embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
                  compute_dtype: torch.dtype) -> Tuple[torch.Tensor, int]:
-    """Returns (x (B, S, d), n_prefix); the token path only, so n_prefix is
-    always 0."""
-    check_supported(cfg)
-    tok = batch["tokens"].to(device=params["embed"].device, dtype=torch.long)
-    return params["embed"][tok].to(compute_dtype), 0
+    """Returns (x (B, S_total, d), n_prefix), where the n_prefix leading
+    positions carry modality front-end content: audio frames (B, S, f) run
+    through `frontend_proj` in place of the tokens; vision patches (B, P, f)
+    are projected and put before the tokens' embeddings."""
+    dev = params["embed"].device
+
+    def project(feats):
+        return feats.to(device=dev, dtype=compute_dtype) @ \
+            params["frontend_proj"].to(compute_dtype)
+
+    if cfg.frontend == "audio":
+        return project(batch["frames"]), 0
+    tok = batch["tokens"].to(device=dev, dtype=torch.long)
+    x = params["embed"][tok].to(compute_dtype)
+    if cfg.frontend == "vision":
+        px = project(batch["patches"])
+        return torch.cat([px, x], dim=1), px.shape[1]
+    return x, 0
 
 
 def _head(params: Params, cfg: ArchConfig) -> torch.Tensor:
@@ -158,65 +185,105 @@ def _head(params: Params, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
-                  execution: Execution = Execution()) -> torch.Tensor:
-    """Full-sequence backbone -> final normed hidden (B, S, d)."""
+                  execution: Execution = Execution()) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Full-sequence backbone -> (final normed hidden (B, S_total, d), aux):
+    aux holds `moe_lb` / `moe_z` averaged over the layers and `n_prefix`."""
     execution.torch_device()
     cdt = torch_dtype(cfg.compute_dtype)
-    x, _ = embed_inputs(params, batch, cfg, cdt)
+    x, n_prefix = embed_inputs(params, batch, cfg, cdt)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
+    lb = lz = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, _ = _layer(_cast(_layer_params(params, i), cdt), x, cfg, positions,
-                      execution.backend)
-    return blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, aux, _ = _layer(_cast(_layer_params(params, i), cdt), x, cfg, positions,
+                           execution.backend)
+        lb, lz = lb + aux["moe_lb"], lz + aux["moe_z"]
+    x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, {"moe_lb": lb / cfg.n_layers, "moe_z": lz / cfg.n_layers, "n_prefix": n_prefix}
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
-            execution: Execution = Execution()) -> torch.Tensor:
-    """Full logits (B, S, V) in f32."""
-    x = hidden_states(params, batch, cfg, execution=execution)
+            execution: Execution = Execution()) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """(full logits (B, S_total, V) in f32, aux)."""
+    x, aux = hidden_states(params, batch, cfg, execution=execution)
     cdt = torch_dtype(cfg.compute_dtype)
-    return (x @ _head(params, cfg).to(cdt)).to(torch.float32)
+    return (x @ _head(params, cfg).to(cdt)).to(torch.float32), aux
 
 
 # ---------------------------------------------------------------------------
 # prefill / decode
 # ---------------------------------------------------------------------------
 
+_KV_RP_SEED = 20180615  # the reference's: a serving-time constant
+
+
+def kv_rp_matrix(cfg: ArchConfig, device: torch.device) -> Optional[torch.Tensor]:
+    """The port's ternary JL sketch R (dh, dh // kv_rp) in f32 for key
+    compression, or None without `kv_rp`.  PyTorch cannot redraw the
+    reference's threefry R, so the port draws its own from the same seed
+    on a CPU generator (the same R on every device), with the reference's
+    distribution and isometry scale: with s = p, E⟨Rq, Rk⟩ = ⟨q, k⟩, so the
+    softmax keeps its 1/sqrt(dh) temperature.  `prefill` / `decode_step`
+    take an explicit R in its place (`kv_rp_r`)."""
+    if cfg.kv_rp is None:
+        return None
+    rcfg = rp_mod.RPConfig(m=cfg.dh, p=cfg.dh // cfg.kv_rp, normalize="isometry")
+    r = rp_mod.sample_ternary(torch.Generator().manual_seed(_KV_RP_SEED), rcfg)
+    return (r.to(torch.float32).T * rcfg.scale).to(device)
+
+
+def _kv_rp(cfg: ArchConfig, r: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
+    if cfg.kv_rp is None:
+        return None
+    return kv_rp_matrix(cfg, device) if r is None else r.to(device=device,
+                                                             dtype=torch.float32)
+
+
+def _sketch_k(k: torch.Tensor, r: Optional[torch.Tensor]) -> torch.Tensor:
+    if r is None:
+        return k
+    return (k.to(torch.float32) @ r).to(k.dtype)   # (..., H, dh_r)
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_size: int,
                device: torch.device) -> Dict[str, torch.Tensor]:
-    """Zero cache: {"k", "v": (L, B, keep, Hkv, Dh) in the compute dtype,
-    "len", "pos": int32 scalars on the host}, where the window bounds
-    `keep` under SWA."""
-    check_supported(cfg)
+    """Zero cache: {"k": (L, B, keep, Hkv, Dh_k), "v": (L, B, keep, Hkv,
+    Dh) in the compute dtype, "len", "pos": int32 scalars on the host},
+    where the window bounds `keep` under SWA and Dh_k = Dh // kv_rp with
+    the RP-sketched keys."""
     win = cfg.sliding_window
     keep = min(cache_size, win) if win else cache_size
-    shape = (cfg.n_layers, batch, keep, cfg.n_kv_heads, cfg.dh)
+    dh_k = cfg.dh // cfg.kv_rp if cfg.kv_rp else cfg.dh
     cdt = torch_dtype(cfg.compute_dtype)
-    return {"k": torch.zeros(shape, dtype=cdt, device=device),
-            "v": torch.zeros(shape, dtype=cdt, device=device),
+    shape = (cfg.n_layers, batch, keep, cfg.n_kv_heads)
+    return {"k": torch.zeros(shape + (dh_k,), dtype=cdt, device=device),
+            "v": torch.zeros(shape + (cfg.dh,), dtype=cdt, device=device),
             "len": torch.tensor(0, dtype=torch.int32),
             "pos": torch.tensor(0, dtype=torch.int32)}
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
-            cache_size: int, *, execution: Execution = Execution()
+            cache_size: int, *, execution: Execution = Execution(),
+            kv_rp_r: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Runs the prompt, returns (last-position logits (B, V) f32, kv cache
     as `init_cache` lays it out).  As in the reference, the last `keep` keys
     of the prompt sit at slots 0..keep-1 (ring start at 0 = the oldest kept
-    position)."""
+    position); with `kv_rp` the cache holds the sketched keys (`kv_rp_r`,
+    else `kv_rp_matrix`), while the prompt's own attention uses the exact
+    ones."""
     execution.torch_device()
     cdt = torch_dtype(cfg.compute_dtype)
     x, _ = embed_inputs(params, batch, cfg, cdt)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
+    rp_r = _kv_rp(cfg, kv_rp_r, x.device)
     cache = init_cache(cfg, b, cache_size, x.device)
     n = min(s, cache["k"].shape[2])
     for i in range(cfg.n_layers):
-        x, (k, vv) = _layer(_cast(_layer_params(params, i), cdt), x, cfg, positions,
-                            execution.backend)
-        cache["k"][i, :, :n] = k[:, s - n:]
+        x, _, (k, vv) = _layer(_cast(_layer_params(params, i), cdt), x, cfg, positions,
+                               execution.backend)
+        cache["k"][i, :, :n] = _sketch_k(k[:, s - n:], rp_r)
         cache["v"][i, :, :n] = vv[:, s - n:]
     x = blocks.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = (x @ _head(params, cfg).to(cdt)).to(torch.float32)
@@ -226,7 +293,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
 
 
 def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tensor],
-                cfg: ArchConfig, *, execution: Execution = Execution()
+                cfg: ArchConfig, *, execution: Execution = Execution(),
+                kv_rp_r: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token: token (B,) int -> (logits (B, V) f32, updated cache).
 
@@ -234,9 +302,9 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
     tensors in place (the reference donates the cache to the same effect);
     the returned dict holds those tensors and the advanced `len` / `pos`.
     The slot is `len` while the cache fills, then `pos % S` (the
-    reference's ring)."""
+    reference's ring).  With `kv_rp`, q and the new key are sketched by the
+    same R as `prefill`'s, and the scores keep the 1/sqrt(dh) scale."""
     execution.torch_device()
-    check_supported(cfg)
     cdt = torch_dtype(cfg.compute_dtype)
     embed = params["embed"]
     x = embed[token.to(device=embed.device, dtype=torch.long)[:, None]].to(cdt)  # (B,1,d)
@@ -247,17 +315,19 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
     slot = n if n < s_max else pos % s_max
     new_len = min(n + 1, s_max)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    rp_r = _kv_rp(cfg, kv_rp_r, x.device)
     for i in range(cfg.n_layers):
         lp = _cast(_layer_params(params, i), cdt)
         h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, vv = _attn_proj(lp, h, cfg, positions)
+        q, k = _sketch_k(q, rp_r), _sketch_k(k, rp_r)
         k_c[i, :, slot] = k[:, 0].to(k_c.dtype)
         v_c[i, :, slot] = vv[:, 0].to(v_c.dtype)
         attn = blocks.decode_attention(q, k_c[i], v_c[i], new_len,
                                        window=cfg.sliding_window, scale_dh=cfg.dh)
         x = x + attn.reshape(b, 1, -1) @ lp["wo"]
-        h2 = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + blocks.mlp(_mlp_params(lp), h2, cfg.act)
+        y, _ = _ffn(lp, blocks.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+        x = x + y
     x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, 0] @ _head(params, cfg).to(cdt)).to(torch.float32)
     new_cache = {"k": k_c, "v": v_c,

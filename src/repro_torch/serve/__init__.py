@@ -18,8 +18,7 @@ deadline, all time through the injectable `repro_torch.serve.clock.Clock`).
   serve_step  — `make_prefill` / `make_decode` over `models.api`
 
 The fleet (replication, transport, election, the durable store, fleet
-merge) is not ported yet (ROADMAP A8), nor are the LM steps through the
-engine's queue (A9h).
+merge) is not ported yet (ROADMAP A8).
 """
 
 from repro_torch.serve import (batching, clock, durability, engine, registry, scheduler,

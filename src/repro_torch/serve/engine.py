@@ -46,9 +46,13 @@ Typical use:
     y = svc.serve_and_update("waveform", block)   # train-while-serve
     svc.promote("waveform")                       # retrained state goes live
 
+LM prefill / decode steps go through the same queue (`lm_prefill`,
+`lm_decode`), built in the same bounded compile cache as the DR programs
+and run eagerly.
+
 Not ported yet, each refused with `NotImplementedError`: a device mesh
-(ROADMAP A10), the durable solo registry `data_dir` (A8), ensembles (A4c)
-and the LM steps through the queue (A9h).
+(ROADMAP A10), the durable solo registry `data_dir` (A8) and ensembles
+(A4c).
 """
 
 from __future__ import annotations
@@ -60,8 +64,10 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tupl
 import torch
 
 from repro_torch import kernels
+from repro_torch.core.execution import Execution
 from repro_torch.dr.model import ModelState
 from repro_torch.kernels import autotune
+from repro_torch.serve import serve_step
 from repro_torch.serve.batching import (BoundedCompileCache, BucketPolicy,
                                         MicroBatcher, Ticket)
 from repro_torch.serve.clock import Clock, MonotonicClock
@@ -84,6 +90,12 @@ def _dummy_batch(model: Any, rows: int, dtype) -> torch.Tensor:
     built (and captured) on."""
     return torch.zeros((rows, model.in_dim), dtype=dtype,
                        device=model.execution.torch_device())
+
+
+def _batch_rows(batch: PyTree) -> int:
+    """Rows of an LM batch: the leading dim of its first leaf in key order
+    (`jax.tree.leaves`' order in the reference)."""
+    return int(serve_step._tree_sig(batch)[0][1][0])
 
 
 def _leaves(tree: Any) -> List[torch.Tensor]:
@@ -555,26 +567,55 @@ class DRService:
                         t._fail(e)
         return n_batches
 
-    # ---- LM steps through the same queue (not ported yet) -------------------
+    # ---- LM steps through the same queue ------------------------------------
+    # The *_step methods are the single source of truth for how an LM step
+    # is constructed (cache key, rows derivation, in-place cache contract);
+    # both the direct lm_* methods and the DeadlineScheduler's LM helpers
+    # call them, so the two admission paths can't drift apart.  The steps
+    # run eagerly (no CUDA graph); `mesh` must be None (ROADMAP A10).
     def prefill_step(self, cfg: Any, mesh: Any, params: PyTree,
-                     batch: PyTree, cache_size: int,
+                     batch: PyTree, cache_size: int, *,
+                     execution: Execution = Execution(),
                      ) -> Tuple[Callable[..., Any], int]:
-        raise NotImplementedError(_LM_NOT_PORTED)
+        """(prefill callable, batch rows) — the callable comes from THIS
+        service's bounded compile cache, shared with the DR bucket
+        programs."""
+        fn = serve_step.make_prefill(cfg, mesh, params, batch, cache_size,
+                                     cache=self.cache, execution=execution)
+        return fn, _batch_rows(batch)
 
     def decode_step(self, cfg: Any, mesh: Any, params: PyTree,
-                    token: torch.Tensor, kv_cache: PyTree,
+                    token: torch.Tensor, kv_cache: PyTree, *,
+                    execution: Execution = Execution(),
                     ) -> Tuple[Callable[..., Any], int]:
-        raise NotImplementedError(_LM_NOT_PORTED)
+        """(decode callable, batch rows); the step writes the kv cache in
+        place (the reference donates it) — don't reuse the argument after
+        the step runs."""
+        fn = serve_step.make_decode(cfg, mesh, params, kv_cache,
+                                    cache=self.cache, execution=execution)
+        return fn, int(token.shape[0])
 
     def lm_prefill(self, cfg: Any, mesh: Any, params: PyTree, batch: PyTree,
                    cache_size: int, *, tag: Hashable = "lm",
-                   max_delay_ms: Optional[float] = None) -> Ticket:
-        raise NotImplementedError(_LM_NOT_PORTED)
+                   max_delay_ms: Optional[float] = None,
+                   execution: Execution = Execution()) -> Ticket:
+        """Admit one LM prefill through the queue; resolves with
+        `(logits, kv_cache)`."""
+        fn, rows = self.prefill_step(cfg, mesh, params, batch, cache_size,
+                                     execution=execution)
+        return self.submit_step(tag, "prefill", fn, params, batch,
+                                rows=rows, max_delay_ms=max_delay_ms)
 
     def lm_decode(self, cfg: Any, mesh: Any, params: PyTree, token: torch.Tensor,
                   kv_cache: PyTree, *, tag: Hashable = "lm",
-                  max_delay_ms: Optional[float] = None) -> Ticket:
-        raise NotImplementedError(_LM_NOT_PORTED)
+                  max_delay_ms: Optional[float] = None,
+                  execution: Execution = Execution()) -> Ticket:
+        """Admit one LM decode step through the queue (same contract as
+        `lm_prefill`)."""
+        fn, rows = self.decode_step(cfg, mesh, params, token, kv_cache,
+                                    execution=execution)
+        return self.submit_step(tag, "decode", fn, params, token, kv_cache,
+                                rows=rows, max_delay_ms=max_delay_ms)
 
     # ---- train-while-serve -------------------------------------------------
     def _fused_update_fn(self, snap: Snapshot, x: torch.Tensor):
@@ -797,8 +838,3 @@ class DRService:
         if len(outs) == 1:
             return outs[0]
         return torch.cat(outs, dim=0)
-
-
-_LM_NOT_PORTED = ("the LM prefill / decode steps through DRService's admission "
-                  "queue are not ported yet (ROADMAP A9h); serve an LM with "
-                  "repro_torch.serve.serve_step.make_prefill / make_decode")

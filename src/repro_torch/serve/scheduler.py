@@ -36,6 +36,7 @@ from typing import Any, Callable, Hashable, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.execution import Execution
 from repro_torch.serve.engine import DRService
 
 
@@ -117,21 +118,22 @@ class DeadlineScheduler:
     # The LM helpers build the step (service.prefill_step/decode_step — the
     # shared construction path) BEFORE taking the condition: a compile-cache
     # miss builds under no lock, so it can't stall other submitters or the
-    # loop's wakeup path; only the enqueue is serialized.  The service's LM
-    # steps are not ported yet (ROADMAP A9h): both raise NotImplementedError.
+    # loop's wakeup path; only the enqueue is serialized.
     def lm_prefill(self, cfg: Any, mesh: Any, params: Any, batch: Any,
                    cache_size: int, *, tag: Hashable = "lm",
-                   max_delay_ms: Optional[float] = None):
+                   max_delay_ms: Optional[float] = None,
+                   execution: Execution = Execution()):
         fn, rows = self.service.prefill_step(cfg, mesh, params, batch,
-                                             cache_size)
+                                             cache_size, execution=execution)
         return self.submit_step(tag, "prefill", fn, params, batch,
                                 rows=rows, max_delay_ms=max_delay_ms)
 
     def lm_decode(self, cfg: Any, mesh: Any, params: Any, token: Any,
                   kv_cache: Any, *, tag: Hashable = "lm",
-                  max_delay_ms: Optional[float] = None):
+                  max_delay_ms: Optional[float] = None,
+                  execution: Execution = Execution()):
         fn, rows = self.service.decode_step(cfg, mesh, params, token,
-                                            kv_cache)
+                                            kv_cache, execution=execution)
         return self.submit_step(tag, "decode", fn, params, token, kv_cache,
                                 rows=rows, max_delay_ms=max_delay_ms)
 

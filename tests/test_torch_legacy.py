@@ -41,11 +41,7 @@ def _cfgs(kind, **kw):
 
 def _import(j_state):
     """A reference DRState as a port DRState on the CPU."""
-    def t(a):
-        return None if a is None else bridge.to_tensor(np.asarray(a), "cpu")
-
-    return t_unit.DRState(r=t(j_state.r), b=t(j_state.b),
-                          steps=torch.tensor(int(j_state.steps), dtype=torch.int32))
+    return bridge.dr_state_from_reference(j_state, device="cpu")
 
 
 def _stage_fields(stage):

@@ -3,13 +3,14 @@ bridge, serve steps) on CPU tensors against the JAX package.
 
 Parameters are drawn by JAX and carried across with
 `bridge.params_from_reference`; prompts and teacher-forced decode tokens
-come from numpy with a seed.  The reference runs `api.prefill` /
-`api.decode_step` directly, without a mesh (jitted in f32, op by op in
-bf16): its meshed serving factories are not used, because the reference's
-own test of them fails
-(`test_scheduler::TestStepTraffic::test_lm_prefill_decode_through_queue`)."""
+come from numpy with a seed (`torch_lm_parity`).  The reference runs
+`api.prefill` / `api.decode_step` directly, without a mesh (jitted in f32,
+op by op in bf16): its meshed serving factories are not used, because the
+reference's own test of them fails
+(`test_scheduler::TestStepTraffic::test_lm_prefill_decode_through_queue`).
+MoE, the RP-compressed KV cache and the front-ends have their own files
+(`test_torch_moe.py`, `test_torch_lm_zoo.py`)."""
 
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -27,38 +28,20 @@ from repro.models import blocks as j_blocks
 from repro.models import transformer as j_transformer
 from repro_torch import bridge
 from repro_torch.checkpoint import config_hash as t_config_hash
-from repro_torch.configs import hubert_xlarge
 from repro_torch.configs import registry as t_registry
-from repro_torch.core.execution import Execution
 from repro_torch.models import api as t_api
 from repro_torch.models import blocks as t_blocks
 from repro_torch.models import transformer as t_transformer
 from repro_torch.serve import serve_step
 from repro_torch.serve.batching import BoundedCompileCache
+from torch_lm_parity import CPU, CPU_KERNEL, TOL, close as _close, configs as _configs
+from torch_lm_parity import np_tree as _np
+from torch_lm_parity import serve_case
 
-CPU = Execution(device="cpu")
-CPU_KERNEL = Execution(backend="kernel", device="cpu")
 DENSE = ["h2o_danube3_4b", "yi_6b", "smollm_135m", "starcoder2_7b"]
-NOT_PORTED = {"rwkv6_1b6": "A9e", "zamba2_7b": "A9f", "phi35_moe": "A9b",
-              "dbrx_132b": "A9b", "hubert_xlarge": "A9d", "internvl2_1b": "A9d"}
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-
-
-def _np(tree):
-    return jax.tree.map(np.asarray, tree)
-
-
-def _close(got_t, want_j, tol, what=""):
-    np.testing.assert_allclose(bridge.to_array(got_t), np.asarray(want_j, np.float32),
-                               rtol=tol, atol=tol, err_msg=what)
-
-
-def _configs(arch_id, compute_dtype=None):
-    jc, tc = j_registry.get_smoke(arch_id), t_registry.get_smoke(arch_id)
-    if compute_dtype is not None:
-        jc = dataclasses.replace(jc, compute_dtype=compute_dtype)
-        tc = dataclasses.replace(tc, compute_dtype=compute_dtype)
-    return jc, tc
+TRANSFORMERS = [a for a in j_registry.ARCH_IDS
+                if j_registry.get(a).family == "transformer"]
+NOT_PORTED = {"rwkv6_1b6": "A9e", "zamba2_7b": "A9f"}
 
 
 # ---------------------------------------------------------------------------
@@ -119,9 +102,18 @@ def test_blocks_match_the_reference(dt):
 # params: layout and bridge
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", TRANSFORMERS + ["hubert_xlarge:dr", "internvl2_1b:dr"])
 def test_init_params_layout_matches_the_reference(arch_id):
+    """Every transformer config's SMOKE layout (MoE's f32 router and
+    stacked experts, the front-end projection, which reads the reduced
+    features under a DR front-end)."""
+    arch_id, _, dr = arch_id.partition(":")
     jc, tc = _configs(arch_id)
+    if dr:
+        from repro.models.config import DRFrontendSpec as JSpec
+        from repro_torch.models.config import DRFrontendSpec as TSpec
+        jc = dataclasses.replace(jc, dr_frontend=JSpec(p=16, n=8))
+        tc = dataclasses.replace(tc, dr_frontend=TSpec(p=16, n=8))
     want = jax.eval_shape(lambda: j_api.init_params(jax.random.PRNGKey(0), jc))
     got = t_api.init_params(torch.Generator().manual_seed(0), tc, execution=CPU)
     flat_w = {jax.tree_util.keystr(kp): (tuple(l.shape), str(l.dtype))
@@ -153,59 +145,17 @@ def test_bridge_round_trip_is_bit_exact(dt):
 # the LM against the reference
 # ---------------------------------------------------------------------------
 
-def _serve_case(arch_id, compute_dtype, execution, *, batch=2, decode_steps=6):
-    jc, tc = _configs(arch_id, compute_dtype)
-    tol = TOL[compute_dtype]
-    # SWA (window 16): a prompt longer than the window, not a multiple of it
-    prompt = 20 if tc.sliding_window else 12
-    cache_size = 32 if tc.sliding_window else prompt + decode_steps
-    params = j_api.init_params(jax.random.PRNGKey(3), jc)
-    tparams = bridge.params_from_reference(_np(params), device="cpu")
-    toks = np.random.default_rng(5).integers(0, jc.vocab_size, (batch, prompt + decode_steps),
-                                             dtype=np.int32)
-    # In bf16 the reference runs op by op: under jit, XLA keeps fused bf16
-    # elementwise results in f32 where its fusion decides to, so the jitted
-    # reference's rounding points move with the fusion; op by op every op
-    # rounds once, as the port's do.
-    op_by_op = compute_dtype == "bfloat16"
-    wrap = (lambda f: f) if op_by_op else jax.jit
-    j_prefill = wrap(lambda p, b: j_api.prefill(p, b, jc, cache_size))
-    j_decode = wrap(lambda p, t, c: j_api.decode_step(p, t, c, jc))
-
-    def check(step, got, want):
-        logits, cache = got
-        w_logits, w_cache = want
-        assert logits.dtype == torch.float32
-        _close(logits, w_logits, tol, f"logits at {step}")
-        for name in ("k", "v"):
-            assert cache[name].shape == w_cache[name].shape
-            _close(cache[name], w_cache[name], tol, f"cache {name} at {step}")
-        for name in ("len", "pos"):
-            assert int(cache[name]) == int(w_cache[name]), (step, name)
-
-    with (jax.disable_jit() if op_by_op else contextlib.nullcontext()):
-        want = j_prefill(params, {"tokens": jnp.asarray(toks[:, :prompt])})
-        got = t_api.prefill(tparams, {"tokens": torch.from_numpy(toks[:, :prompt])}, tc,
-                            cache_size, execution=execution)
-        check("prefill", got, want)
-        for i in range(prompt, prompt + decode_steps):
-            want = j_decode(params, jnp.asarray(toks[:, i]), want[1])
-            got = t_api.decode_step(tparams, torch.from_numpy(toks[:, i]), got[1], tc,
-                                    execution=execution)
-            check(f"decode {i}", got, want)
-
-
 @pytest.mark.parametrize("arch_id", DENSE)
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_prefill_and_decode_match_the_reference(arch_id, compute_dtype):
-    _serve_case(arch_id, compute_dtype, CPU)
+    serve_case(*_configs(arch_id, compute_dtype), compute_dtype, CPU)
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_kernel_backend_on_cpu_matches_the_reference(compute_dtype):
     """backend="kernel" on CPU tensors runs the kernel wrapper's plain
     version: the SWA ring case through that route."""
-    _serve_case("h2o_danube3_4b", compute_dtype, CPU_KERNEL)
+    serve_case(*_configs("h2o_danube3_4b", compute_dtype), compute_dtype, CPU_KERNEL)
 
 
 def test_decode_matches_prefill_suffix():
@@ -215,7 +165,7 @@ def test_decode_matches_prefill_suffix():
     cfg = t_registry.get_smoke("yi_6b")
     params = t_api.init_params(torch.Generator().manual_seed(4), cfg, execution=CPU)
     toks = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (1, 12)))
-    full = t_transformer.forward(params, {"tokens": toks}, cfg, execution=CPU)
+    full, _ = t_transformer.forward(params, {"tokens": toks}, cfg, execution=CPU)
     logits, cache = t_api.prefill(params, {"tokens": toks[:, :8]}, cfg, 16, execution=CPU)
     np.testing.assert_allclose(logits.numpy(), full[:, 7].numpy(), rtol=2e-2, atol=2e-2)
     for i in range(8, 11):
@@ -233,7 +183,7 @@ def test_swa_ring_matches_a_full_forward_only_after_whole_windows(prompt, agrees
     params = t_api.init_params(torch.Generator().manual_seed(8), cfg, execution=CPU)
     toks = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.vocab_size,
                                                               (1, prompt + 2)))
-    full = t_transformer.forward(params, {"tokens": toks}, cfg, execution=CPU)
+    full, _ = t_transformer.forward(params, {"tokens": toks}, cfg, execution=CPU)
     _, cache = t_api.prefill(params, {"tokens": toks[:, :prompt]}, cfg, 64, execution=CPU)
     diffs = []
     for i in range(prompt, prompt + 2):
@@ -250,9 +200,10 @@ def test_forward_matches_the_reference():
     params = j_api.init_params(jax.random.PRNGKey(6), jc)
     toks = np.random.default_rng(7).integers(0, jc.vocab_size, (2, 40), dtype=np.int32)
     want, _ = j_transformer.forward(params, {"tokens": jnp.asarray(toks)}, jc, remat=False)
-    got = t_transformer.forward(bridge.params_from_reference(_np(params), device="cpu"),
-                                {"tokens": torch.from_numpy(toks)}, tc, execution=CPU)
+    got, aux = t_transformer.forward(bridge.params_from_reference(_np(params), device="cpu"),
+                                     {"tokens": torch.from_numpy(toks)}, tc, execution=CPU)
     _close(got, want, 1e-4)
+    assert (float(aux["moe_lb"]), float(aux["moe_z"]), aux["n_prefix"]) == (0.0, 0.0, 0)
 
 
 def test_init_cache_is_the_structural_twin_of_prefill():
@@ -308,15 +259,6 @@ def test_families_and_options_not_ported_raise(arch_id):
         t_api.init_params(torch.Generator().manual_seed(0), cfg, execution=CPU)
     with pytest.raises(NotImplementedError, match=NOT_PORTED[arch_id]):
         t_api.init_cache(cfg, 1, 8, execution=CPU)
-
-
-def test_kv_rp_and_dr_frontend_raise():
-    base = t_registry.get_smoke("h2o_danube3_4b")
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="A9c"):
-        t_api.init_params(gen, dataclasses.replace(base, kv_rp=2), execution=CPU)
-    with pytest.raises(NotImplementedError, match="A9d"):
-        t_api.init_params(gen, hubert_xlarge.CONFIG_DR, execution=CPU)
 
 
 def test_lm_entry_points_without_a_card_raise():

@@ -9,9 +9,9 @@ by side, a JAX `DRService` (XLA backend) and the port's (kernel backend; on
 the CPU its wrappers run their plain versions) serve the same state,
 imported through `repro_torch.bridge`, and the same ragged stream.  All
 time is virtual: nothing here sleeps.  On the card each bucket program is
-a captured CUDA graph; `chip_smoke.py` drives that path.  The reference's
-LM-through-the-queue test fails on the reference itself, so no test here
-is based on it; the port refuses those methods (ROADMAP A9h)."""
+a captured CUDA graph; `chip_smoke.py` drives that path.  The LM steps
+through the queue are held in `tests/test_torch_lm_zoo.py` (the
+reference's own test of them fails); here only their mesh refusal."""
 
 import sys
 import threading
@@ -564,12 +564,13 @@ class TestStateHash:
     (lambda: DRService(mesh=object()), "A10"),
     (lambda: DRService(data_dir="/nonexistent"), "A8"),
     (lambda: DRService().register("e", _tmodel(), _states(0)[1], ensemble=2), "A4c"),
-    (lambda: DRService().prefill_step(None, None, None, None, 8), "A9h"),
-    (lambda: DRService().decode_step(None, None, None, None, None), "A9h"),
-    (lambda: DRService().lm_prefill(None, None, None, None, 8), "A9h"),
-    (lambda: DRService().lm_decode(None, None, None, None, None), "A9h"),
-    (lambda: DeadlineScheduler(DRService(), start=False).lm_prefill(None, None, None, None, 8),
-     "A9h"),
+    # the LM steps run with mesh=None only (tests/test_torch_lm_zoo.py)
+    (lambda: DRService().prefill_step(None, object(), None, None, 8), "A10"),
+    (lambda: DRService().decode_step(None, object(), None, None, None), "A10"),
+    (lambda: DRService().lm_prefill(None, object(), None, None, 8), "A10"),
+    (lambda: DRService().lm_decode(None, object(), None, None, None), "A10"),
+    (lambda: DeadlineScheduler(DRService(), start=False).lm_prefill(None, object(), None, None,
+                                                                    8), "A10"),
 ], ids=["mesh", "data_dir", "ensemble", "prefill_step", "decode_step", "lm_prefill",
         "lm_decode", "scheduler_lm_prefill"])
 def test_not_ported_paths_name_their_item(call, item):

@@ -79,7 +79,7 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 logits rank-correlated above 0.8 with the exact run's, kernel
                 vs torch backend within the LM bounds
      flash-time — the flash kernel timed at request A's shape and, beside
-                its plain version, SDPA and its bound, at the three head
+                its plain version, SDPA and its bound, at the four head
                 geometries of the phases below
   9. moe      — phi3.5-moe-42b-a6.6b at full width, 8 of its 32 layers:
                 request A (capacity 640 a expert at prefill, 8 at decode),
@@ -92,6 +92,21 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 transform: ternary_matmul, easi_apply, fused_transform), then
                 prefill (hubert non-causal, Dh 80; internvl2 GQA 7, Dh 64) and
                 16 decode steps for internvl2; kernel vs torch backend
+ 11. rwkv6    — rwkv6-1.6b at full width and depth (24 layers, 1.58 B f32
+                params drawn on the card), request A with 16 decode steps
+                forced with drawn tokens: no kernel on the path (every
+                counter 0), kernel and torch backends bit-identical, decode
+                after 1024 tokens against a prefill of 1040 within the LM
+                bounds; state bytes, host-paced and device-only step times
+ 12. zamba    — zamba2-7b at full width and depth (81 Mamba-2 layers, the
+                shared attention block at 14 of them, 6.9 B f32 params):
+                request A, kernel vs torch backend within the LM bounds on
+                the logits and each cache leaf, flash exactly 14 times a
+                prefill (32/32 heads, Dh 112) and never in decode; in f32 on
+                the torch backend, the SSD block form (prefill 1024) against
+                the step form (prefill 960 + 64 decode steps) within
+                ZAMBA_BLOCK_STEP_REL_NORM; cache bytes, step times, idle
+                share, peak memory
 
 It prints a `{"kernels": [...]}` JSON line, the card's line from nvidia-smi,
 and as its last line `{"ok": true, "device": {...}}`.  It imports nothing of
@@ -245,9 +260,21 @@ MOE_LAYERS = 8
 FRONTEND_BATCH = 4
 FRONTEND_SEQ = 1024
 FRONTEND_DECODE = 16
+# the recurrent families at full width and depth, request A: rwkv6-1.6b
+# (src/repro/configs/rwkv6_1b6.py) and zamba2-7b (src/repro/configs/zamba2_7b.py)
+RWKV_ARCH = "rwkv6_1b6"
+ZAMBA_ARCH = "zamba2_7b"
+# zamba2-7b in f32 on the torch backend: a prefill of 960 tokens (SSD block
+# form) and 64 teacher-forced decode steps (step form) against a prefill of
+# all 1024 (block form), on the last logits' relative row norm.  The bound
+# was set before the first measurement (PERF.md §6); tests/test_ssd_block.py
+# holds one block at 2e-4 elementwise, and this holds 81 of them and the
+# shared block's ring.
+ZAMBA_SPLIT = 960
+ZAMBA_BLOCK_STEP_REL_NORM = 1e-3
 # the head geometries flash first runs at in those phases: (Hq, Hkv, Dh, causal)
 FLASH_GEOMETRIES = {"phi3.5-moe": (32, 8, 128, True), "hubert-xlarge": (16, 16, 80, False),
-                    "internvl2-1b": (14, 2, 64, True)}
+                    "internvl2-1b": (14, 2, 64, True), "zamba2-7b": (32, 32, 112, True)}
 
 
 class SmokeFailure(Exception):
@@ -1688,7 +1715,7 @@ def phase_flash(dev, errs):
 # phase 7: h2o-danube-3-4b served through the kernels at full width and depth
 # ---------------------------------------------------------------------------
 
-def logits_diff(what: str, got, want):
+def logits_diff(what: str, got, want, pair: str = "kernel vs torch backend"):
     """Largest relative row norm of got − want and largest |got − want|;
     fails beyond LM_REL_NORM or LM_MAX_ABS, or on a non-finite value."""
     import torch
@@ -1701,7 +1728,7 @@ def logits_diff(what: str, got, want):
     rel = float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
     mx = float((g - w).abs().max())
     if rel > LM_REL_NORM or mx > LM_MAX_ABS:
-        fail(f"{what}: kernel vs torch backend: relative row norm {rel:.3e} (bound "
+        fail(f"{what}: {pair}: relative row norm {rel:.3e} (bound "
              f"{LM_REL_NORM}), max |err| {mx:.3e} (bound {LM_MAX_ABS})")
     return rel, mx
 
@@ -2377,6 +2404,271 @@ def phase_frontend(dev):
     return counts, out
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the recurrent families at full width and depth
+# ---------------------------------------------------------------------------
+
+def recurrent_model(dev, arch, seed):
+    """(config, params drawn on the card, request A's prompts, the 16 tokens
+    its decode steps are forced with)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.execution import Execution
+    from repro_torch.models import api
+
+    cfg = registry.get(arch)
+    spec = LM_REQUESTS["A"]
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                             execution=Execution(device=dev))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for tree in (params, params["layers"], params.get("shared", {}))
+                   for t in tree.values() if isinstance(t, torch.Tensor))
+    print(f"[{cfg.family}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.padded_vocab}; {n_params} f32 params "
+          f"({n_params * 4 / 1e9:.2f} GB) drawn on the card in {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab_size, (spec["batch"], spec["prompt"] + spec["decode"]),
+                         generator=gen, device=dev, dtype=torch.int32)
+    return cfg, params, toks[:, :spec["prompt"]], toks[:, spec["prompt"]:]
+
+
+def serve_forced(cfg, params, prompts, forced, exe, cache_size):
+    """Prefill, then one decode step per column of `forced` (teacher
+    forcing), through `serve_step`; host-paced times and flash launches."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.serve import serve_step
+
+    batch = {"tokens": prompts}
+    marks = [flash_attention.launches]
+    prefill = serve_step.make_prefill(cfg, None, params, batch, cache_size, execution=exe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    marks.append(flash_attention.launches)
+    decode = serve_step.make_decode(cfg, None, params, cache, execution=exe)
+    outs = [logits]
+    t0 = time.perf_counter()
+    for i in range(forced.shape[1]):
+        logits, cache = decode(params, forced[:, i], cache)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / max(1, forced.shape[1])
+    marks.append(flash_attention.launches)
+    if int(cache["pos"]) != prompts.shape[1] + forced.shape[1]:
+        fail(f"{cfg.name}: state pos {int(cache['pos'])}")
+    return dict(logits=outs, cache=cache, t_prefill=t_prefill, t_decode=t_decode,
+                flash={"prefill": marks[1] - marks[0], "decode": marks[2] - marks[1]})
+
+
+def state_bytes(cache) -> dict:
+    return {name: t.numel() * t.element_size() for name, t in cache.items()
+            if t.is_cuda}
+
+
+def device_ops(fn, top: int = 8):
+    """One call of fn under torch.profiler: the device's busy ms, its kernel
+    count, and the device ms of the `top` ops that launched the most device
+    time (by the aten op that launched each kernel); None where the trace
+    shows no device work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        return None
+    by_op = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == DeviceType.CPU and us:
+            by_op[e.key] = by_op.get(e.key, 0.0) + us / 1e3
+    ranked = sorted(by_op.items(), key=lambda kv: -kv[1])[:top]
+    return {"busy_ms": sum(e.time_range.elapsed_us() for e in device) / 1e3,
+            "kernels": len(device), "top_ms": {k: round(v, 4) for k, v in ranked}}
+
+
+def decode_timing(cfg, params, run, exe, prompts, dev, what, with_prefill):
+    """Device-only step times (CUDA-graph replay) beside the host-paced ones
+    of `run`, the device's idle share of a decode step, and on the kernel
+    backend where a step's device time goes (`device_ops`)."""
+    import torch
+    from repro_torch.serve import serve_step
+
+    spec = LM_REQUESTS["A"]
+    tok = torch.zeros((spec["batch"],), dtype=torch.int32, device=dev)
+    batch = {"tokens": prompts}
+    decode = serve_step.make_decode(cfg, None, params, run["cache"], execution=exe)
+    prefill = serve_step.make_prefill(cfg, None, params, batch, spec["cache"], execution=exe)
+    row = {"prefill_ms": run["t_prefill"] * 1e3, "decode_step_ms": run["t_decode"] * 1e3,
+           "decode_step_device_ms": time_graph(lambda: decode(params, tok, run["cache"]), 1, 5)}
+    row["decode_idle_share"] = 1 - row["decode_step_device_ms"] / row["decode_step_ms"]
+    text = ""
+    if with_prefill:
+        row["prefill_device_ms"] = time_graph(lambda: prefill(params, batch), 1, 3)
+        text = f", {row['prefill_device_ms']:.1f} ms on the device alone"
+    print(f"[{what}-time] request A, {exe.backend} backend: prefill {row['prefill_ms']:.1f} ms "
+          f"host-paced{text}; decode step {row['decode_step_ms']:.2f} ms host-paced, "
+          f"{row['decode_step_device_ms']:.2f} ms on the device alone (idle share "
+          f"{row['decode_idle_share']:.2f})")
+    if exe.backend == "kernel":
+        steps = [("decode step", lambda: decode(params, tok, run["cache"]))]
+        if with_prefill:
+            steps.insert(0, ("prefill", lambda: prefill(params, batch)))
+        for step, fn in steps:
+            ops = device_ops(fn)
+            row[f"{step.replace(' ', '_')}_device_ops"] = ops
+            text = ("not measured (the trace shows no device work)" if ops is None else
+                    f"device busy {ops['busy_ms']:.2f} ms in {ops['kernels']} kernels; by "
+                    f"launching op (ms) {json.dumps(ops['top_ms'])}")
+            print(f"[{what}-ops] request A {step}, {exe.backend} backend: {text}")
+    return row
+
+
+def phase_rwkv6(dev):
+    """rwkv6-1.6b at full width and depth: request A (4 x 1024 tokens, 16
+    decode steps forced with drawn tokens) on the kernel backend, counted,
+    then on the torch backend.  No kernel is on this path: every counter
+    must read 0, and the backends must agree bit for bit.  Then decode
+    against a prefill of all 1040 tokens, the reference's own
+    test_rwkv_decode_matches_forward at full size."""
+    import torch
+    from repro_torch.core.execution import Execution
+    from repro_torch.serve import serve_step
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, params, prompts, forced = recurrent_model(dev, RWKV_ARCH, 6)
+    spec = LM_REQUESTS["A"]
+    kexe, texe = Execution(backend="kernel", device=dev), Execution(backend="torch", device=dev)
+    for exe in (kexe, texe):              # warm-up: first calls, allocator growth
+        serve_forced(cfg, params, prompts, forced, exe, spec["cache"])
+    reset_counts()
+    k = serve_forced(cfg, params, prompts, forced, kexe, spec["cache"])
+    counts = all_counts()
+    if any(counts.values()):
+        fail(f"rwkv6: kernels launched on a path that has none: {counts}")
+    t = serve_forced(cfg, params, prompts, forced, texe, spec["cache"])
+    for i, (gk, gt) in enumerate(zip(k["logits"], t["logits"])):
+        if tuple(gk.shape) != (spec["batch"], cfg.padded_vocab) or \
+                not bool(torch.isfinite(gk).all()):
+            fail(f"rwkv6: logits at step {i}: shape {tuple(gk.shape)} or non-finite")
+        if not torch.equal(gk, gt):
+            fail(f"rwkv6: kernel and torch backends differ at step {i}")
+    for name, leaf in k["cache"].items():
+        if not torch.equal(leaf, t["cache"][name]):
+            fail(f"rwkv6: kernel and torch backends differ on state {name}")
+    # decode after 1024 tokens against a prefill of all 1040
+    full = {"tokens": torch.cat([prompts, forced], dim=1)}
+    long_prefill = serve_step.make_prefill(cfg, None, params, full, spec["cache"],
+                                           execution=kexe)
+    want, want_state = long_prefill(params, full)
+    rel, mx = logits_diff("rwkv6 decode step 16", k["logits"][-1], want,
+                          pair=f"decode vs a prefill of {full['tokens'].shape[1]} tokens")
+    wkv = k["cache"]["wkv"]
+    wkv_rel = float((wkv - want_state["wkv"]).norm() / want_state["wkv"].norm())
+    nbytes = state_bytes(k["cache"])
+    print(f"[rwkv6] request A ({spec['batch']} x {spec['prompt']} tokens, {spec['decode']} "
+          f"forced decode steps): no kernel on this path, every launch counter reads 0 "
+          f"{json.dumps(counts)}; kernel and torch backends bit-identical on "
+          f"{len(k['logits'])} logits and every state leaf; decode vs a prefill of "
+          f"{full['tokens'].shape[1]} tokens: relative row norm {rel:.3e} (bound {LM_REL_NORM}), "
+          f"|err| {mx:.3e} (bound {LM_MAX_ABS}), wkv state relative norm {wkv_rel:.3e}")
+    print(f"[rwkv6] state bytes {json.dumps(nbytes)} (wkv {tuple(wkv.shape)} f32); prefill "
+          f"{k['t_prefill'] * 1e3:.1f} ms kernel / {t['t_prefill'] * 1e3:.1f} ms torch, decode "
+          f"step {k['t_decode'] * 1e3:.2f} / {t['t_decode'] * 1e3:.2f} ms (host-paced); peak "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    row = decode_timing(cfg, params, k, kexe, prompts, dev, "rwkv6", with_prefill=False)
+    out = {"decode_vs_prefill_rel_norm": rel, "decode_vs_prefill_max_abs_err": mx,
+           "wkv_rel_norm": wkv_rel, "state_bytes": nbytes, "kernel": row,
+           "torch": {"prefill_ms": t["t_prefill"] * 1e3, "decode_step_ms": t["t_decode"] * 1e3},
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    return counts, out
+
+
+def phase_zamba(dev):
+    """zamba2-7b at full width and depth: request A (16 decode steps forced
+    with drawn tokens) on the kernel backend, counted, then on the torch
+    backend: logits and every cache leaf within the LM bounds, flash
+    launched once per shared-block application of a prefill and never in
+    decode.  Then, in f32 on the torch backend, the SSD block form against
+    the step form over all 81 layers: a prefill of ZAMBA_SPLIT tokens and
+    teacher-forced decode steps to 1024 against a prefill of 1024."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.execution import Execution
+    from repro_torch.models import ssm
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, params, prompts, forced = recurrent_model(dev, ZAMBA_ARCH, 8)
+    spec = LM_REQUESTS["A"]
+    slots = ssm.n_shared_slots(cfg)
+    kexe, texe = Execution(backend="kernel", device=dev), Execution(backend="torch", device=dev)
+    for exe in (kexe, texe):              # warm-up: first calls, allocator growth
+        serve_forced(cfg, params, prompts, forced, exe, spec["cache"])
+    reset_counts()
+    k = serve_forced(cfg, params, prompts, forced, kexe, spec["cache"])
+    counts = all_counts()
+    t = serve_forced(cfg, params, prompts, forced, texe, spec["cache"])
+    if k["flash"] != {"prefill": slots, "decode": 0}:
+        fail(f"zamba: flash launches {k['flash']}, want {slots} per prefill and none in decode")
+    if counts["flash_attention"] != slots or t["flash"] != {"prefill": 0, "decode": 0}:
+        fail(f"zamba: launches {counts} on the kernel path, {t['flash']} on the torch path")
+    worst = (0.0, 0.0)
+    for i, (gk, gt) in enumerate(zip(k["logits"], t["logits"])):
+        if tuple(gk.shape) != (spec["batch"], cfg.padded_vocab):
+            fail(f"zamba: logits shape {tuple(gk.shape)}")
+        rel, mx = logits_diff(f"zamba {'prefill' if i == 0 else f'decode {i}'}", gk, gt)
+        worst = (max(worst[0], rel), max(worst[1], mx))
+    leaf_rel = {}
+    for name in ("ssm", "conv", "k", "v"):
+        kc, tc = k["cache"][name].to(torch.float32), t["cache"][name].to(torch.float32)
+        leaf_rel[name] = float((kc - tc).norm() / tc.norm())
+        if not bool(torch.isfinite(kc).all()) or not leaf_rel[name] <= LM_REL_NORM:
+            fail(f"zamba: cache {name} relative norm {leaf_rel[name]:.3e} (bound {LM_REL_NORM})")
+    nbytes = state_bytes(k["cache"])
+    print(f"[zamba] request A ({spec['batch']} x {spec['prompt']} tokens, {spec['decode']} forced "
+          f"decode steps, cache {spec['cache']}): kernel vs torch backend: largest relative row "
+          f"norm {worst[0]:.3e} (bound {LM_REL_NORM}), largest |err| {worst[1]:.3e} (bound "
+          f"{LM_MAX_ABS}); cache leaves' relative norms {json.dumps(leaf_rel)}; flash launches "
+          f"{json.dumps(k['flash'])} ({slots} shared-block slots); launches {json.dumps(counts)}")
+    print(f"[zamba] cache bytes {json.dumps(nbytes)}; prefill {k['t_prefill'] * 1e3:.1f} ms "
+          f"kernel / {t['t_prefill'] * 1e3:.1f} ms torch, decode step {k['t_decode'] * 1e3:.2f} / "
+          f"{t['t_decode'] * 1e3:.2f} ms (host-paced); peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    rows = {backend: decode_timing(cfg, params, run, exe, prompts, dev, "zamba",
+                                   with_prefill=True)
+            for backend, exe, run in (("kernel", kexe, k), ("torch", texe, t))}
+    del k, t
+    # the SSD block form against the step form at full depth, in f32
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    split = serve_forced(cfg32, params, prompts[:, :ZAMBA_SPLIT], prompts[:, ZAMBA_SPLIT:], texe,
+                         spec["prompt"])
+    whole = serve_forced(cfg32, params, prompts, prompts[:, :0], texe, spec["prompt"])
+    g, w = split["logits"][-1], whole["logits"][0]
+    block_step = float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+    if not bool(torch.isfinite(g).all()) or not block_step <= ZAMBA_BLOCK_STEP_REL_NORM:
+        fail(f"zamba f32: prefill {ZAMBA_SPLIT} + {spec['prompt'] - ZAMBA_SPLIT} decode steps vs "
+             f"prefill {spec['prompt']}: relative row norm {block_step:.3e} (bound "
+             f"{ZAMBA_BLOCK_STEP_REL_NORM})")
+    print(f"[zamba] f32, torch backend: prefill {ZAMBA_SPLIT} (block form) + "
+          f"{spec['prompt'] - ZAMBA_SPLIT} decode steps (step form) vs prefill {spec['prompt']} "
+          f"(block form) over {cfg.n_layers} layers: relative row norm {block_step:.3e} (bound "
+          f"{ZAMBA_BLOCK_STEP_REL_NORM}), max |err| {float((g - w).abs().max()):.3e}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    out = {"max_rel_norm": worst[0], "max_abs_err": worst[1], "cache_rel_norm": leaf_rel,
+           "cache_bytes": nbytes, "block_vs_step_rel_norm_f32": block_step, **rows,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    return counts, out
+
+
 def flash_geometry_timing(dev):
     """The bf16 kernel at the prefill shape of each new head geometry (4 x
     1024 positions), beside its plain version, SDPA (timed only) and its
@@ -2469,6 +2761,10 @@ def main() -> int:
         moe_counts, moe = timed("moe", phase_moe, dev)
         torch.cuda.empty_cache()
         front_counts, front = timed("frontend", phase_frontend, dev)
+        torch.cuda.empty_cache()
+        rwkv_counts, rwkv = timed("rwkv6", phase_rwkv6, dev)
+        torch.cuda.empty_cache()
+        zamba_counts, zamba = timed("zamba", phase_zamba, dev)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2490,11 +2786,15 @@ def main() -> int:
         row["launches_kv_rp"] = kvrp_counts[name]
         row["launches_moe"] = moe_counts[name]
         row["launches_frontend"] = front_counts[name]
+        row["launches_rwkv6"] = rwkv_counts[name]
+        row["launches_zamba"] = zamba_counts[name]
     print(f"[paper-steps] {json.dumps({k: paper_times[k] for k in ('update', 'transform', 'transform_1000')})}")
     print(f"[table1-steps] {json.dumps(table1)}")
     print(f"[lm-steps] {json.dumps(lm_steps)}")
     print(f"[serve-steps] {json.dumps(serve)}")
-    print(f"[lm-zoo-steps] {json.dumps({'lm_queue': lmq, 'kv_rp': kvrp, 'moe': moe, 'frontend': front})}")
+    zoo = {"lm_queue": lmq, "kv_rp": kvrp, "moe": moe, "frontend": front, "rwkv6": rwkv,
+           "zamba": zamba}
+    print(f"[lm-zoo-steps] {json.dumps(zoo)}")
     print(f"[phase-seconds] {json.dumps(seconds)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

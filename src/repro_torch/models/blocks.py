@@ -1,6 +1,7 @@
 """Shared model building blocks, the serving subset: norms, RoPE, attention
-(prefill and decode), the dense MLP, the MoE layer and the param-init
-helpers.
+(prefill and decode), the dense MLP, the MoE layer and the param helpers
+(the reference's cast rule, a layer's slice of the stacked leaves, the
+token embedding, init).
 
 Plain functions over tensors and parameter dicts, mirroring the JAX
 package's `models/blocks.py` and its (B, S, H, Dh) attention layout.
@@ -16,7 +17,7 @@ the attention backward are not ported yet (ROADMAP A9g).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,11 +38,15 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return out.to(x.dtype)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.sigmoid's own ops, 1/(1 + e^−x), each rounded to x's dtype as
+    # the reference rounds them in bf16 (torch.sigmoid rounds once, which
+    # moves about a third of bf16 outputs by one ulp)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def _silu(x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.silu's own ops, x · 1/(1 + e^−x), each rounded to x's dtype as
-    # the reference rounds them in bf16 (F.silu rounds once, which moves
-    # about a third of bf16 outputs by one ulp)
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    return x * sigmoid(x)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -227,8 +232,33 @@ def moe_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, spec: MoESpec, a
 
 
 # ---------------------------------------------------------------------------
-# param init helpers
+# param helpers
 # ---------------------------------------------------------------------------
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def cast(params: Dict[str, torch.Tensor], cdt: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The reference's cast rule: f32 leaves with ndim >= 2 -> compute dtype."""
+    return {k: (t.to(cdt) if t.dtype == torch.float32 and t.ndim >= 2 else t)
+            for k, t in params.items()}
+
+
+def layer_params(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
+    """Layer i's leaves of the stacked `[L, ...]` layout."""
+    return {k: t[i] for k, t in params["layers"].items()}
+
+
+def embed(params: Dict[str, Any], tokens: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """The token embeddings (..., d) of integer `tokens` in the compute dtype,
+    on the embedding table's device."""
+    table = params["embed"]
+    return table[tokens.to(device=table.device, dtype=torch.long)].to(cdt)
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
                scale: Optional[float] = None) -> torch.Tensor:

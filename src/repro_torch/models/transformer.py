@@ -30,22 +30,7 @@ from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _MOE_KEYS = ("router", "w_in", "w_gate", "w_out")
-
-
-def torch_dtype(name: str) -> torch.dtype:
-    return _DTYPES[name]
-
-
-def _cast(lp: Params, cdt: torch.dtype) -> Params:
-    """The reference's cast rule: f32 leaves with ndim >= 2 -> compute dtype."""
-    return {k: (t.to(cdt) if t.dtype == torch.float32 and t.ndim >= 2 else t)
-            for k, t in lp.items()}
-
-
-def _layer_params(params: Params, i: int) -> Params:
-    return {k: t[i] for k, t in params["layers"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -57,7 +42,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *,
     """Random params drawn from `gen` (on the generator's device), placed on
     `device` (default: the generator's)."""
     cfg.validate()
-    dtype = torch_dtype(cfg.param_dtype)
+    dtype = blocks.torch_dtype(cfg.param_dtype)
     d, dh = cfg.d_model, cfg.dh
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     v = cfg.padded_vocab
@@ -168,8 +153,7 @@ def embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
 
     if cfg.frontend == "audio":
         return project(batch["frames"]), 0
-    tok = batch["tokens"].to(device=dev, dtype=torch.long)
-    x = params["embed"][tok].to(compute_dtype)
+    x = blocks.embed(params, batch["tokens"], compute_dtype)
     if cfg.frontend == "vision":
         px = project(batch["patches"])
         return torch.cat([px, x], dim=1), px.shape[1]
@@ -189,14 +173,14 @@ def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfi
     """Full-sequence backbone -> (final normed hidden (B, S_total, d), aux):
     aux holds `moe_lb` / `moe_z` averaged over the layers and `n_prefix`."""
     execution.torch_device()
-    cdt = torch_dtype(cfg.compute_dtype)
+    cdt = blocks.torch_dtype(cfg.compute_dtype)
     x, n_prefix = embed_inputs(params, batch, cfg, cdt)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     lb = lz = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, aux, _ = _layer(_cast(_layer_params(params, i), cdt), x, cfg, positions,
-                           execution.backend)
+        lp = blocks.cast(blocks.layer_params(params, i), cdt)
+        x, aux, _ = _layer(lp, x, cfg, positions, execution.backend)
         lb, lz = lb + aux["moe_lb"], lz + aux["moe_z"]
     x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, {"moe_lb": lb / cfg.n_layers, "moe_z": lz / cfg.n_layers, "n_prefix": n_prefix}
@@ -206,7 +190,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
             execution: Execution = Execution()) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """(full logits (B, S_total, V) in f32, aux)."""
     x, aux = hidden_states(params, batch, cfg, execution=execution)
-    cdt = torch_dtype(cfg.compute_dtype)
+    cdt = blocks.torch_dtype(cfg.compute_dtype)
     return (x @ _head(params, cfg).to(cdt)).to(torch.float32), aux
 
 
@@ -254,7 +238,7 @@ def init_cache(cfg: ArchConfig, batch: int, cache_size: int,
     win = cfg.sliding_window
     keep = min(cache_size, win) if win else cache_size
     dh_k = cfg.dh // cfg.kv_rp if cfg.kv_rp else cfg.dh
-    cdt = torch_dtype(cfg.compute_dtype)
+    cdt = blocks.torch_dtype(cfg.compute_dtype)
     shape = (cfg.n_layers, batch, keep, cfg.n_kv_heads)
     return {"k": torch.zeros(shape + (dh_k,), dtype=cdt, device=device),
             "v": torch.zeros(shape + (cfg.dh,), dtype=cdt, device=device),
@@ -273,7 +257,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     else `kv_rp_matrix`), while the prompt's own attention uses the exact
     ones."""
     execution.torch_device()
-    cdt = torch_dtype(cfg.compute_dtype)
+    cdt = blocks.torch_dtype(cfg.compute_dtype)
     x, _ = embed_inputs(params, batch, cfg, cdt)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
@@ -281,8 +265,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     cache = init_cache(cfg, b, cache_size, x.device)
     n = min(s, cache["k"].shape[2])
     for i in range(cfg.n_layers):
-        x, _, (k, vv) = _layer(_cast(_layer_params(params, i), cdt), x, cfg, positions,
-                               execution.backend)
+        lp = blocks.cast(blocks.layer_params(params, i), cdt)
+        x, _, (k, vv) = _layer(lp, x, cfg, positions, execution.backend)
         cache["k"][i, :, :n] = _sketch_k(k[:, s - n:], rp_r)
         cache["v"][i, :, :n] = vv[:, s - n:]
     x = blocks.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -305,9 +289,8 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
     reference's ring).  With `kv_rp`, q and the new key are sketched by the
     same R as `prefill`'s, and the scores keep the 1/sqrt(dh) scale."""
     execution.torch_device()
-    cdt = torch_dtype(cfg.compute_dtype)
-    embed = params["embed"]
-    x = embed[token.to(device=embed.device, dtype=torch.long)[:, None]].to(cdt)  # (B,1,d)
+    cdt = blocks.torch_dtype(cfg.compute_dtype)
+    x = blocks.embed(params, token[:, None], cdt)                      # (B, 1, d)
     b = x.shape[0]
     k_c, v_c = cache["k"], cache["v"]
     s_max = k_c.shape[2]
@@ -317,7 +300,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     rp_r = _kv_rp(cfg, kv_rp_r, x.device)
     for i in range(cfg.n_layers):
-        lp = _cast(_layer_params(params, i), cdt)
+        lp = blocks.cast(blocks.layer_params(params, i), cdt)
         h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, vv = _attn_proj(lp, h, cfg, positions)
         q, k = _sketch_k(q, rp_r), _sketch_k(k, rp_r)

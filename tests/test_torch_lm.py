@@ -1,5 +1,6 @@
-"""The port's LM serving path (configs, blocks, dense transformer, api,
-bridge, serve steps) on CPU tensors against the JAX package.
+"""The port's LM serving path (configs, blocks, dense transformer, the
+recurrent families RWKV-6 and Zamba-2, api, bridge, serve steps) on CPU
+tensors against the JAX package.
 
 Parameters are drawn by JAX and carried across with
 `bridge.params_from_reference`; prompts and teacher-forced decode tokens
@@ -9,7 +10,9 @@ op by op in bf16): its meshed serving factories are not used, because the
 reference's own test of them fails
 (`test_scheduler::TestStepTraffic::test_lm_prefill_decode_through_queue`).
 MoE, the RP-compressed KV cache and the front-ends have their own files
-(`test_torch_moe.py`, `test_torch_lm_zoo.py`)."""
+(`test_torch_moe.py`, `test_torch_lm_zoo.py`); the recurrences' own
+functions and the recurrent families through `DRService` are in
+`test_torch_recurrent.py`."""
 
 import dataclasses
 
@@ -26,6 +29,8 @@ from repro.configs import registry as j_registry
 from repro.models import api as j_api
 from repro.models import blocks as j_blocks
 from repro.models import transformer as j_transformer
+from repro_torch.models import rwkv6 as t_rwkv6
+from repro_torch.models import ssm as t_ssm
 from repro_torch import bridge
 from repro_torch.checkpoint import config_hash as t_config_hash
 from repro_torch.configs import registry as t_registry
@@ -41,7 +46,14 @@ from torch_lm_parity import serve_case
 DENSE = ["h2o_danube3_4b", "yi_6b", "smollm_135m", "starcoder2_7b"]
 TRANSFORMERS = [a for a in j_registry.ARCH_IDS
                 if j_registry.get(a).family == "transformer"]
-NOT_PORTED = {"rwkv6_1b6": "A9e", "zamba2_7b": "A9f"}
+RECURRENT = ["rwkv6_1b6", "zamba2_7b"]
+FAMILY_MODULES = {"transformer": t_transformer, "rwkv6": t_rwkv6, "zamba": t_ssm}
+# each family's first dense leaf of a layer, drawn N(0, 1/d_model)
+DENSE_LEAF = {"transformer": "wq", "rwkv6": "wr", "zamba": "in_proj"}
+# leaves the reference's init sets without drawing
+DETERMINISTIC = ("ln", "ln1", "ln2", "ln_x", "norm_y", "final_norm", "mix_r", "mix_k", "mix_v",
+                 "mix_g", "mix_w", "cmix_r", "cmix_k", "w_base", "u_bonus", "d_skip", "dt_bias",
+                 "conv_b")
 
 
 # ---------------------------------------------------------------------------
@@ -102,11 +114,16 @@ def test_blocks_match_the_reference(dt):
 # params: layout and bridge
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch_id", TRANSFORMERS + ["hubert_xlarge:dr", "internvl2_1b:dr"])
+@pytest.mark.parametrize("arch_id", TRANSFORMERS + ["hubert_xlarge:dr", "internvl2_1b:dr"]
+                         + RECURRENT)
 def test_init_params_layout_matches_the_reference(arch_id):
-    """Every transformer config's SMOKE layout (MoE's f32 router and
-    stacked experts, the front-end projection, which reads the reduced
-    features under a DR front-end)."""
+    """Every config's SMOKE layout (MoE's f32 router and stacked experts,
+    the front-end projection, which reads the reduced features under a DR
+    front-end; RWKV-6's mixes and decay LoRA; Zamba-2's stacked Mamba-2
+    leaves and the shared block).  The leaves the reference sets without
+    drawing equal its values exactly; `a_log` (log of a linspace) within
+    one f32 ulp, since XLA's log on the CPU is not rounded as torch.log
+    is."""
     arch_id, _, dr = arch_id.partition(":")
     jc, tc = _configs(arch_id)
     if dr:
@@ -120,8 +137,18 @@ def test_init_params_layout_matches_the_reference(arch_id):
               for kp, l in jax.tree_util.tree_flatten_with_path(want)[0]}
     flat_g = {p: (s, d.removeprefix("torch.")) for p, s, d in serve_step._tree_sig(got)}
     assert flat_g == flat_w
-    std = float(got["layers"]["wq"].std())
+    std = float(got["layers"][DENSE_LEAF[tc.family]].std())
     assert abs(std - 1.0 / np.sqrt(tc.d_model)) < 0.2 / np.sqrt(tc.d_model)
+    ref = _np(j_api.init_params(jax.random.PRNGKey(0), jc))
+    for tree_g, tree_w in ((got, ref), (got["layers"], ref["layers"]),
+                           (got.get("shared", {}), ref.get("shared", {}))):
+        for name in DETERMINISTIC:
+            if name in tree_w:
+                np.testing.assert_array_equal(bridge.to_array(tree_g[name]), tree_w[name],
+                                              err_msg=name)
+    if tc.family == "zamba":
+        np.testing.assert_array_max_ulp(bridge.to_array(got["layers"]["a_log"]),
+                                        ref["layers"]["a_log"], maxulp=1)
 
 
 @pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16])
@@ -145,17 +172,29 @@ def test_bridge_round_trip_is_bit_exact(dt):
 # the LM against the reference
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", DENSE + ["rwkv6_1b6", "zamba2_7b", "zamba2_7b:64"])
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_prefill_and_decode_match_the_reference(arch_id, compute_dtype):
-    serve_case(*_configs(arch_id, compute_dtype), compute_dtype, CPU)
+    """Prefill + 6 decode steps, every cache leaf compared.  Zamba-2 runs
+    its SSD step form at the default 12-token prompt and its block form at
+    a 64-token one (`:64`, one SSD_CHUNK); decode steps take the step form."""
+    arch_id, _, prompt = arch_id.partition(":")
+    serve_case(*_configs(arch_id, compute_dtype), compute_dtype, CPU,
+               prompt=int(prompt) if prompt else None)
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_kernel_backend_on_cpu_matches_the_reference(compute_dtype):
+@pytest.mark.parametrize("compute_dtype,arch_id", [
+    pytest.param("float32", "h2o_danube3_4b", id="float32"),
+    pytest.param("bfloat16", "h2o_danube3_4b", id="bfloat16"),
+    pytest.param("float32", "rwkv6_1b6", id="float32-rwkv6_1b6"),
+    pytest.param("float32", "zamba2_7b", id="float32-zamba2_7b"),
+])
+def test_kernel_backend_on_cpu_matches_the_reference(compute_dtype, arch_id):
     """backend="kernel" on CPU tensors runs the kernel wrapper's plain
-    version: the SWA ring case through that route."""
-    serve_case(*_configs("h2o_danube3_4b", compute_dtype), compute_dtype, CPU_KERNEL)
+    version: the SWA ring case through that route, and the recurrent
+    families (Zamba-2's shared block reaches the flash wrapper; RWKV-6
+    has no kernel on its path)."""
+    serve_case(*_configs(arch_id, compute_dtype), compute_dtype, CPU_KERNEL)
 
 
 def test_decode_matches_prefill_suffix():
@@ -206,15 +245,25 @@ def test_forward_matches_the_reference():
     assert (float(aux["moe_lb"]), float(aux["moe_z"]), aux["n_prefix"]) == (0.0, 0.0, 0)
 
 
-def test_init_cache_is_the_structural_twin_of_prefill():
-    jc, tc = _configs("h2o_danube3_4b")
+@pytest.mark.parametrize("arch_id", ["h2o_danube3_4b"] + RECURRENT)
+def test_init_cache_is_the_structural_twin_of_prefill(arch_id):
+    """Every leaf of the reference's zero cache, by name, shape, dtype and
+    value (RWKV-6: the decode state; Zamba-2: SSD and conv states beside
+    one k / v slot per shared-block application), and of the port's
+    prefill cache."""
+    jc, tc = _configs(arch_id)
     want = j_api.init_cache(jc, 3, 40)
     got = t_api.init_cache(tc, 3, 40, execution=CPU)
-    for name in ("k", "v", "len", "pos"):
-        assert tuple(got[name].shape) == tuple(want[name].shape)
+    assert set(got) == set(want)
+    for name in want:
+        assert tuple(got[name].shape) == tuple(want[name].shape), name
+        assert str(got[name].dtype).removeprefix("torch.") == str(want[name].dtype), name
         np.testing.assert_array_equal(bridge.to_array(got[name]), np.asarray(want[name],
                                                                              np.float32))
-    assert got["k"].dtype == torch.bfloat16
+    params = t_api.init_params(torch.Generator().manual_seed(0), tc, execution=CPU)
+    _, cache = t_api.prefill(params, {"tokens": torch.zeros((3, 5), dtype=torch.int32)}, tc, 40,
+                             execution=CPU)
+    assert serve_step._tree_sig(cache) == serve_step._tree_sig(got)
 
 
 # ---------------------------------------------------------------------------
@@ -249,22 +298,14 @@ def test_serve_steps_build_once_per_signature_within_the_bound():
 
 
 # ---------------------------------------------------------------------------
-# what is not ported, and the card rule
+# the card rule
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch_id", sorted(NOT_PORTED))
-def test_families_and_options_not_ported_raise(arch_id):
-    cfg = t_registry.get_smoke(arch_id)
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch_id]):
-        t_api.init_params(torch.Generator().manual_seed(0), cfg, execution=CPU)
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch_id]):
-        t_api.init_cache(cfg, 1, 8, execution=CPU)
-
-
-def test_lm_entry_points_without_a_card_raise():
+@pytest.mark.parametrize("arch_id", ["h2o_danube3_4b"] + RECURRENT)
+def test_lm_entry_points_without_a_card_raise(arch_id):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable here")
-    cfg = t_registry.get_smoke("h2o_danube3_4b")
+    cfg = t_registry.get_smoke(arch_id)
     params = t_api.init_params(torch.Generator().manual_seed(0), cfg, execution=CPU)
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
     _, cache = t_api.prefill(params, batch, cfg, 8, execution=CPU)
@@ -274,7 +315,7 @@ def test_lm_entry_points_without_a_card_raise():
         lambda: t_api.prefill(params, batch, cfg, 8),
         lambda: t_api.decode_step(params, tok, cache, cfg),
         lambda: t_api.init_cache(cfg, 1, 8),
-        lambda: t_transformer.forward(params, batch, cfg),
+        lambda: FAMILY_MODULES[cfg.family].forward(params, batch, cfg),
         lambda: serve_step.make_prefill(cfg, None, params, batch, 8)(params, batch),
         lambda: serve_step.make_decode(cfg, None, params, cache)(params, tok, cache),
         lambda: bridge.params_from_reference({"w": np.zeros(2, np.float32)}),

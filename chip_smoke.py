@@ -52,11 +52,13 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 DeadlineScheduler with four clients while a fifth thread
                 registers a second model; stand-in latency and rate numbers
   6. flash    — the flash-attention kernels (bf16: tensor cores; f32: FMA)
-                against their plain version (the reference tests' shapes,
+                against their plain version, out and lse (the reference tests' shapes,
                 Dh 72 / 120 / 128 and one not a multiple of 8, GQA groups
                 1 / 4 / 8, windows that hide whole 64-key tiles, q_offset
                 with Sq = 1, Skv not a multiple of 64; f32 and bf16; rows
-                that see no key are 0)
+                that see no key are 0, their lse about -1e30); and
+                FlashAttentionFn's dq, dk, dv with the kernel's forward
+                against the all-plain ones
   7. lm       — h2o-danube-3-4b at full width and depth (24 layers, seeded
                 random weights) served through `serve_step.make_prefill` /
                 `make_decode` with the kernel backend: request A (4 prompts
@@ -107,6 +109,28 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 the step form (prefill 960 + 64 decode steps) within
                 ZAMBA_BLOCK_STEP_REL_NORM; cache bytes, step times, idle
                 share, peak memory
+ 13. train-lm — h2o-danube-3-4b at full width, 8 of its 24 layers, 2 x 4096
+                tokens from the synthetic stream: loss and every gradient
+                leaf, kernel backend (B4 forward with lse, the plain
+                backward) against the torch backend from one seeded state
+                within LM_REL_NORM; three steps of `make_train_step`,
+                flash counted twice a layer a step (forward, remat)
+ 14. train-dr — hubert-xlarge CONFIG_DR at full width and depth, 2 x 1024
+                frames: the same comparison, then two train steps a backend
+                with the DR unit co-trained (B within TRAJ_TOL after each);
+                all four kernels launched on the training path
+ 15. train-recurrent — rwkv6-1.6b (4 of 24 layers, 2 x 256) bit-identical
+                between backends with no launch; zamba2-7b (12 of 81, 2 x
+                512, two shared-block applications) within the LM bounds;
+                each with train_grad_accum 2
+ 16. trainer  — smollm-135m at full width and depth: `trainer.train` for 8
+                steps with checkpoints every 4, then stopped at 4 and resumed
+                into a fresh state; the loss falls, the restored state and
+                the resumed run equal the straight run bit for bit
+ 17. train-time — per step (h2o, hubert): host-paced and device-busy ms,
+                idle share, tokens/s, model TFLOP/s, peak memory; one
+                attention layer at h2o's shape: B4 forward + lse, the plain
+                backward, SDPA forward + backward, each beside its bound
 
 It prints a `{"kernels": [...]}` JSON line, the card's line from nvidia-smi,
 and as its last line `{"ok": true, "device": {...}}`.  It imports nothing of
@@ -272,6 +296,37 @@ ZAMBA_ARCH = "zamba2_7b"
 # shared block's ring.
 ZAMBA_SPLIT = 960
 ZAMBA_BLOCK_STEP_REL_NORM = 1e-3
+# B4's lse output against the plain version's (f32 in both dtypes; the bf16
+# kernel sums its scores on the tensor cores and takes exp on the SFU), and
+# FlashAttentionFn's gradients with the kernel's forward against the
+# all-plain ones (they differ only through out and lse): f32 elementwise,
+# bf16 by the relative norm of each of dq, dk, dv.  Fixed in PERF.md §6
+# before the first run.
+LSE_TOL = {"f32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=1e-4, atol=1e-4)}
+FLASH_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+FLASH_GRAD_REL_NORM = 1e-2
+FLASH_GRAD_SHAPES = [(2, 333, 333, 32, 8, 120, True, None), (1, 600, 5001, 32, 8, 120, True, 4096),
+                     (2, 333, 333, 16, 16, 80, False, None), (1, 129, 190, 4, 4, 13, True, None)]
+# LM training.  train-lm: h2o-danube-3-4b at full width, 8 of its 24 layers
+# (1.484 B f32 params; params + grads + AdamW m and v take 23.7 GB), 2 x 4096
+# tokens from the synthetic stream.  train-dr: hubert-xlarge CONFIG_DR at full
+# width and depth, 2 x 1024 frames of 512 features.  train-recurrent: rwkv6-1.6b
+# at 4 of 24 layers (2 x 256 tokens, four WKV chunks) and zamba2-7b at 12 of 81
+# (2 x 512, two applications of the shared block), each with its own
+# train_grad_accum.  trainer: smollm-135m at full width and depth.  Between the
+# kernel and torch backends the loss and the whole gradient (every leaf at
+# once) are held to LM_REL_NORM in relative norm, and each gradient leaf to
+# GRAD_LEAF_REL_NORM: a per-head scalar such as Mamba-2's a_log sums thousands
+# of cancelling terms, so attention's last-bit differences in bf16 move it
+# more (2.1e-2 in a CPU rehearsal of zamba's 12 layers at SMOKE width, where
+# the two backends differ only in their chunking), as they move the CPU tests'
+# bf16 gradient leaves against the reference (tests/test_torch_train.py).
+GRAD_LEAF_REL_NORM = 5e-2
+TRAIN_LM = dict(layers=8, batch=2, seq=4096, steps=3)
+TRAIN_DR = dict(batch=2, seq=1024, steps=2)
+TRAIN_RWKV = dict(layers=4, batch=2, seq=256)
+TRAIN_ZAMBA = dict(layers=12, batch=2, seq=512)
+TRAINER = dict(arch="smollm_135m", steps=8, ckpt_every=4, batch=8, seq=512, lr=2e-4)
 # the head geometries flash first runs at in those phases: (Hq, Hkv, Dh, causal)
 FLASH_GEOMETRIES = {"phi3.5-moe": (32, 8, 128, True), "hubert-xlarge": (16, 16, 80, False),
                     "internvl2-1b": (14, 2, 64, True), "zamba2-7b": (32, 32, 112, True)}
@@ -1685,10 +1740,18 @@ def phase_flash(dev, errs):
         for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype)
             kw = dict(causal=causal, window=window, q_offset=q_offset)
-            err = check_close(f"flash_attention {(b, sq, skv, hq, hkv, dh, causal, window)} "
-                              f"q_offset={q_offset} {dtype}", fa(q, k, v, **kw),
-                              plain(q, k, v, **kw), **FLASH_TOL[key])
+            what = f"flash_attention {(b, sq, skv, hq, hkv, dh, causal, window)} " \
+                   f"q_offset={q_offset} {dtype}"
+            got = fa(q, k, v, **kw)
+            err = check_close(what, got, plain(q, k, v, **kw), **FLASH_TOL[key])
             errs[("flash_attention", key)] = max(errs.get(("flash_attention", key), 0.0), err)
+            # every row of these shapes sees a key: the whole lse is compared
+            out, lse = fa(q, k, v, return_lse=True, **kw)
+            if not torch.equal(out, got):
+                fail(f"{what}: the output with return_lse differs from the output without")
+            want_lse = plain(q, k, v, return_lse=True, **kw)[1]
+            err = check_close(f"{what} lse", lse, want_lse, **LSE_TOL[key])
+            errs[("lse", key)] = max(errs.get(("lse", key), 0.0), err)
             n_checks += 1
     # rows that see no key: q at 14..21 over 16 keys, causal, window 4 (rows
     # 5..7 see none), and q at 100 (every row blind)
@@ -1704,11 +1767,60 @@ def phase_flash(dev, errs):
                          f"(q_offset={q_offset}, dh={dh}, {dtype})")
             check_close(f"flash_attention rows with keys, q_offset={q_offset} dh={dh} {dtype}", got,
                         want, **FLASH_TOL[key])
+            lse, want_lse = (f(q, k, v, return_lse=True, **kw)[1] for f in (fa, plain))
+            for name, t in (("kernel", lse), ("plain", want_lse)):
+                if not bool((t[..., blind] < -1e29).all()):
+                    fail(f"flash_attention: {name} lse of rows that see no key is not about "
+                         f"-1e30 (q_offset={q_offset}, dh={dh}, {dtype})")
+            seen = [r for r in range(8) if not blind.start <= r < blind.stop]
+            check_close(f"flash_attention lse of rows with keys, q_offset={q_offset} dh={dh} "
+                        f"{dtype}", lse[..., seen], want_lse[..., seen], **LSE_TOL[key])
             n_checks += 1
+    grad_err = flash_grad_checks(dev, gen)
     torch.cuda.synchronize()
     print(f"[kernels] flash_attention: {n_checks} checks against the plain version passed "
-          f"(rows that see no key are 0 in both); largest |err| f32 "
-          f"{errs[('flash_attention', 'f32')]:.3e}, bf16 {errs[('flash_attention', 'bf16')]:.3e}")
+          f"(rows that see no key are 0 in both, their lse about -1e30); largest |err| f32 "
+          f"{errs[('flash_attention', 'f32')]:.3e}, bf16 {errs[('flash_attention', 'bf16')]:.3e}; "
+          f"lse f32 {errs[('lse', 'f32')]:.3e}, bf16 {errs[('lse', 'bf16')]:.3e} (bounds "
+          f"{LSE_TOL['f32']}, {LSE_TOL['bf16']}); FlashAttentionFn's gradients, kernel forward "
+          f"vs all plain: {json.dumps(grad_err)}")
+    errs["flash_grads"] = grad_err
+
+
+def flash_grad_checks(dev, gen):
+    """dq, dk, dv of `blocks.flash_attention` with backend="kernel" (the
+    kernel's forward and lse, the plain backward) against backend="torch"
+    (all plain), at FLASH_GRAD_SHAPES in f32 and bf16."""
+    import torch
+    from repro_torch.models import blocks
+
+    worst = {"f32_max_abs_err": 0.0, "bf16_max_rel_norm": 0.0}
+    for (b, sq, skv, hq, hkv, dh, causal, window) in FLASH_GRAD_SHAPES:
+        q_offset = skv - sq if causal and sq < skv else 0
+        for dtype in (torch.float32, torch.bfloat16):
+            base = [torch.randn(s, generator=gen).to(dtype).to(dev)
+                    for s in ((b, sq, hq, dh), (b, skv, hkv, dh), (b, skv, hkv, dh),
+                              (b, sq, hq, dh))]
+            grads = {}
+            for backend in ("kernel", "torch"):
+                q, k, v = (t.clone().requires_grad_(True) for t in base[:3])
+                out = blocks.flash_attention(q, k, v, causal=causal, window=window,
+                                             q_offset=q_offset, backend=backend)
+                out.backward(base[3])
+                grads[backend] = (q.grad, k.grad, v.grad)
+            what = f"FlashAttentionFn grads {(b, sq, skv, hq, hkv, dh, causal, window)} {dtype}"
+            for name, g, w in zip(("dq", "dk", "dv"), grads["kernel"], grads["torch"]):
+                if dtype == torch.float32:
+                    err = check_close(f"{what} {name}", g, w, **FLASH_GRAD_TOL)
+                    worst["f32_max_abs_err"] = max(worst["f32_max_abs_err"], err)
+                else:
+                    g32, w32 = g.to(torch.float32), w.to(torch.float32)
+                    rel = float((g32 - w32).norm() / w32.norm())
+                    if not bool(torch.isfinite(g32).all()) or not rel <= FLASH_GRAD_REL_NORM:
+                        fail(f"{what} {name}: relative norm {rel:.3e} (bound "
+                             f"{FLASH_GRAD_REL_NORM})")
+                    worst["bf16_max_rel_norm"] = max(worst["bf16_max_rel_norm"], rel)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -2715,6 +2827,518 @@ def flash_geometry_timing(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 13-17: LM training
+# ---------------------------------------------------------------------------
+
+def tree_worst_rel(got, want):
+    """(largest relative norm of got − want over the leaves of two trees of
+    the same nesting, its leaf's path, the relative norm of all leaves at
+    once); a non-finite leaf counts as inf."""
+    import torch
+    from repro_torch.checkpoint.manager import flatten_with_path
+
+    worst, num, den = (0.0, ""), 0.0, 0.0
+    for (path, g), (_, w) in zip(flatten_with_path(got), flatten_with_path(want)):
+        g32, w32 = g.to(torch.float32), w.to(torch.float32)
+        d2, w2 = float((g32 - w32).square().sum()), float(w32.square().sum())
+        rel = math.sqrt(d2 / max(w2, 1e-60))
+        if not bool(torch.isfinite(g32).all()):
+            rel = d2 = math.inf
+        num, den = num + d2, den + w2
+        if not rel <= worst[0]:
+            worst = (rel, path)
+    return worst[0], worst[1], math.sqrt(num / max(den, 1e-60))
+
+
+def trees_equal(got, want) -> list:
+    """The paths of the leaves that differ in any bit."""
+    import torch
+    from repro_torch.checkpoint.manager import flatten_with_path
+
+    return [p for (p, g), (_, w) in zip(flatten_with_path(got), flatten_with_path(want))
+            if not torch.equal(torch.as_tensor(g), torch.as_tensor(w))]
+
+
+def to_device(batch, dev):
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def backend_grads(what, tcfg, state, batch, dev, *, bit_identical=False):
+    """Loss and gradients from one state and batch on the kernel backend
+    (counted) and on the torch backend: the loss and every gradient leaf
+    within LM_REL_NORM in relative norm (or equal bit for bit).  Returns
+    (readings, the kernel run's launches)."""
+    import torch
+    from repro_torch.core.execution import Execution
+    from repro_torch.train import train_step as ts
+
+    runs = {}
+    for name in ("kernel", "torch"):
+        exe = Execution(backend=name, device=dev)
+        loss_fn = ts.make_loss(tcfg, ts._dr_cfg(tcfg.arch), execution=exe)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, aux, grads = ts.value_and_grad(loss_fn, state.params, state.dr, batch)
+        torch.cuda.synchronize()
+        runs[name] = (loss, grads, time.perf_counter() - t0, all_counts())
+    (lk, gk, tk, counts), (lt, gt, tt, _) = runs["kernel"], runs["torch"]
+    if not (math.isfinite(float(lk)) and math.isfinite(float(lt))):
+        fail(f"{what}: non-finite loss {float(lk)} / {float(lt)}")
+    loss_rel = abs(float(lk) - float(lt)) / abs(float(lt))
+    if bit_identical:
+        diff = trees_equal(gk, gt)
+        if diff or not torch.equal(lk, lt):
+            fail(f"{what}: kernel and torch backends differ: loss {float(lk)} / {float(lt)}, "
+                 f"gradient leaves {diff[:5]}")
+        grad_rel = (0.0, "", 0.0)
+    else:
+        grad_rel = tree_worst_rel(gk, gt)
+        if not loss_rel <= LM_REL_NORM or not grad_rel[2] <= LM_REL_NORM or \
+                not grad_rel[0] <= GRAD_LEAF_REL_NORM:
+            fail(f"{what}: kernel vs torch backend: loss relative {loss_rel:.3e}, gradient "
+                 f"relative norm {grad_rel[2]:.3e} (bound {LM_REL_NORM}), leaf {grad_rel[1]} "
+                 f"{grad_rel[0]:.3e} (bound {GRAD_LEAF_REL_NORM})")
+    print(f"[{what}] loss kernel {float(lk):.6f} / torch {float(lt):.6f} (relative "
+          f"{loss_rel:.3e}); gradient relative norm {grad_rel[2]:.3e} (bound {LM_REL_NORM}), "
+          f"largest by leaf {grad_rel[0]:.3e} at {grad_rel[1] or '-'} (bound "
+          f"{GRAD_LEAF_REL_NORM}); loss + grads {tk * 1e3:.1f} ms kernel / {tt * 1e3:.1f} ms "
+          f"torch (host-paced, first call); launches {json.dumps(counts)}")
+    return {"loss_kernel": float(lk), "loss_torch": float(lt), "loss_rel": loss_rel,
+            "grad_rel_norm": grad_rel[2], "grad_max_leaf_rel_norm": grad_rel[0],
+            "grad_worst_leaf": grad_rel[1]}, counts
+
+
+def model_flops(cfg, tokens: int, batch: int, seq: int) -> float:
+    """6·N·tokens (N from `api.exact_param_counts`, active for MoE) plus
+    attention's forward 4·B·S²·Hq·Dh a layer, × 3.5 for its backward and
+    remat recompute."""
+    from repro_torch.models import api
+
+    _, active = api.exact_param_counts(cfg)
+    n_attn = cfg.n_layers if cfg.family == "transformer" else 0
+    return 6.0 * active * tokens + 3.5 * 4.0 * batch * seq * seq * cfg.n_heads * cfg.dh * n_attn
+
+
+def run_steps(what, step_fn, state, batches, dev):
+    """The train steps over `batches` (counted from 0 by the caller):
+    (state, losses, host-paced seconds of each step)."""
+    import torch
+
+    losses, secs = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if not math.isfinite(losses[-1]) or not math.isfinite(float(metrics["grad_norm"])):
+            fail(f"{what}: non-finite loss or grad norm at step {len(losses)}: {metrics}")
+    return state, losses, secs
+
+
+def step_timing(what, cfg, step_fn, state, batch, secs, batch_size, seq, dev):
+    """Host-paced ms a step (the mean after the first), device-busy ms of one
+    more step from a torch.profiler trace, the idle share, tokens/s, model
+    TFLOP/s and peak memory."""
+    import torch
+
+    host_ms = sum(secs[1:]) / max(1, len(secs) - 1) * 1e3
+    ops = device_ops(lambda: step_fn(state, batch))
+    tokens = batch_size * seq
+    flops = model_flops(cfg, tokens, batch_size, seq)
+    row = {"step_ms": host_ms, "device_busy_ms": None if ops is None else ops["busy_ms"],
+           "idle_share": None if ops is None else 1 - ops["busy_ms"] / host_ms,
+           "tokens_per_s": tokens / host_ms * 1e3, "model_tflops": flops / host_ms / 1e9,
+           "model_flops": flops, "device_kernels": None if ops is None else ops["kernels"],
+           "device_top_ms": None if ops is None else ops["top_ms"],
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    print(f"[train-time] {what}: step {host_ms:.1f} ms host-paced, device busy "
+          f"{fmt_ms(row['device_busy_ms'])} ms (idle share {fmt_share(row['idle_share'])}), "
+          f"{row['tokens_per_s']:.0f} tokens/s, model {row['model_tflops']:.1f} TFLOP/s "
+          f"({flops:.4e} FLOP a step), peak {row['peak_gib']:.1f} GiB; device ms by launching "
+          f"op {json.dumps(row['device_top_ms'])}")
+    return row
+
+
+def phase_train_lm(dev):
+    """h2o-danube-3-4b at full width, TRAIN_LM["layers"] of its 24 layers,
+    2 x 4096 tokens from the synthetic stream: loss and every gradient leaf
+    on the kernel backend against the torch backend from one seeded state,
+    then TRAIN_LM["steps"] steps of `make_train_step` on the kernel backend,
+    counted (flash twice a layer a step: forward and remat recompute)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.execution import Execution
+    from repro_torch.data import synthetic
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = dataclasses.replace(registry.get(LM_ARCH), n_layers=TRAIN_LM["layers"])
+    tcfg = ts.TrainConfig(arch=cfg)
+    t0 = time.perf_counter()
+    state = ts.init_state(torch.Generator(device=dev).manual_seed(11), tcfg,
+                          execution=Execution(device=dev))
+    n_params = sum(t.numel() for t in opt_mod.tree_leaves(state.params))
+    torch.cuda.synchronize()
+    print(f"[train-lm] {cfg.name} at full width, {cfg.n_layers} of 24 layers: {n_params} f32 "
+          f"params drawn on the card in {time.perf_counter() - t0:.2f} s; batch "
+          f"{TRAIN_LM['batch']} x {TRAIN_LM['seq']} tokens")
+    data = synthetic.TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_LM["seq"],
+                                       global_batch=TRAIN_LM["batch"], seed=0)
+    batches = [to_device({"tokens": synthetic.token_batch(data, i)["tokens"]}, dev)
+               for i in range(TRAIN_LM["steps"] + 1)]
+    grads, counts_g = backend_grads("train-lm", tcfg, state, batches[0], dev)
+    if counts_g["flash_attention"] != 2 * cfg.n_layers:
+        fail(f"train-lm: flash launched {counts_g['flash_attention']} times in one loss + "
+             f"grads, want {2 * cfg.n_layers} (forward and remat recompute per layer)")
+    step_fn = ts.make_train_step(tcfg, execution=Execution(backend="kernel", device=dev))
+    reset_counts()
+    state, losses, secs = run_steps("train-lm", step_fn, state, batches[:TRAIN_LM["steps"]], dev)
+    counts = all_counts()
+    want = 2 * cfg.n_layers * TRAIN_LM["steps"]
+    if counts["flash_attention"] != want:
+        fail(f"train-lm: flash launched {counts['flash_attention']} times in "
+             f"{TRAIN_LM['steps']} steps, want {want}")
+    print(f"[train-lm] {TRAIN_LM['steps']} train steps (kernel backend): losses "
+          f"{json.dumps(losses)}; launches {json.dumps(counts)}")
+    timing = step_timing(f"h2o-danube-3-4b ({cfg.n_layers} layers, {TRAIN_LM['batch']} x "
+                         f"{TRAIN_LM['seq']})", cfg, step_fn, state, batches[-1], secs,
+                         TRAIN_LM["batch"], TRAIN_LM["seq"], dev)
+    return counts, {"grads": grads, "losses": losses, "step_seconds": secs, **timing}
+
+
+def phase_train_dr(dev):
+    """hubert-xlarge CONFIG_DR at full width and depth, 2 x 1024 frames of 512
+    features from the synthetic stream: loss and gradients kernel vs torch
+    from one seeded state, then TRAIN_DR["steps"] train steps on each
+    backend from that state, the DR unit co-trained in each (its B after
+    every step within TRAJ_TOL between backends); every kernel launched on
+    the kernel path, counted."""
+    import torch
+    from repro_torch.configs import hubert_xlarge
+    from repro_torch.core.execution import Execution
+    from repro_torch.data import synthetic
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import trainer
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = hubert_xlarge.CONFIG_DR
+    tcfg = ts.TrainConfig(arch=cfg)
+
+    def fresh():        # the card's generator repeats its draws from a seed
+        return ts.init_state(torch.Generator(device=dev).manual_seed(12), tcfg,
+                             execution=Execution(device=dev))
+
+    data = synthetic.TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_DR["seq"],
+                                       global_batch=TRAIN_DR["batch"], seed=0)
+    batches = [to_device(trainer.make_batch(cfg, data, i), dev)
+               for i in range(TRAIN_DR["steps"] + 1)]
+    print(f"[train-dr] {cfg.name} CONFIG_DR ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} dh {cfg.dh}, non-causal): frames "
+          f"{tuple(batches[0]['frames'].shape)} -> RP {cfg.dr_frontend.p} -> EASI "
+          f"{cfg.dr_frontend.n}")
+    grads, _ = backend_grads("train-dr", tcfg, fresh(), batches[0], dev)
+    states = {"kernel": fresh(), "torch": fresh()}
+    steps = {name: ts.make_train_step(tcfg, execution=Execution(backend=name, device=dev))
+             for name in states}
+    losses = {"kernel": [], "torch": []}
+    counts, secs, err_b = {}, [], []
+    for i in range(TRAIN_DR["steps"]):
+        reset_counts()
+        states["kernel"], ls, sc = run_steps("train-dr", steps["kernel"], states["kernel"],
+                                             [batches[i]], dev)
+        counts = {k: counts.get(k, 0) + c for k, c in all_counts().items()}
+        losses["kernel"] += ls
+        secs += sc
+        states["torch"], ls, _ = run_steps("train-dr", steps["torch"], states["torch"],
+                                           [batches[i]], dev)
+        losses["torch"] += ls
+        err_b.append(check_close(f"train-dr DR B after step {i + 1}", states["kernel"].dr.b,
+                                 states["torch"].dr.b, **TRAJ_TOL))
+    missing = [n for n, c in counts.items() if c <= 0]
+    if missing:
+        fail(f"train-dr: kernels never launched on the training path: {missing}")
+    want = 2 * cfg.n_layers * TRAIN_DR["steps"]
+    if counts["flash_attention"] != want:
+        fail(f"train-dr: flash launched {counts['flash_attention']} times, want {want}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["kernel"], losses["torch"]))
+    if not rel <= LM_REL_NORM:
+        fail(f"train-dr: losses kernel {losses['kernel']} vs torch {losses['torch']}")
+    print(f"[train-dr] {TRAIN_DR['steps']} train steps a backend: losses kernel "
+          f"{json.dumps(losses['kernel'])} / torch {json.dumps(losses['torch'])}; max |B_kernel - "
+          f"B_torch| after each step {json.dumps(err_b)} (TRAJ_TOL); DR steps "
+          f"{int(states['kernel'].dr.steps)}; launches on the kernel path {json.dumps(counts)}")
+    timing = step_timing(f"hubert-xlarge CONFIG_DR ({TRAIN_DR['batch']} x {TRAIN_DR['seq']})",
+                         cfg, steps["kernel"], states["kernel"], batches[-1], secs,
+                         TRAIN_DR["batch"], TRAIN_DR["seq"], dev)
+    return counts, {"grads": grads, "losses": losses, "max_abs_err_b": err_b,
+                    "step_seconds": secs, **timing}
+
+
+def deterministic_warnings(fn):
+    """fn() with `torch.use_deterministic_algorithms(True, warn_only=True)`:
+    (its result, the first line of each distinct warning, which names an op
+    that has no deterministic implementation on the card)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out = fn()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    notes = sorted({str(w.message).strip().splitlines()[0][:160] for w in caught
+                    if "determinis" in str(w.message).lower()})
+    return out, notes
+
+
+def phase_train_recurrent(dev):
+    """The recurrent families at full width and reduced depth, each with its
+    own train_grad_accum: rwkv6-1.6b (TRAIN_RWKV) on both backends
+    bit-identical with no launch (deterministic algorithms on), and
+    zamba2-7b (TRAIN_ZAMBA) within the LM bounds, flash counted: loss and
+    gradients of one micro-batch, then one train step a backend.  Each
+    backend's state is drawn anew from the same seed (the card's generator
+    repeats its draws), so no second copy of a state is held."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.execution import Execution
+    from repro_torch.data import synthetic
+    from repro_torch.train import train_step as ts
+
+    out, counts = {}, {}
+    for arch, spec, seed in ((RWKV_ARCH, TRAIN_RWKV, 13), (ZAMBA_ARCH, TRAIN_ZAMBA, 14)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg = dataclasses.replace(registry.get(arch), n_layers=spec["layers"])
+        if cfg.train_grad_accum != 2:
+            fail(f"train-recurrent: {cfg.name} train_grad_accum {cfg.train_grad_accum}, want 2")
+        tcfg = ts.TrainConfig(arch=cfg, grad_accum=cfg.train_grad_accum)
+
+        def fresh():
+            return ts.init_state(torch.Generator(device=dev).manual_seed(seed), tcfg,
+                                 execution=Execution(device=dev))
+
+        data = synthetic.TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+                                           global_batch=spec["batch"], seed=0)
+        batch = to_device({"tokens": synthetic.token_batch(data, 0)["tokens"]}, dev)
+        micro = {"tokens": batch["tokens"][: spec["batch"] // cfg.train_grad_accum]}
+        name = cfg.family
+        bit = name == "rwkv6"
+        what = f"train-recurrent {name}"
+        t0 = time.perf_counter()
+
+        def run():
+            grads, cg = backend_grads(what, tcfg, fresh(), micro, dev, bit_identical=bit)
+            finals = {}
+            for backend in ("kernel", "torch"):
+                step = ts.make_train_step(tcfg, execution=Execution(backend=backend, device=dev))
+                reset_counts()
+                st, losses, secs = run_steps(what, step, fresh(), [batch], dev)
+                finals[backend] = (st if bit else st.params, losses, secs, all_counts())
+                del st
+            return grads, cg, finals
+
+        (grads, cg, finals), notes = deterministic_warnings(run) if bit else (run(), [])
+        (k_final, k_losses, secs, c), (t_final, t_losses, _, _) = finals["kernel"], \
+            finals["torch"]
+        if bit:
+            diff = trees_equal(k_final, t_final)
+            if any(c.values()) or any(cg.values()) or diff or k_losses != t_losses:
+                fail(f"train-recurrent rwkv6: launches {c} / {cg}, or the backends' states "
+                     f"differ after a train step: {diff[:5]}, losses {k_losses} / {t_losses}")
+            state_rel = (0.0, "", 0.0)
+            text = "bit-identical states"
+        else:
+            want = 2 * 2 * -(-cfg.n_layers // cfg.hybrid.attn_every)
+            if c["flash_attention"] != want or cg["flash_attention"] != want // 2:
+                fail(f"train-recurrent zamba: flash launched {c['flash_attention']} times in a "
+                     f"step (want {want}: 2 applications x forward + recompute x 2 "
+                     f"micro-batches), {cg['flash_attention']} in one micro-batch's loss + grads")
+            state_rel = tree_worst_rel(k_final, t_final)
+            if abs(k_losses[0] - t_losses[0]) / abs(t_losses[0]) > LM_REL_NORM:
+                fail(f"train-recurrent zamba: step losses {k_losses} / {t_losses}")
+            text = (f"params after the step: relative norm {state_rel[2]:.3e}, largest by leaf "
+                    f"{state_rel[0]:.3e} at {state_rel[1]}")
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        print(f"[train-recurrent] {cfg.name} ({cfg.n_layers} layers, {spec['batch']} x "
+              f"{spec['seq']} tokens, grad_accum {cfg.train_grad_accum}): one train step, loss "
+              f"kernel {k_losses[0]:.6f} / torch {t_losses[0]:.6f}, {text}; step "
+              f"{secs[0] * 1e3:.1f} ms host-paced (first); launches {json.dumps(c)}; "
+              f"deterministic-mode notes {json.dumps(notes)}; phase "
+              f"{time.perf_counter() - t0:.1f} s; peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+        out[name] = {"grads": grads, "losses": [k_losses, t_losses], "step_ms": secs[0] * 1e3,
+                     "params_rel_norm": state_rel[2], "params_max_leaf_rel_norm": state_rel[0],
+                     "launches": c, "deterministic_notes": notes,
+                     "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        del finals, k_final, t_final
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_trainer(dev):
+    """smollm-135m at full width and depth through `trainer.train` (kernel
+    backend, deterministic algorithms on): TRAINER["steps"] steps straight,
+    checkpoints every TRAINER["ckpt_every"]; then the same run stopped after
+    the first checkpoint (its state restored into a fresh init must equal
+    the saved one bit for bit) and resumed into a fresh state to the end.
+    The loss must fall (the mean of the last three steps under the first
+    three's); the resumed run's losses and final state must equal
+    the straight run's bit for bit, else within 1e-6 relative, with the ops
+    the deterministic mode names."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.core.execution import Execution
+    from repro_torch.data import synthetic
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import trainer
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = registry.get(TRAINER["arch"])
+    exe = Execution(backend="kernel", device=dev)
+    root = ROOT / "build" / "chip_smoke_trainer"
+    shutil.rmtree(root, ignore_errors=True)
+    tcfg = ts.TrainConfig(arch=cfg, opt=opt_mod.AdamWConfig(lr=TRAINER["lr"]))
+    base = trainer.TrainerConfig(train=tcfg, total_steps=TRAINER["steps"],
+                                 ckpt_every=TRAINER["ckpt_every"], keep_n=1, log_every=10 ** 6)
+    data = synthetic.TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAINER["seq"],
+                                       global_batch=TRAINER["batch"], seed=0)
+    run_kw = dict(execution=exe, data_cfg=data, log=lambda line: None)
+    first = TRAINER["ckpt_every"]
+
+    def runs():
+        t0 = time.perf_counter()
+        reset_counts()
+        full = trainer.train(dataclasses.replace(base, ckpt_dir=str(root / "a")), **run_kw)
+        counts = all_counts()
+        t_full = time.perf_counter() - t0
+        short = trainer.train(dataclasses.replace(base, ckpt_dir=str(root / "b"),
+                                                  total_steps=first), **run_kw)
+        fresh = ts.init_state(torch.Generator(device=dev).manual_seed(99), tcfg, execution=exe)
+        step, restored = CheckpointManager(str(root / "b")).restore(fresh)
+        restore_diff = trees_equal(restored, short["state"])
+        resumed = trainer.train(dataclasses.replace(base, ckpt_dir=str(root / "b")), **run_kw)
+        return full, short, step, restore_diff, resumed, counts, t_full
+
+    try:
+        (full, short, step, restore_diff, resumed, counts, t_full), notes = \
+            deterministic_warnings(runs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if step != first or restore_diff:
+        fail(f"trainer: checkpoint of step {step} restored with differing leaves "
+             f"{restore_diff[:5]}")
+    if resumed["start_step"] != first:
+        fail(f"trainer: resumed from step {resumed['start_step']}, want {first}")
+    losses = full["losses"]
+    # tests/test_fault_tolerance.py::test_loss_decreases's reading: the last
+    # three steps' mean under the first three's (each step reads a new batch)
+    if not all(math.isfinite(x) for x in losses) or \
+            not sum(losses[-3:]) < sum(losses[:3]):
+        fail(f"trainer: the loss did not fall: {losses}")
+    joined = short["losses"] + resumed["losses"]
+    diff = trees_equal(resumed["state"], full["state"])
+    bitwise = not diff and joined == losses
+    if not bitwise:
+        rel = tree_worst_rel(resumed["state"], full["state"])
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(joined, losses))
+        if not (rel[0] <= 1e-6 and loss_rel <= 1e-6):
+            fail(f"trainer: the resumed run differs from the straight run: params relative norm "
+                 f"{rel[0]:.3e} at {rel[1]}, losses {loss_rel:.3e}; deterministic-mode notes "
+                 f"{notes}")
+    if counts["flash_attention"] != 2 * cfg.n_layers * TRAINER["steps"]:
+        fail(f"trainer: flash launched {counts['flash_attention']} times in "
+             f"{TRAINER['steps']} steps, want {2 * cfg.n_layers * TRAINER['steps']}")
+    print(f"[trainer] {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{TRAINER['batch']} x {TRAINER['seq']} tokens, lr {TRAINER['lr']}): {len(losses)} steps "
+          f"in {t_full:.1f} s with checkpoints every {TRAINER['ckpt_every']}; losses "
+          f"{json.dumps([round(x, 5) for x in losses])}; the step-{first} checkpoint restored bit "
+          f"for bit; stopped at {first} and resumed: "
+          f"{'bit-identical losses and state' if bitwise else 'within 1e-6 (not bit-identical): ' + ', '.join(diff[:3])}; "
+          f"deterministic-mode notes {json.dumps(notes)}; launches {json.dumps(counts)}; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    return counts, {"losses": losses, "resumed_losses": joined, "bit_identical": bitwise,
+                    "seconds": t_full, "deterministic_notes": notes}
+
+
+def phase_train_time(dev):
+    """One attention layer of the train-lm shape (2 x 4096, 32/8 heads, Dh
+    120, bf16, causal, window 4096): B4's forward with lse, the plain
+    backward (`flash_attention_bwd_ref`) on its output, and SDPA's forward +
+    backward as a yardstick, each beside its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+
+    cfg = registry.get(LM_ARCH)
+    b, s, hq, hkv, dh = TRAIN_LM["batch"], TRAIN_LM["seq"], cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    gen = torch.Generator().manual_seed(98)
+    q, k, v, dout = [torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+                     for shape in ((b, s, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh),
+                                   (b, s, hq, dh))]
+    kw = dict(causal=True, window=cfg.sliding_window)
+    fwd = lambda: flash_attention.flash_attention(q, k, v, return_lse=True, **kw)
+    out, lse = fwd()
+    bwd = lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout, q_chunk=cfg.q_chunk,
+                                          kv_chunk=cfg.kv_chunk, **kw)
+    g = hq // hkv
+    qs = q.transpose(1, 2).detach().requires_grad_(True)
+    ks = k.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
+    vs = v.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
+    ds = dout.transpose(1, 2)
+
+    def lib():
+        qs.grad = ks.grad = vs.grad = None
+        F.scaled_dot_product_attention(qs, ks, vs, is_causal=True).backward(ds)
+
+    fwd_ms, fwd_dev_ms = time_events(fwd, 20, 3), time_graph(fwd, 10, 3)
+    bwd_ms = time_events(bwd, 3, 1)
+    bwd_ops = device_ops(bwd)
+    lib_ms = time_events(lib, 10, 3)
+    pairs = b * hq * s * (s + 1) // 2
+    el = 2                                                   # bf16 bytes
+    f_flops, f_bytes = 4.0 * dh * pairs, el * (2 * q.numel() + k.numel() + v.numel()) + \
+        4 * lse.numel()
+    b_flops = 10.0 * dh * pairs                              # s, dp, dq, dk, dv
+    b_bytes = el * (3 * q.numel() + 2 * (k.numel() + v.numel()) + q.numel()) + 4 * lse.numel()
+    bound = {}
+    for name, fl, by in (("forward", f_flops, f_bytes), ("backward", b_flops, b_bytes),
+                         ("forward+backward", f_flops + b_flops, f_bytes + b_bytes)):
+        t_ops, t_bytes = fl / PEAK_BF16_FLOPS, by / PEAK_BYTES
+        bound[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+    row = {"shape": [b, s, hq, hkv, dh], "forward_lse_ms": fwd_ms,
+           "forward_lse_device_ms": fwd_dev_ms, "plain_backward_ms": bwd_ms,
+           "plain_backward_device_busy_ms": None if bwd_ops is None else bwd_ops["busy_ms"],
+           "sdpa_forward_backward_ms": lib_ms,
+           "bound_ms": {k_: v_[0] for k_, v_ in bound.items()},
+           "bound_by": {k_: v_[1] for k_, v_ in bound.items()}}
+    print(f"[train-time] attention layer {row['shape']} bf16 causal (window "
+          f"{cfg.sliding_window}): B4 forward + lse {fwd_ms:.4f} ms ({fwd_dev_ms:.4f} device-only; "
+          f"bound {bound['forward'][0]:.6f} ms, {bound['forward'][1]}); plain backward "
+          f"{bwd_ms:.2f} ms host-paced (device busy {fmt_ms(row['plain_backward_device_busy_ms'])} "
+          f"ms; bound {bound['backward'][0]:.6f} ms, {bound['backward'][1]}); SDPA forward + "
+          f"backward {lib_ms:.4f} ms (bound {bound['forward+backward'][0]:.6f} ms)")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -2765,6 +3389,16 @@ def main() -> int:
         rwkv_counts, rwkv = timed("rwkv6", phase_rwkv6, dev)
         torch.cuda.empty_cache()
         zamba_counts, zamba = timed("zamba", phase_zamba, dev)
+        torch.cuda.empty_cache()
+        train_lm_counts, train_lm = timed("train-lm", phase_train_lm, dev)
+        torch.cuda.empty_cache()
+        train_dr_counts, train_dr = timed("train-dr", phase_train_dr, dev)
+        torch.cuda.empty_cache()
+        train_rec_counts, train_rec = timed("train-recurrent", phase_train_recurrent, dev)
+        torch.cuda.empty_cache()
+        trainer_counts, trainer_out = timed("trainer", phase_trainer, dev)
+        torch.cuda.empty_cache()
+        train_layer = timed("train-time", phase_train_time, dev)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2772,6 +3406,9 @@ def main() -> int:
         row["launches"] = counts[row["name"]]
         row["launches_table1"] = t1_counts[row["name"]]
         row["paper"] = paper_times[row["name"]]
+    flash_row.update(lse_max_abs_err_f32=errs[("lse", "f32")],
+                     lse_max_abs_err_bf16=errs[("lse", "bf16")], grad_check=errs["flash_grads"],
+                     train_layer=train_layer)
     flash_row.update(launches=lm_launches, launches_table1=t1_counts["flash_attention"],
                      launches_by_request=lm_by_entry,
                      lm_max_rel_norm=lm_worst[0], lm_max_abs_err=lm_worst[1])
@@ -2788,6 +3425,10 @@ def main() -> int:
         row["launches_frontend"] = front_counts[name]
         row["launches_rwkv6"] = rwkv_counts[name]
         row["launches_zamba"] = zamba_counts[name]
+        row["launches_train_lm"] = train_lm_counts[name]
+        row["launches_train_dr"] = train_dr_counts[name]
+        row["launches_train_recurrent"] = train_rec_counts[name]
+        row["launches_trainer"] = trainer_counts[name]
     print(f"[paper-steps] {json.dumps({k: paper_times[k] for k in ('update', 'transform', 'transform_1000')})}")
     print(f"[table1-steps] {json.dumps(table1)}")
     print(f"[lm-steps] {json.dumps(lm_steps)}")
@@ -2795,6 +3436,9 @@ def main() -> int:
     zoo = {"lm_queue": lmq, "kv_rp": kvrp, "moe": moe, "frontend": front, "rwkv6": rwkv,
            "zamba": zamba}
     print(f"[lm-zoo-steps] {json.dumps(zoo)}")
+    train = {"train_lm": train_lm, "train_dr": train_dr, "train_recurrent": train_rec,
+             "trainer": trainer_out, "train_layer": train_layer}
+    print(f"[train-steps] {json.dumps(train)}")
     print(f"[phase-seconds] {json.dumps(seconds)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

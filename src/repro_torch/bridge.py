@@ -6,10 +6,13 @@ over as numpy arrays: the reference's leaves go through `numpy.asarray`,
 `from_reference` loads them into a port `ModelState`,
 `dr_state_from_reference` into a legacy `dr_unit.DRState`, and
 `params_from_reference` into the port's parameter dict (same keys, same
-stacked `[L, ...]` layout); `to_numpy` and `params_to_numpy` turn them back
-into numpy leaves.  Only the attributes `stages`, `steps` and `trainable`
-(or `r`, `b` and `steps`) of a source state are read, so nothing of the
-JAX package is imported.
+stacked `[L, ...]` layout), `train_state_from_reference` into a
+`train.train_step.TrainState` (params, AdamW `m` / `v` / `step`, the DR
+state, the step); `to_numpy`, `params_to_numpy` and `train_state_to_numpy`
+turn them back into numpy leaves.  Only the attributes `stages`, `steps`
+and `trainable` (or `r`, `b` and `steps`; `params`, `opt`, `dr` and
+`step`; `step`, `m` and `v`) of a source state are read, so nothing of
+the JAX package is imported.
 
 Like every entry point of the port, the loaders put tensors on the card
 unless the caller passes `device="cpu"`; with no card they raise.
@@ -25,6 +28,8 @@ import torch
 from repro_torch.core.dr_unit import DRState
 from repro_torch.core.execution import resolve_device
 from repro_torch.dr.model import ModelState
+from repro_torch.train.optimizer import OptState
+from repro_torch.train.train_step import TrainState
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor:
@@ -89,3 +94,36 @@ def params_to_numpy(params: Any) -> Any:
     if isinstance(params, (list, tuple)):
         return type(params)(params_to_numpy(v) for v in params)
     return to_array(params)
+
+
+def _host_int32(a) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(a)), dtype=torch.int32)
+
+
+def train_state_from_reference(ref_state: Any, *, device="cuda"):
+    """A port `TrainState` holding a reference `TrainState`'s params, AdamW
+    moments and step, DR state (or None) and step; the counters as int32
+    scalars on the host, as the port keeps them."""
+    dev = resolve_device(device)
+    opt = ref_state.opt
+    dr = None if ref_state.dr is None else dr_state_from_reference(ref_state.dr, device=dev)
+    return TrainState(
+        params=params_from_reference(ref_state.params, device=dev),
+        opt=OptState(step=_host_int32(opt.step), m=params_from_reference(opt.m, device=dev),
+                     v=params_from_reference(opt.v, device=dev)),
+        dr=dr, step=_host_int32(ref_state.step))
+
+
+def train_state_to_numpy(state: Any):
+    """The port `TrainState` with numpy leaves (counters as np.int32), in
+    the same nesting."""
+    dr = None
+    if state.dr is not None:
+        dr = DRState(r=None if state.dr.r is None else to_array(state.dr.r),
+                     b=None if state.dr.b is None else to_array(state.dr.b),
+                     steps=np.int32(int(state.dr.steps)))
+    return TrainState(
+        params=params_to_numpy(state.params),
+        opt=OptState(step=np.int32(int(state.opt.step)), m=params_to_numpy(state.opt.m),
+                     v=params_to_numpy(state.opt.v)),
+        dr=dr, step=np.int32(int(state.step)))

@@ -1,3 +1,3 @@
-from repro_torch.checkpoint.manager import config_hash
+from repro_torch.checkpoint.manager import CheckpointManager, config_hash, leaf_hash
 
-__all__ = ["config_hash"]
+__all__ = ["CheckpointManager", "config_hash", "leaf_hash"]

@@ -1,3 +1,3 @@
-from repro_torch.data import mixtures, waveform
+from repro_torch.data import mixtures, synthetic, waveform
 
-__all__ = ["mixtures", "waveform"]
+__all__ = ["mixtures", "synthetic", "waveform"]

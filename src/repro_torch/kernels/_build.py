@@ -44,7 +44,8 @@ _SIGNATURES = {
     "repro_fused_transform": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "repro_easi_apply_plan": (_I, _I, _I, _I, _I, _IP),
     "repro_easi_apply": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _P),
-    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                              _P),
 }
 
 _lock = threading.Lock()

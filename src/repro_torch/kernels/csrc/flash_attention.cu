@@ -5,6 +5,10 @@
 //   dtype; query head h reads kv head h / (Hq / Hkv); query row r sits at
 //   position q_offset + r; key c is visible when c < Skv, and, if causal,
 //   q_pos >= c, and, with a window w >= 0, q_pos - c < w.
+//   lse (B, Hq, Sq) f32, written when its pointer is not null: each row's
+//   log-sum-exp of the scaled scores, m + log(max(l, 1e-30)), which the
+//   attention backward reads to recompute p (the residual of the JAX
+//   package's custom VJP, models/blocks.py _flash_forward).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention_fwd / _kernel).
@@ -50,7 +54,11 @@
 //   - Masked entries get p = 0, and the running max starts at a finite
 //     -1e30, so no inf - inf arises.  A row that sees some key gets the
 //     JAX value; a row that sees none gets 0 (l stays 0, and out = acc /
-//     max(l, 1e-30)).
+//     max(l, 1e-30)), and an lse of about -1e30.
+//   - m is kept in natural units of the scaled score in both kernels (the
+//     bf16 kernel exponentiates in base 2 from m * log2 e), so the row's
+//     lse is m + logf(l) in f32, written by one thread of the row after the
+//     row's l is complete: with a null lse pointer nothing else changes.
 //   - Everything sums in f32; p is rounded to v's dtype before p v, as both
 //     JAX versions do.  Tiles of Dh 64 and 128 are compiled; Dh > 128 is
 //     refused.
@@ -83,9 +91,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int sq, int skv,
-                       int hq, int hkv, int dh, int causal, int window, int q_offset,
-                       float scale) {
+                       const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+                       int sq, int skv, int hq, int hkv, int dh, int causal, int window,
+                       int q_offset, float scale) {
   constexpr int LD = DH + 1;
   constexpr int DJ = DH / FA_SIDE;   // output columns per thread
   extern __shared__ float smem[];
@@ -221,13 +229,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = tx + FA_SIDE * j;
       if (d < dh) ob[(size_t)r * q_row + d] = from_f32<T>(acc[i][j] / l);
     }
+    // the row's 16 threads hold the same m and l
+    if (lse != nullptr && tx == 0) lse[((size_t)bi * hq + h) * sq + r] = m_run[i] + logf(l);
   }
 }
 
 template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int sq,
-                   int skv, int hq, int hkv, int dh, int causal, int window, int q_offset,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                   int sq, int skv, int hq, int hkv, int dh, int causal, int window,
+                   int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DH>();
   // above 48 KB a kernel must opt in to dynamic shared memory
   const cudaError_t rc = cudaFuncSetAttribute(flash_attention_kernel<T, DH>,
@@ -238,18 +248,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   const dim3 block(FA_SIDE, FA_SIDE);
   flash_attention_kernel<T, DH><<<grid, block, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, skv, hq, hkv, dh, causal, window, q_offset, scale);
+      static_cast<T*>(out), lse, sq, skv, hq, hkv, dh, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_dh(const void* q, const void* k, const void* v, void* out, int b, int sq,
-                      int skv, int hq, int hkv, int dh, int causal, int window, int q_offset,
-                      float scale, cudaStream_t stream) {
+cudaError_t launch_dh(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                      int sq, int skv, int hq, int hkv, int dh, int causal, int window,
+                      int q_offset, float scale, cudaStream_t stream) {
   if (dh <= 64)
-    return launch<T, 64>(q, k, v, out, b, sq, skv, hq, hkv, dh, causal, window, q_offset,
+    return launch<T, 64>(q, k, v, out, lse, b, sq, skv, hq, hkv, dh, causal, window, q_offset,
                          scale, stream);
-  return launch<T, 128>(q, k, v, out, b, sq, skv, hq, hkv, dh, causal, window, q_offset,
+  return launch<T, 128>(q, k, v, out, lse, b, sq, skv, hq, hkv, dh, causal, window, q_offset,
                         scale, stream);
 }
 
@@ -352,9 +362,9 @@ __device__ __forceinline__ void tc_load_rows(bf16* dst, int nrows, RowPtr row_pt
 template <int D, bool VEC>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, int b, int sq, int skv,
-                int hq, int hkv, int dh, int causal, int window, int q_offset, float scale,
-                int hg) {
+                const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                int b, int sq, int skv, int hq, int hkv, int dh, int causal, int window,
+                int q_offset, float scale, int hg) {
   constexpr int NW = TC_WARPS, THREADS = TC_THREADS;
   constexpr int LD = D + TC_PAD;
   constexpr int KS = D / 16;        // k-steps of Q K^T
@@ -387,7 +397,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (size_t)bi * skv * kv_row + (size_t)hk * dh;
   // this warp: head h0 + warp / wph, positions wq .. wq + 15
   const int wq = q0 + 16 * (warp % wph);
-  bf16* ob = out + (size_t)bi * sq * q_row + (size_t)(h0 + warp / wph) * dh;
+  const int wh = h0 + warp / wph;
+  bf16* ob = out + (size_t)bi * sq * q_row + (size_t)wh * dh;
 
   // the kv range some row of this tile can see
   const int q_first = q_offset + q0;
@@ -531,6 +542,11 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
     l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
     l_run[i] = fmaxf(l_run[i], 1e-30f);
+    // the quad (t4 = 0..3) holds row wq + g + 8 i of head wh; m_run is in
+    // natural units of the scaled score
+    const int r = wq + g + 8 * i;
+    if (lse != nullptr && t4 == 0 && r < sq)
+      lse[((size_t)bi * hq + wh) * sq + r] = m_run[i] + logf(l_run[i]);
   }
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -543,9 +559,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D, bool VEC>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, int b, int sq,
-                      int skv, int hq, int hkv, int dh, int causal, int window, int q_offset,
-                      float scale, cudaStream_t stream) {
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                      int sq, int skv, int hq, int hkv, int dh, int causal, int window,
+                      int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t bytes = tc_smem_bytes<D>();
   const cudaError_t rc = cudaFuncSetAttribute(flash_tc_kernel<D, VEC>,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -559,18 +575,19 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, in
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   flash_tc_kernel<D, VEC><<<(unsigned)blocks, TC_THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), b, sq, skv, hq, hkv, dh, causal, window, q_offset, scale, hg);
+      static_cast<bf16*>(out), lse, b, sq, skv, hq, hkv, dh, causal, window, q_offset, scale,
+      hg);
   return cudaGetLastError();
 }
 
-cudaError_t launch_tc_dh(const void* q, const void* k, const void* v, void* out, int b, int sq,
-                         int skv, int hq, int hkv, int dh, int causal, int window, int q_offset,
-                         float scale, cudaStream_t stream) {
+cudaError_t launch_tc_dh(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int b, int sq, int skv, int hq, int hkv, int dh, int causal, int window,
+                         int q_offset, float scale, cudaStream_t stream) {
   // 16-byte cp.async needs every row start 16-byte aligned
   const bool vec = dh % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   auto go = [&](auto kernel_launch) {
-    return kernel_launch(q, k, v, out, b, sq, skv, hq, hkv, dh, causal, window, q_offset, scale,
-                         stream);
+    return kernel_launch(q, k, v, out, lse, b, sq, skv, hq, hkv, dh, causal, window, q_offset,
+                         scale, stream);
   };
   if (dh <= 64) return vec ? go(launch_tc<64, true>) : go(launch_tc<64, false>);
   return vec ? go(launch_tc<128, true>) : go(launch_tc<128, false>);
@@ -578,22 +595,24 @@ cudaError_t launch_tc_dh(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// window < 0 means no sliding window.  bf16 runs the tensor-core kernel, f32
-// the FMA kernel.
+// window < 0 means no sliding window; lse may be null (no log-sum-exp is
+// written).  bf16 runs the tensor-core kernel, f32 the FMA kernel.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int b, int sq, int skv, int hq, int hkv, int dh,
+                                     void* lse, int b, int sq, int skv, int hq, int hkv, int dh,
                                      int causal, int window, int q_offset, float scale,
                                      int dtype, void* stream) {
   if (dh < 1 || dh > 128 || hkv < 1 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   cudaError_t rc;
   if (dtype == kF32) {
     if (b * hq > 65535) return static_cast<int>(cudaErrorInvalidValue);   // gridDim.y
-    rc = launch_dh<float>(q, k, v, out, b, sq, skv, hq, hkv, dh, causal, window, q_offset,
-                          scale, s);
+    rc = launch_dh<float>(q, k, v, out, lse_f, b, sq, skv, hq, hkv, dh, causal, window,
+                          q_offset, scale, s);
   } else if (dtype == kBF16) {
-    rc = launch_tc_dh(q, k, v, out, b, sq, skv, hq, hkv, dh, causal, window, q_offset, scale, s);
+    rc = launch_tc_dh(q, k, v, out, lse_f, b, sq, skv, hq, hkv, dh, causal, window, q_offset,
+                      scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

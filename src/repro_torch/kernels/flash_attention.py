@@ -19,7 +19,11 @@ point picks one by dtype:
 Both keep the online-softmax state (m, l, acc) on chip and loop over the kv
 tiles the query tile can see.  Masked entries get p = 0, so a row that sees
 no key returns 0 here and in the plain version (`ref.flash_attention_ref`);
-every row that sees a key gets the reference's value.
+every row that sees a key gets the reference's value.  With
+`return_lse=True` both also write each row's log-sum-exp (B, Hq, Sq) in f32,
+m + log(max(l, 1e-30)), the residual the attention backward
+(`ref.flash_attention_bwd_ref`) recomputes p from; without it nothing is
+written and the output is the same.
 
 For a CPU tensor the wrapper runs the plain version; for a CUDA tensor it
 launches the kernel for its dtype or raises.
@@ -44,12 +48,14 @@ MAX_DH = 128   # the widest head the kernel's tiles hold
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, return_lse: bool = False):
     """out (B, Sq, Hq, Dh) in q.dtype from q (B, Sq, Hq, Dh) and k, v
-    (B, Skv, Hkv, Dh); query row r sits at position q_offset + r."""
+    (B, Skv, Hkv, Dh); query row r sits at position q_offset + r.  With
+    `return_lse`, (out, lse (B, Hq, Sq) f32)."""
     global launches
     if q.device.type == "cpu":
-        return plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return plain(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                     return_lse=return_lse)
     name = "flash_attention"
     _build.check_cuda(name, q, k, v)
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
@@ -67,12 +73,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{v.dtype}")
     code = _build.dtype_code(name, q)
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     rc = _build.library().repro_flash_attention(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), b, sq, skv, hq, hkv, dh,
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+        _build.ptr(lse) if return_lse else None, b, sq, skv, hq, hkv, dh,
         int(causal), -1 if window is None else int(window), int(q_offset),
         1.0 / math.sqrt(dh), code, _build.stream(q))
     _build.raise_on_error(name, rc)
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

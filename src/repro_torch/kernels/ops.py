@@ -53,9 +53,11 @@ def easi_update(b_mat: torch.Tensor, h_block: torch.Tensor, cfg):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, return_lse: bool = False):
     """Flash attention forward: q (B, Sq, Hq, Dh), k/v (B, Skv, Hkv, Dh) ->
-    (B, Sq, Hq, Dh).  The kernel reads the (B, S, H, Dh) layout as it is, so
+    (B, Sq, Hq, Dh), and with `return_lse` also each row's log-sum-exp (B,
+    Hq, Sq) in f32.  The kernel reads the (B, S, H, Dh) layout as it is, so
     no head-major copy is made; the operands are only made contiguous."""
     return _flash_kernel.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                         causal=causal, window=window, q_offset=q_offset)
+                                         causal=causal, window=window, q_offset=q_offset,
+                                         return_lse=return_lse)

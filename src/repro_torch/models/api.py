@@ -1,9 +1,11 @@
-"""Family-dispatched model API, the serving entry points:
+"""Family-dispatched model API: one entry point for every assigned arch.
 
     init_params(gen, cfg, *, execution)                           -> param dict
+    loss_fn(params, batch, cfg, *, remat, execution)              -> (loss, aux)  [train]
     prefill(params, batch, cfg, size, *, execution, kv_rp_r)      -> (logits, cache)
     decode_step(params, token, cache, cfg, *, execution, kv_rp_r) -> (logits, cache')
     init_cache(cfg, batch, size, *, execution)                    -> zero cache
+    exact_param_counts(cfg)                                       -> (total, active)
 
 `execution` is the port's `Execution`: its `device` ("cuda" unless the
 caller asks for "cpu"; with no card the entry points raise) and its
@@ -13,13 +15,16 @@ Every family of the reference is ported: `transformer` with every option
 (MoE, front-ends, `kv_rp`), `rwkv6` (its cache is the WKV decode state)
 and `zamba` (SSD states beside the shared block's KV cache).  `kv_rp_r` is
 an explicit key sketch for a transformer `kv_rp` config (the port draws its
-own otherwise, `transformer.kv_rp_matrix`).  Training (`loss_fn` and the
-backward) is not ported yet (ROADMAP A9g).
+own otherwise, `transformer.kv_rp_matrix`).  `loss_fn` is differentiable
+with autograd: attention's backward is the plain chunked one
+(`blocks.FlashAttentionFn`), the recurrences' are autograd through their
+step loops, and with `remat` every layer runs under checkpoint.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import re
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -50,6 +55,42 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *,
     """Random params from `gen`, placed on the execution's device."""
     dev = execution.torch_device()
     return _mod(cfg).init_params(gen, cfg, device=dev)
+
+
+def loss_fn(params, batch, cfg: ArchConfig, *, remat: bool = True,
+            execution: Execution = Execution()):
+    """(loss, aux) of a training batch: `tokens` (B, S) integer, plus
+    `frames` (B, S, f) for an audio config or `patches` (B, P, f) for a
+    vision one (already reduced for a DR front-end config)."""
+    return _mod(cfg).loss_fn(params, batch, cfg, remat=remat, execution=execution)
+
+
+def exact_param_counts(cfg: ArchConfig) -> Tuple[int, int]:
+    """(total, active) parameter counts from the port's own init, run on
+    fake (meta-backed) tensors, so no memory is allocated at any size.
+    `active` discounts the stacked expert weights by top_k / E, the
+    6·N_active·D convention for MoE model FLOPs."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params = _mod(cfg).init_params(torch.Generator(), cfg, device=torch.device("cpu"))
+    flat = []
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], f"{path}[{k!r}]")
+        else:
+            flat.append((path, tree))
+
+    walk(params, "")
+    total = sum(t.numel() for _, t in flat)
+    active = float(total)
+    if cfg.moe is not None:
+        for path, t in flat:
+            if t.ndim == 4 and re.search(r"w_(in|gate|out)", path):
+                active -= t.numel() * (1.0 - cfg.moe.top_k / cfg.moe.n_experts)
+    return int(total), int(active)
 
 
 def prefill(params, batch, cfg: ArchConfig, cache_size: int, *,

@@ -1,29 +1,36 @@
-"""Shared model building blocks, the serving subset: norms, RoPE, attention
-(prefill and decode), the dense MLP, the MoE layer and the param helpers
-(the reference's cast rule, a layer's slice of the stacked leaves, the
-token embedding, init).
+"""Shared model building blocks: norms, RoPE, attention (forward and
+backward, prefill and decode), the chunked cross-entropy, the dense MLP,
+the MoE layer and the param helpers (the reference's cast rule, a layer's
+slice of the stacked leaves, the token embedding, init).
 
 Plain functions over tensors and parameter dicts, mirroring the JAX
 package's `models/blocks.py` and its (B, S, H, Dh) attention layout.
-`flash_attention` is the forward pass only: with `backend="kernel"` it goes
-through the hand-written CUDA kernel (`kernels.ops.flash_attention`; the
-plain version for CPU tensors), otherwise through the plain double-chunked
-version (`kernels.ref.flash_attention_ref`).  The MoE layer is the
-reference's single-device capacity dispatch; its expert-parallel
-all-to-all path needs a mesh (ROADMAP A10).  The chunked cross-entropy and
-the attention backward are not ported yet (ROADMAP A9g).
+`flash_attention`'s forward goes, with `backend="kernel"`, through the
+hand-written CUDA kernel (`kernels.ops.flash_attention`; the plain version
+for CPU tensors), otherwise through the plain double-chunked version
+(`kernels.ref.flash_attention_ref`).  When an input requires grad it runs
+as `FlashAttentionFn`, the port of the reference's custom VJP: the forward
+also returns each row's log-sum-exp, and the backward
+(`kernels.ref.flash_attention_bwd_ref`) recomputes p from it chunk by
+chunk, in plain PyTorch, as the reference's backward is XLA outside any
+Pallas kernel.  `chunked_softmax_xent` is the training loss, one
+checkpointed chunk of logits at a time.  The MoE layer is the reference's
+single-device capacity dispatch; its expert-parallel all-to-all path needs
+a mesh (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
+from repro_torch.kernels.ref import NEG_INF, flash_attention_bwd_ref, flash_attention_ref
 from repro_torch.models.config import MoESpec
 
 
@@ -84,6 +91,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # attention
 # ---------------------------------------------------------------------------
 
+def _forward_lse(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, backend):
+    if backend == "kernel":
+        return ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                   return_lse=True)
+    return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk, return_lse=True)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the reference's custom VJP (`blocks._build_flash`):
+    the forward keeps (q, k, v, out, lse), O(S·Dh) per head, and the
+    backward recomputes the probability tiles from (q, k, lse), so no S × S
+    tensor is stored in either direction.  With `backend="kernel"` on a
+    CUDA tensor the forward is the CUDA kernel (which writes lse beside
+    out); the backward is `flash_attention_bwd_ref` over the config's
+    chunks either way.  No double backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, kv_chunk, backend):
+        out, lse = _forward_lse(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, backend)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset, q_chunk=q_chunk,
+                      kv_chunk=kv_chunk)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,            # (B, Sq, Hq, Dh)
     k: torch.Tensor,            # (B, Skv, Hkv, Dh)
@@ -96,11 +136,16 @@ def flash_attention(
     q_offset: int = 0,
     backend: str = "torch",
 ) -> torch.Tensor:
-    """Online-softmax attention forward, GQA without repeating K/V.
+    """Online-softmax attention, GQA without repeating K/V.
 
-    `backend="kernel"` runs the CUDA kernel on a CUDA tensor (its tiles
-    replace the chunk sizes); otherwise the plain version runs with chunks
-    of `q_chunk` × `kv_chunk`, which never materialises the S × S scores."""
+    `backend="kernel"` runs the forward in the CUDA kernel on a CUDA tensor
+    (its tiles replace the chunk sizes); otherwise the plain version runs
+    with chunks of `q_chunk` × `kv_chunk`, which never materialises the
+    S × S scores.  When grad is enabled and an input requires it, the call
+    is `FlashAttentionFn` (forward with lse, the plain chunked backward)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset, q_chunk, kv_chunk,
+                                      backend)
     if backend == "kernel":
         return ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
@@ -131,6 +176,69 @@ def decode_attention(
     p = torch.softmax(s_, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(torch.float32))
     return out.reshape(b, 1, hq, v_cache.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# checkpointing and the chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        return any(_needs_grad(t) for t in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_needs_grad(t) for t in tree)
+    return False
+
+
+def remat(fn: Callable, *args):
+    """fn(*args) under `torch.utils.checkpoint` (non-reentrant) when grad is
+    enabled and a tensor among the args (or in a dict / list of them)
+    requires it: the reference's `jax.checkpoint`, which keeps the inputs
+    and recomputes the body in the backward.  A plain call otherwise, so
+    the serving steps run no checkpoint machinery."""
+    if torch.is_grad_enabled() and _needs_grad(args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _xent_chunk(xc: torch.Tensor, head: torch.Tensor, tc: torch.Tensor):
+    """(Σ nll, count) over one chunk's unmasked targets: nll = lse − gold,
+    from one (B, chunk, V) f32 logits tile and reductions only."""
+    logits = (xc @ head.to(xc.dtype)).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(tc, min=0)[..., None])[..., 0]
+    mask = (tc >= 0).to(torch.float32)
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def chunked_softmax_xent(
+    x: torch.Tensor,            # (B, T, d) final hidden states (already normed)
+    head: torch.Tensor,         # (d, V)
+    targets: torch.Tensor,      # (B, T) integer; -1 = ignore
+    *,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Mean token NLL over the targets that are not −1, computed per
+    sequence chunk under checkpoint (`remat`) so that only one (B, chunk, V)
+    logits tile is ever alive, forward and backward.  T is padded to a
+    multiple of the chunk with target −1; the mean divides by max(count,
+    1).  The head is cast to x's dtype inside each chunk, as the
+    reference's checkpointed body does."""
+    b, t, _ = x.shape
+    c = min(chunk, t)
+    t_pad = -(-t // c) * c
+    targets = targets.to(device=x.device, dtype=torch.long)
+    if t_pad != t:
+        x = F.pad(x, (0, 0, 0, t_pad - t))
+        targets = F.pad(targets, (0, t_pad - t), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, t_pad, c):
+        s, n = remat(_xent_chunk, x[:, i:i + c], head, targets[:, i:i + c])
+        total, count = total + s, count + n
+    return total / torch.clamp(count, min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -248,9 +356,28 @@ def cast(params: Dict[str, torch.Tensor], cdt: torch.dtype) -> Dict[str, torch.T
             for k, t in params.items()}
 
 
+def cast_stacked(lp: Dict[str, torch.Tensor], cdt: torch.dtype) -> Dict[str, torch.Tensor]:
+    """A layer's leaves under the cast rule as the reference's training
+    forward applies it: to the stacked `[L, ...]` leaves, where every leaf
+    has ndim >= 2, so the layer's f32 vectors (norms, mixes, biases) are
+    cast to the compute dtype too (its serving steps cast layer by layer,
+    `cast`, and keep them f32)."""
+    return {k: (t.to(cdt) if t.dtype == torch.float32 else t) for k, t in lp.items()}
+
+
 def layer_params(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
     """Layer i's leaves of the stacked `[L, ...]` layout."""
     return {k: t[i] for k, t in params["layers"].items()}
+
+
+def unstacked(params: Dict[str, Any]) -> List[Dict[str, torch.Tensor]]:
+    """Every layer's leaves of the stacked layout, as views from one
+    `unbind` per leaf: the backward then stacks each leaf's layer
+    gradients once, where indexing layer by layer would add a full-size
+    gradient per layer."""
+    per_leaf = {k: t.unbind(0) for k, t in params["layers"].items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{k: ts[i] for k, ts in per_leaf.items()} for i in range(n)]
 
 
 def embed(params: Dict[str, Any], tokens: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """RWKV-6 "Finch": an attention-free LM with data-dependent per-channel decay.
 
-The port of the JAX package's `models/rwkv6.py` for serving: `init_params`,
-`init_state`, `prefill`, `decode_step`, and `hidden_states` / `forward` for
-the tests.  Per layer a time-mix block (the WKV6 recurrence over a per-head
+The port of the JAX package's `models/rwkv6.py`: `init_params`,
+`init_state`, `loss_fn` over `hidden_states` (each layer under checkpoint
+with `remat`), `forward`, and the serving steps `prefill` / `decode_step`.  Per layer a time-mix block (the WKV6 recurrence over a per-head
 (Dh × Dh) state) and a channel-mix block; heads are d_model / 64.  The
 decode state is O(1) in the sequence length: the WKV matrices, the two
 token-shift inputs of each layer and the position, no KV cache.
@@ -14,11 +14,16 @@ reference's mesh pins are dropped (one card has no mesh).  The WKV
 recurrence is a step loop in plain PyTorch, as the reference's is a
 `lax.scan` outside any Pallas kernel: r, k, v, w and g are computed for the
 whole sequence first, and only the state update and the read-out run per
-step.  `WKV_CHUNK`'s checkpointing only changes the backward's memory, and
-there is no backward yet (ROADMAP A9g), so the forward is one step loop.
+step.  As in the reference, a sequence that is a multiple of `WKV_CHUNK`
+longer than one chunk runs chunk by chunk, each chunk under checkpoint
+when grad is needed, so the backward keeps one state per chunk instead of
+one per step; the arithmetic is the same either way.  The backward is
+autograd through the step loop.
 
-Rounding follows the reference: w is rounded to the compute dtype before
-it is widened to f32 for the scan; the state and k vᵀ are f32; each step's
+Rounding follows the reference: every f32 layer leaf is cast to the
+compute dtype as the reference casts its stacked leaves (norms, mixes,
+`w_base`, `u_bonus` too); w is rounded to the compute dtype before it is
+widened to f32 for the scan; the state and k vᵀ are f32; each step's
 output is rounded to r's dtype; the token-shift states hold each mix's
 normed input in the compute dtype.
 """
@@ -90,23 +95,40 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
+WKV_CHUNK = 64  # time steps per checkpointed chunk of the recurrence
+
+
+def _wkv_steps(r32, k32, v32, w, u4, state, dtype):
+    """The recurrence over the given steps, operands in f32; outputs
+    rounded to `dtype`, stacked on the time axis."""
+    outs = []
+    for t in range(r32.shape[1]):
+        kv = k32[:, t, :, :, None] * v32[:, t, :, None, :]      # (B, H, Dh, Dh), exact
+        outs.append((r32[:, t, :, None, :] @ (state + u4 * kv))[:, :, 0].to(dtype))
+        state = w[:, t, :, :, None] * state + kv
+    return torch.stack(outs, dim=1), state
+
+
 def _wkv_scan(r, k, v, w, u, state0):
     """WKV6: per-head rank-1 state updates.
 
     r, k, v (B, S, H, Dh) in the compute dtype, w (B, S, H, Dh) and u (H, Dh)
     in f32, state0 (B, H, Dh, Dh) f32 (not written).
     out_t = rᵀ(S + u⊙k vᵀ);  S ← diag(w_t) S + k_t v_tᵀ.
-    Returns (out (B, S, H, Dh) in r's dtype, final state)."""
+    Returns (out (B, S, H, Dh) in r's dtype, final state).  A sequence that
+    is a multiple of WKV_CHUNK and longer than one chunk runs chunk by
+    chunk (`blocks.remat`: checkpointed when grad is needed)."""
     s = r.shape[1]
-    r32, k32, v32 = r.to(torch.float32), k.to(torch.float32), v.to(torch.float32)
+    args = (r.to(torch.float32), k.to(torch.float32), v.to(torch.float32), w)
     u4 = u[None, :, :, None]
-    out = torch.empty_like(r)
-    state = state0
-    for t in range(s):
-        kv = k32[:, t, :, :, None] * v32[:, t, :, None, :]      # (B, H, Dh, Dh), exact
-        out[:, t] = (r32[:, t, :, None, :] @ (state + u4 * kv))[:, :, 0]
-        state = w[:, t, :, :, None] * state + kv
-    return out, state
+    if s % WKV_CHUNK != 0 or s <= WKV_CHUNK:
+        return _wkv_steps(*args, u4, state0, r.dtype)
+    outs, state = [], state0
+    for c0 in range(0, s, WKV_CHUNK):
+        out, state = blocks.remat(_wkv_steps, *(t[:, c0:c0 + WKV_CHUNK] for t in args), u4,
+                                  state, r.dtype)
+        outs.append(out)
+    return torch.cat(outs, dim=1), state
 
 
 def _time_mix(lp, x, prev_x, state, cfg: ArchConfig, nh: int):
@@ -122,7 +144,7 @@ def _time_mix(lp, x, prev_x, state, cfg: ArchConfig, nh: int):
     k = (mix("mix_k") @ lp["wk"]).reshape(b, s, nh, HEAD_DIM)
     v = (mix("mix_v") @ lp["wv"]).reshape(b, s, nh, HEAD_DIM)
     g = blocks.act_fn("silu")(mix("mix_g") @ lp["wg"])
-    # f32 w_base + the compute-dtype LoRA product promotes to f32
+    # data-dependent decay, summed in w_base's dtype (the compute dtype)
     w_log = lp["w_base"] + torch.tanh(mix("mix_w") @ lp["w_lora_a"]) @ lp["w_lora_b"]
     w = torch.exp(-torch.exp(w_log.to(torch.float32))).to(x.dtype)
     w = w.reshape(b, s, nh, HEAD_DIM)
@@ -158,31 +180,66 @@ def init_state(cfg: ArchConfig, batch: int, device: torch.device) -> Dict[str, t
     }
 
 
+def _block(lp, x, cfg: ArchConfig, nh: int, wkv0, sh_t0, sh_c0):
+    """One layer from its states -> (x, wkv, shift_t, shift_c)."""
+    h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    dt, sh_t, wkv = _time_mix(lp, h, sh_t0.to(x.dtype), wkv0, cfg, nh)
+    x = x + dt
+    h = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    dc, sh_c = _channel_mix(lp, h, sh_c0.to(x.dtype))
+    return x + dc, wkv, sh_t, sh_c
+
+
 def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
-                  execution: Execution = Execution(), state: Dict[str, torch.Tensor] = None):
+                  remat: bool = True, execution: Execution = Execution(),
+                  state: Dict[str, torch.Tensor] = None):
     """Backbone pass -> (final normed hidden (B, S, d), aux {}, new state).
-    A given `state`'s tensors are overwritten with the new state."""
+
+    A given `state`'s tensors are overwritten with the new state (the
+    serving steps).  Without one the layers start from zero states and the
+    new state is built from their outputs, nothing written in place, so
+    autograd can run through it (the training forward: with `remat` each
+    layer under checkpoint, its leaves cast inside the checkpointed
+    body)."""
     dev = execution.torch_device()
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     x = blocks.embed(params, batch["tokens"], cdt)
-    if state is None:
-        state = init_state(cfg, x.shape[0], dev)
+    b = x.shape[0]
     nh = cfg.d_model // HEAD_DIM
-    for i in range(cfg.n_layers):
-        lp = blocks.cast(blocks.layer_params(params, i), cdt)
-        h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        dt, sh_t, wkv = _time_mix(lp, h, state["shift_t"][i].to(cdt), state["wkv"][i], cfg, nh)
-        x = x + dt
-        h = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        dc, sh_c = _channel_mix(lp, h, state["shift_c"][i].to(cdt))
-        x = x + dc
-        state["wkv"][i] = wkv
-        state["shift_t"][i] = sh_t
-        state["shift_c"][i] = sh_c
+    fresh = state is None
+    zeros = init_state(cfg, b, dev) if fresh else None
+    pos = 0 if fresh else int(state["pos"])
+
+    def body(x, lp, wkv0, sh_t0, sh_c0):
+        return _block(blocks.cast_stacked(lp, cdt), x, cfg, nh, wkv0, sh_t0, sh_c0)
+
+    outs = []
+    for i, lp in enumerate(blocks.unstacked(params)):
+        src = zeros if fresh else state
+        args = (x, lp, src["wkv"][i], src["shift_t"][i], src["shift_c"][i])
+        x, wkv, sh_t, sh_c = blocks.remat(body, *args) if remat else body(*args)
+        if fresh:
+            outs.append((wkv, sh_t, sh_c))
+        else:
+            state["wkv"][i] = wkv
+            state["shift_t"][i] = sh_t
+            state["shift_c"][i] = sh_c
     x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if fresh:
+        state = {name: torch.stack(ts) for name, ts in
+                 zip(("wkv", "shift_t", "shift_c"), zip(*outs))}
     new_state = {"wkv": state["wkv"], "shift_t": state["shift_t"], "shift_c": state["shift_c"],
-                 "pos": torch.tensor(int(state["pos"]) + x.shape[1], dtype=torch.int32)}
+                 "pos": torch.tensor(pos + x.shape[1], dtype=torch.int32)}
     return x, {}, new_state
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
+            remat: bool = True, execution: Execution = Execution()):
+    """(mean next-token NLL, {"ce": it}) from zero states."""
+    x, _, _ = hidden_states(params, batch, cfg, remat=remat, execution=execution)
+    targets = batch["tokens"][:, 1:]
+    loss = blocks.chunked_softmax_xent(x[:, :-1], params["lm_head"], targets)
+    return loss, {"ce": loss}
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,

@@ -1,8 +1,9 @@
 """Mamba-2 (SSD) blocks and the Zamba-2 hybrid.
 
-The port of the JAX package's `models/ssm.py` for serving: `init_params`,
-`init_cache`, `prefill`, `decode_step`, and `hidden_states` / `forward` for
-the tests.  Zamba-2 is a Mamba-2 backbone with ONE shared attention + MLP
+The port of the JAX package's `models/ssm.py`: `init_params`, `loss_fn`
+over `hidden_states` (each layer, shared block included, under checkpoint
+with `remat`), `forward`, and the serving steps `init_cache`, `prefill`,
+`decode_step`.  Zamba-2 is a Mamba-2 backbone with ONE shared attention + MLP
 block applied every `attn_every` layers; the shared block reads
 concat(x_layer, x_embed) (2·d_model).  The decode state is each layer's
 SSD state and causal-conv inputs, plus one small KV cache per shared-block
@@ -22,6 +23,11 @@ points: the block form (Mamba-2's chunked algorithm) when the sequence is a
 multiple of `SSD_CHUNK` longer than 1, the step recurrence otherwise
 (decode, and prompts that are not a multiple).  The block form adds the
 skip term in the compute dtype, the step form in f32 with one rounding.
+When grad is needed the block form runs chunk by chunk, each chunk under
+checkpoint as in the reference (`_ssd_chunk`); without grad it batches
+every chunk's intra-chunk and carry-out terms (`_ssd_blocks`), the same
+arithmetic in another order.  The backward is autograd through either
+form.
 """
 
 from __future__ import annotations
@@ -106,12 +112,12 @@ def _ssd_steps(xh, bmat, cmat, decay, dt, state):
     s = xh.shape[1]
     xdt = xh.to(torch.float32) * dt[..., None]                 # (B, S, nh, dh)
     b32, c32 = bmat.to(torch.float32), cmat.to(torch.float32)
-    ys = torch.empty_like(xh)
+    ys = []
     for t in range(s):
         upd = xdt[:, t, :, :, None] * b32[:, t, None, None, :]  # (B, nh, dh, ds), exact
         state = state * decay[:, t, :, None, None] + upd
-        ys[:, t] = (state @ c32[:, t, None, :, None])[..., 0]
-    return ys, state
+        ys.append((state @ c32[:, t, None, :, None])[..., 0].to(xh.dtype))
+    return torch.stack(ys, dim=1), state
 
 
 def _ssd_blocks(xh, bmat, cmat, dt, a, state):
@@ -155,6 +161,46 @@ def _ssd_blocks(xh, bmat, cmat, dt, a, state):
     return ys, state
 
 
+def _ssd_chunk(h, xc, bc, cc, dtc, lc):
+    """One chunk of the block form, the reference's checkpointed
+    `chunk_body`: h (B, nh, dh, ds) f32 carried in, xc (B, T, nh, dh), bc /
+    cc (B, T, ds) in the compute dtype, dtc and lc = cumsum(dt·a) (B, T, nh)
+    f32.  Returns (h out, y (B, T, nh, dh) in xc's dtype)."""
+    t_c = xc.shape[1]
+    xc32, bc32, cc32 = xc.to(torch.float32), bc.to(torch.float32), cc.to(torch.float32)
+    # carry-in: (c_t · h_in) exp(ℓ_t)
+    y_in = (h @ cc32[:, None].transpose(-1, -2)).permute(0, 3, 1, 2) * torch.exp(lc)[..., None]
+    # intra-chunk quasi-attention, heads ahead of (t, s)
+    cb = cc32 @ bc32.transpose(-1, -2)                                 # (B, T, S)
+    lh = lc.permute(0, 2, 1)                                           # (B, nh, T)
+    causal = torch.ones((t_c, t_c), dtype=torch.bool, device=xc.device).tril()
+    m = torch.exp(torch.where(causal, lh[..., :, None] - lh[..., None, :], -math.inf))
+    m = m * cb[:, None]
+    xdt = (xc32 * dtc[..., None]).permute(0, 2, 1, 3)                  # (B, nh, S, dh)
+    y_intra = (m @ xdt).permute(0, 2, 1, 3)                            # (B, T, nh, dh)
+    # carry-out: exp(ℓ_T) h_in + Σ_s exp(ℓ_T − ℓ_s)·dt_s·x_s b_sᵀ
+    w_end = torch.exp(lc[:, -1:, :] - lc) * dtc                        # (B, S, nh)
+    xw = (xc32 * w_end[..., None]).permute(0, 2, 3, 1)                 # (B, nh, dh, S)
+    h_new = h * torch.exp(lc[:, -1, :])[:, :, None, None] + xw @ bc32[:, None]
+    return h_new, (y_in + y_intra).to(xc.dtype)
+
+
+def _ssd_blocks_remat(xh, bmat, cmat, dt, a, state):
+    """The block form chunk by chunk, each chunk under checkpoint (the
+    backward keeps one state per chunk).  Shapes and result as
+    `_ssd_blocks`."""
+    b, s, nh, _ = xh.shape
+    t_c = SSD_CHUNK
+    lseg = torch.cumsum((dt * a).reshape(b, s // t_c, t_c, nh), dim=2)
+    ys = []
+    for c in range(s // t_c):
+        sl = slice(c * t_c, (c + 1) * t_c)
+        state, y = blocks.remat(_ssd_chunk, state, xh[:, sl], bmat[:, sl], cmat[:, sl],
+                                dt[:, sl], lseg[:, c])
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
 def mamba_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, ssm_state: torch.Tensor,
                 conv_state: Optional[torch.Tensor]):
     """x (B, S, d) -> (y (B, S, d), new ssm_state (B, nh, dh, ds) f32, new
@@ -171,7 +217,9 @@ def mamba_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, ssm_state: torch.T
     a = -torch.exp(lp["a_log"].to(torch.float32))                            # (nh,)
     xh = xs.reshape(b, s, nh, dh)
     if s % SSD_CHUNK == 0 and s > 1:
-        ys, ssm_state = _ssd_blocks(xh, bmat, cmat, dt, a, ssm_state)
+        by_chunk = torch.is_grad_enabled() and xh.requires_grad
+        ys, ssm_state = (_ssd_blocks_remat if by_chunk else _ssd_blocks)(xh, bmat, cmat, dt, a,
+                                                                         ssm_state)
         # the block form adds the skip term in the compute dtype
         y = ys + lp["d_skip"].to(torch.float32)[None, None, :, None].to(ys.dtype) * xh
     else:
@@ -255,28 +303,49 @@ def _zero_ssm_state(cfg: ArchConfig, b: int, device) -> torch.Tensor:
 
 
 def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
-                  execution: Execution = Execution()) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Full-sequence backbone from zero states -> (final normed hidden, {})."""
+                  remat: bool = True, execution: Execution = Execution()
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Full-sequence backbone from zero states -> (final normed hidden, {}),
+    the reference's training forward: every f32 layer leaf cast to the
+    compute dtype (`blocks.cast_stacked`), the shared block cast once
+    outside the layers; with `remat` each layer, with the shared block where
+    it applies, under checkpoint."""
     execution.torch_device()
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     x = blocks.embed(params, batch["tokens"], cdt)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     shared = blocks.cast(params["shared"], cdt)
-    x0 = x
-    for i in range(cfg.n_layers):
-        lp = blocks.cast(blocks.layer_params(params, i), cdt)
-        y, _, _ = mamba_block(lp, x, cfg, _zero_ssm_state(cfg, b, x.device), None)
+
+    def body(x, x0, lp, use_attn):
+        y, _, _ = mamba_block(blocks.cast_stacked(lp, cdt), x, cfg,
+                              _zero_ssm_state(cfg, b, x.device), None)
         x = x + y
-        if i % cfg.hybrid.attn_every == 0:
+        if use_attn:
             x, _ = _shared_attn_train(shared, x, x0, cfg, positions, execution.backend)
+        return x
+
+    x0 = x
+    for i, lp in enumerate(blocks.unstacked(params)):
+        args = (x, x0, lp, i % cfg.hybrid.attn_every == 0)
+        x = blocks.remat(body, *args) if remat else body(*args)
     return blocks.rms_norm(x, params["final_norm"], cfg.norm_eps), {}
 
 
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
+            remat: bool = True, execution: Execution = Execution()):
+    """(mean next-token NLL, {"ce": it}) from zero states."""
+    x, _ = hidden_states(params, batch, cfg, remat=remat, execution=execution)
+    targets = batch["tokens"][:, 1:]
+    loss = blocks.chunked_softmax_xent(x[:, :-1], params["lm_head"], targets)
+    return loss, {"ce": loss}
+
+
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
-            execution: Execution = Execution()) -> Tuple[torch.Tensor, Dict[str, Any]]:
+            remat: bool = True, execution: Execution = Execution()
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """(full logits (B, S, V) in f32, aux)."""
-    x, aux = hidden_states(params, batch, cfg, execution=execution)
+    x, aux = hidden_states(params, batch, cfg, remat=remat, execution=execution)
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     return (x @ params["lm_head"].to(cdt)).to(torch.float32), aux
 

@@ -1,12 +1,15 @@
 """Config-driven transformer LM: GQA + RoPE (+ SWA, MoE, encoder, VLM/audio).
 
-The port of the JAX package's `models/transformer.py` for serving:
-`init_params`, `prefill`, `decode_step`, and `hidden_states` / `forward`
-for the tests.  Parameters are a plain dict with the reference's keys and
+The port of the JAX package's `models/transformer.py`: `init_params`,
+`loss_fn` and its training forward `hidden_states` (each layer under
+checkpoint with `remat`, as the reference's `jax.checkpoint` over the
+scanned body), `forward` for the tests, and the serving steps `prefill` /
+`decode_step`.  Parameters are a plain dict with the reference's keys and
 its stacked `[L, ...]` layer layout, so `bridge.params_from_reference`
 maps the JAX pytree leaf by leaf; the layer stack is a Python loop in place
 of `lax.scan`.  Attention's forward goes through the CUDA kernel when the
-`Execution` says `backend="kernel"`.
+`Execution` says `backend="kernel"`; its backward is the plain chunked one
+(`blocks.FlashAttentionFn`).
 
 Every option of the reference's transformer runs: MoE layers (the
 single-device capacity dispatch, `blocks.moe_layer`), the audio and vision
@@ -165,31 +168,64 @@ def _head(params: Params, cfg: ArchConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# full forward (tests / small-scale use)
+# training forward + loss
 # ---------------------------------------------------------------------------
 
 def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
-                  execution: Execution = Execution()) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                  remat: bool = True, execution: Execution = Execution()
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full-sequence backbone -> (final normed hidden (B, S_total, d), aux):
-    aux holds `moe_lb` / `moe_z` averaged over the layers and `n_prefix`."""
+    aux holds `moe_lb` / `moe_z` averaged over the layers and `n_prefix`.
+
+    With `remat` and grad enabled each layer runs under checkpoint, its
+    leaves cast to the compute dtype inside the checkpointed body (so the
+    compute-dtype copies are remade in the backward, never stored), by the
+    reference's rule for the stacked leaves (`blocks.cast_stacked`)."""
     execution.torch_device()
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     x, n_prefix = embed_inputs(params, batch, cfg, cdt)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
+
+    def body(x, lp):
+        x, aux, _ = _layer(blocks.cast_stacked(lp, cdt), x, cfg, positions, execution.backend)
+        return x, aux["moe_lb"], aux["moe_z"]
+
     lb = lz = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = blocks.cast(blocks.layer_params(params, i), cdt)
-        x, aux, _ = _layer(lp, x, cfg, positions, execution.backend)
-        lb, lz = lb + aux["moe_lb"], lz + aux["moe_z"]
+    for lp in blocks.unstacked(params):
+        x, lb_i, lz_i = blocks.remat(body, x, lp) if remat else body(x, lp)
+        lb, lz = lb + lb_i, lz + lz_i
     x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, {"moe_lb": lb / cfg.n_layers, "moe_z": lz / cfg.n_layers, "n_prefix": n_prefix}
 
 
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
+            remat: bool = True, execution: Execution = Execution()
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total, aux): the mean token NLL over the text region (next-token
+    targets past the modality prefix for a causal LM; the token at each
+    position for the encoder), plus 0.01·moe_lb + moe_z; aux holds `ce`,
+    `moe_lb` and `moe_z`."""
+    x, aux = hidden_states(params, batch, cfg, remat=remat, execution=execution)
+    n_prefix = aux["n_prefix"]
+    tokens = batch["tokens"].to(x.device)
+    if cfg.causal:
+        targets = tokens[:, 1:]
+        xs = x[:, n_prefix:n_prefix + targets.shape[1]]
+    else:
+        targets = tokens
+        xs = x[:, :targets.shape[1]]
+    loss = blocks.chunked_softmax_xent(xs, _head(params, cfg), targets)
+    total = loss + 0.01 * aux["moe_lb"] + aux["moe_z"]
+    return total, {"ce": loss, "moe_lb": aux["moe_lb"], "moe_z": aux["moe_z"]}
+
+
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
-            execution: Execution = Execution()) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """(full logits (B, S_total, V) in f32, aux)."""
-    x, aux = hidden_states(params, batch, cfg, execution=execution)
+            remat: bool = True, execution: Execution = Execution()
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """(full logits (B, S_total, V) in f32, aux); tests and small-scale use
+    (training takes the chunked loss)."""
+    x, aux = hidden_states(params, batch, cfg, remat=remat, execution=execution)
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     return (x @ _head(params, cfg).to(cdt)).to(torch.float32), aux
 

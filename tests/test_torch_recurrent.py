@@ -8,9 +8,9 @@ Inputs come from numpy with a seed; parameters are drawn by JAX and carried
 across with `bridge.params_from_reference`.  Tolerances are
 `test_torch_lm.py`'s (1e-4 in f32, 2e-2 in bf16), and bf16 references run
 op by op under `jax.disable_jit()` so that every op rounds once, as the
-port's do.  The reference's block-form gradient check
-(`tests/test_ssd_block.py::test_block_gradients_match`) waits for the LM
-backward (ROADMAP A9g)."""
+port's do.  The twin of the reference's block-form gradient check
+(`tests/test_ssd_block.py::test_block_gradients_match`) is in
+`test_torch_train.py`, with the LM backward."""
 
 import contextlib
 import dataclasses

@@ -51,6 +51,22 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 then promote, against `fit` on the torch backend); a threaded
                 DeadlineScheduler with four clients while a fifth thread
                 registers a second model; stand-in latency and rate numbers
+  5b. fleet   — the wide model on three DRService hosts in one process (one
+                LocalBus, one VirtualClock; each a durable ReplicatedRegistry
+                under build/chip_smoke_fleet/, removed after, a pumped Elector
+                and a FleetMerger): register on the leader, each host serves a
+                third of the ragged requests (followers bit-identical to the
+                leader, every installed state on the card); train-while-serve
+                on disjoint shards, one merge round at ratio 1 (steps exact),
+                then 8 at the default CompressConfig, the sketch on
+                ternary_matmul held to its plain version, every round's B to a
+                torch-backend fleet's; failover (the old leader fenced); crash,
+                promote while down, restart from the data_dir (hash equal,
+                re-captured launches); round times and what they spend on
+                fsync, R draws and decodes, wire bytes, the sketch's times
+  5c. fleet-tcp — a leader and two followers as three fresh processes on the
+                card over TCPTransport: join, sync, one two-phase promote; each
+                child checks its states, launches and answers
   6. flash    — the flash-attention kernels (bf16: tensor cores; f32: FMA)
                 against their plain version, out and lse (the reference tests' shapes,
                 Dh 72 / 120 / 128 and one not a multiple of 8, GQA groups
@@ -133,7 +149,9 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 backward, SDPA forward + backward, each beside its bound
 
 It prints a `{"kernels": [...]}` JSON line, the card's line from nvidia-smi,
-and as its last line `{"ok": true, "device": {...}}`.  It imports nothing of
+and as its last line `{"ok": true, "device": {...}}`.  `--only fleet,fleet-tcp`
+(or `serve`) runs the card phase and the named phases alone and prints no
+contract line.  It imports nothing of
 JAX or of the JAX package.
 """
 
@@ -1717,6 +1735,589 @@ def fmt_ms(t):
 
 def fmt_share(x):
     return "not measured" if x is None else f"{x:.2f}"
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the replicated fleet, three hosts in one process
+# ---------------------------------------------------------------------------
+
+FLEET_HOSTS = ("h0", "h1", "h2")
+FLEET_TIMEOUTS_MS = (500.0, 60.0, 80.0)   # pinned: h1 campaigns first once h0 is cut
+FLEET_HEARTBEAT_MS = 5.0
+FLEET_SHARD_BLOCKS = 4     # wide blocks each host trains on, per shard
+FLEET_ROUNDS = 8           # merge rounds at the default CompressConfig (K)
+FLEET_TCP_TIMEOUT_S = 240  # per child of [fleet-tcp]
+SKETCH_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def fleet_host(bus, clock, hid, policy, *, data_dir=None, elect=True, leader="h0",
+               sync_on_start=True):
+    """One fleet host: a ReplicatedRegistry (durable when given a data_dir),
+    a pumped Elector on the shared VirtualClock, a DRService over the
+    registry and a FleetMerger, all in a dict."""
+    from repro_torch.dist import compress
+    from repro_torch.serve import DRService, Elector, FleetMerger, ReplicatedRegistry
+
+    index = FLEET_HOSTS.index(hid)
+    reg = ReplicatedRegistry(bus.attach(hid), role="leader" if hid == leader else "follower",
+                             leader=leader, sync_on_start=sync_on_start,
+                             data_dir=None if data_dir is None else str(data_dir / hid))
+    t = FLEET_TIMEOUTS_MS[index]
+    elector = (Elector(reg, clock=clock, seed=index, election_timeout_ms=(t, t),
+                       heartbeat_interval_ms=FLEET_HEARTBEAT_MS) if elect else None)
+    svc = DRService(buckets=policy, clock=clock, registry=reg)
+    merger = FleetMerger(svc, compress_cfg=compress.CompressConfig(ratio=1))
+    return {"id": hid, "reg": reg, "elector": elector, "svc": svc, "merger": merger}
+
+
+def pump_elections(bus, clock, hosts, max_ms=60_000.0):
+    """Advance the shared VirtualClock to the earliest reachable elector
+    deadline and poll every reachable elector, until the reachable hosts
+    agree on one leader; returns its id."""
+    spent = 0.0
+    while True:
+        cut = set(bus.partitioned())
+        live = [h for h in hosts if h["id"] not in cut]
+        leaders = [h for h in live if h["reg"].role == "leader"]
+        if len(leaders) == 1 and all(h["reg"].leader == leaders[0]["id"]
+                                     and h["reg"].term == leaders[0]["reg"].term for h in live):
+            return leaders[0]["id"]
+        if spent >= max_ms:
+            fail(f"fleet: no agreed leader within {max_ms} virtual ms: "
+                 f"{[h['elector'].status() for h in live]}")
+        step = max(0.0, min(h["elector"].deadline_ms() for h in live) - clock.now()) + 0.001
+        clock.advance(step)
+        spent += step
+        for h in live:
+            h["elector"].poll()
+
+
+def installed_off_card(hosts, name, dev):
+    """(host, version, path) of every installed stage tensor that does not
+    lie on `dev`'s type (the card); `steps` is the host counter every
+    ModelState keeps."""
+    from repro_torch import tree as tree_mod
+
+    bad = []
+    for h in hosts:
+        reg = h["reg"]
+        for v in range(reg.n_versions(name)):
+            st = reg.state(name, v)
+            for path, leaf in tree_mod.flatten_with_path(st.stages):
+                if leaf.device.type != dev.type:
+                    bad.append((h["id"], v, path, str(leaf.device)))
+            if st.steps.device.type != "cpu":
+                bad.append((h["id"], v, ".steps", str(st.steps.device)))
+    return bad
+
+
+def carry_norm(hosts, name):
+    """‖carry‖ over every host's float carry leaves (the un-installed signal)."""
+    from repro_torch import tree as tree_mod
+
+    total = 0.0
+    for h in hosts:
+        carry = h["merger"].residual(name)
+        if carry is not None:
+            total += sum(float((leaf.float() ** 2).sum()) for leaf in tree_mod.leaves(carry)
+                         if leaf.dtype.is_floating_point)
+    return total ** 0.5
+
+
+class CallMeter:
+    """While installed, counts the calls of a few module functions and sums
+    their host time (ms), by label: where a merge round's time goes."""
+
+    def __init__(self, targets):
+        self.targets = targets          # (module, attribute, label)
+        self.count = dict.fromkeys((label for _, _, label in targets), 0)
+        self.ms = dict.fromkeys(self.count, 0.0)
+        self._saved = []
+
+    def __enter__(self):
+        for mod, attr, label in self.targets:
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+
+            def timed_call(*a, _fn=fn, _label=label, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.count[_label] += 1
+                    self.ms[_label] += (time.perf_counter() - t0) * 1e3
+
+            setattr(mod, attr, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self._saved):
+            setattr(mod, attr, fn)
+        self._saved = []
+        return False
+
+    def snapshot(self):
+        return {k: (self.count[k], self.ms[k]) for k in self.count}
+
+
+def run_merge_rounds(hosts, shards, cfgs, sync, meter=None):
+    """Each host streams its shard through `serve_and_update`; then one merge
+    round per entry of `cfgs` on the leader (every merger set to that
+    CompressConfig), a new shard before each round whose index has one.
+    Returns per round: its report, host-paced ms, the merged live state's B
+    and steps, the carry norm after the round, and what `meter` saw during
+    the round (calls, ms by label)."""
+    out = []
+    for k, cfg in enumerate(cfgs):
+        if k in shards:
+            for h, shard in zip(hosts, shards[k]):
+                for xb in shard:
+                    h["svc"].serve_and_update("wide", xb)
+        for h in hosts:
+            h["merger"].cfg = cfg
+        sync()
+        before = meter.snapshot() if meter is not None else {}
+        t0 = time.perf_counter()
+        report = hosts[0]["merger"].merge_round("wide")
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = meter.snapshot() if meter is not None else {}
+        st = hosts[0]["reg"].get("wide").state
+        out.append({"report": report, "ms": ms, "b": st.b.clone(), "steps": int(st.steps),
+                    "carry": carry_norm(hosts, "wide"),
+                    "calls": {k: [after[k][0] - before[k][0], after[k][1] - before[k][1]]
+                              for k in after}})
+    return out
+
+
+def serve_windows(svc, name, reqs):
+    """`reqs` through `svc`'s queue SERVE_WINDOW at a time (submit, flush);
+    the answers in order."""
+    answers = []
+    for i in range(0, len(reqs), SERVE_WINDOW):
+        tickets = [svc.submit(name, x) for x in reqs[i:i + SERVE_WINDOW]]
+        svc.flush()
+        answers += [t.result() for t in tickets]
+    return answers
+
+
+def phase_fleet(dev, card_line):
+    """Three DRService hosts on one LocalBus and one VirtualClock, every host
+    on the card: register + serve, train-while-serve on disjoint shards and
+    merge rounds through the RP sketch (B3), failover with fencing, and
+    crash recovery from the data_dir; then the same merges on a torch-backend
+    fleet as the reference."""
+    import os
+    import shutil
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.dist import compress
+    from repro_torch.dr import DRModel, EASIStage, Execution, RPStage
+    from repro_torch.kernels import ternary_matmul
+    from repro_torch.serve import BucketPolicy, LocalBus, ReplicationError, VirtualClock
+    from repro_torch.serve.durability import state_hash
+
+    m, p, n, blk = WIDE["m"], WIDE["p"], WIDE["n"], WIDE["block"]
+    policy = BucketPolicy(**SERVE_BUCKETS)
+
+    def wide_model(backend):
+        return DRModel(stages=(RPStage(m, p), EASIStage.rotation(p, n, mu=2e-4)),
+                       execution=Execution(backend=backend, device=dev), block_size=blk)
+
+    wk, wt = wide_model("kernel"), wide_model("torch")
+    st1 = wk.init(torch.Generator().manual_seed(0))
+    st_failover = wk.init(torch.Generator().manual_seed(2))
+    st_down = wk.init(torch.Generator().manual_seed(3))
+    reqs = ragged_requests(SERVE_REQUESTS, m, dev, seed=0)
+    thirds = [reqs[i::len(FLEET_HOSTS)] for i in range(len(FLEET_HOSTS))]
+    gen = torch.Generator().manual_seed(31)
+    shards = {k: [[(torch.randn((blk, m), generator=gen) + 0.25 * i).to(dev)
+                   for _ in range(FLEET_SHARD_BLOCKS)] for i in range(len(FLEET_HOSTS))]
+              for k in (0, 1)}
+    cfgs = [compress.CompressConfig(ratio=1)] + [compress.CompressConfig()] * FLEET_ROUNDS
+    root = ROOT / "build" / "chip_smoke_fleet"
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    sketches = []
+    real_sketch = compress._sketch
+
+    def recording_sketch(chunks, r, backend):
+        y = real_sketch(chunks, r, backend)
+        sketches.append((chunks.clone(), r.clone(), y.clone(), backend))
+        return y
+
+    try:
+        # ---- the main path: counts set to 0 just before, read just after --
+        clock, bus = VirtualClock(), LocalBus()
+        hosts = [fleet_host(bus, clock, hid, policy, data_dir=root / "kernel")
+                 for hid in FLEET_HOSTS]
+        reset_counts()
+        hosts[0]["svc"].register("wide", wk, st1)                    # 1. register, serve
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = [serve_windows(h["svc"], "wide", third) for h, third in zip(hosts, thirds)]
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        off_card_serve = installed_off_card(hosts, "wide", dev)
+        # the leader answers the followers' rows in the same windows
+        leader_answers = [served[0]] + [serve_windows(hosts[0]["svc"], "wide", third)
+                                        for third in thirds[1:]]
+        compress._sketch = recording_sketch                           # 2. train, merge
+        meter = CallMeter([(os, "fsync", "fsync"), (compress, "_rp_matrix", "R draw (CPU)"),
+                           (compress, "_ls_decode", "LS decode"),
+                           (compress, "_sketch", "sketch")])
+        try:
+            with meter:
+                t0 = time.perf_counter()
+                rounds = run_merge_rounds(hosts, shards, cfgs, torch.cuda.synchronize, meter)
+                t_train_merge = time.perf_counter() - t0
+        finally:
+            compress._sketch = real_sketch
+        bus.partition("h0")                                           # 3. failover
+        winner = pump_elections(bus, clock, hosts[1:])
+        new = hosts[FLEET_HOSTS.index(winner)]
+        v_failover = new["reg"].promote("wide", new["reg"].push("wide", st_failover))
+        bus.heal("h0")
+        try:
+            hosts[0]["reg"].promote("wide", 0)
+            fenced = None
+        except ReplicationError as exc:
+            fenced = str(exc)
+        old_status = hosts[0]["reg"].leader_status()
+        hosts[0]["reg"].sync()
+        failover_hashes = [state_hash(h["reg"].get("wide").state) for h in hosts]
+        crashed = hosts.pop(2)                                        # 4. crash, restart
+        bus.detach(crashed["id"])
+        del crashed
+        v_down = new["reg"].promote("wide", new["reg"].push("wide", st_down))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restarted = fleet_host(bus, clock, "h2", policy, data_dir=root / "kernel", leader=winner,
+                               sync_on_start=False)
+        restarted["reg"].join()
+        t_recover = time.perf_counter() - t0
+        hosts.append(restarted)
+        recovered_hash = state_hash(restarted["reg"].get("wide").state)
+        live_hash = state_hash(new["reg"].get("wide").state)
+        before = kernels.launch_counts()
+        recovered_answers = [restarted["svc"].transform("wide", x) for x in thirds[2][:16]]
+        torch.cuda.synchronize()
+        restart_launches = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        counts = all_counts()
+        # ---- end of the main path ------------------------------------------
+        off_card_end = installed_off_card(hosts, "wide", dev)
+        live_state = new["reg"].get("wide").state
+        recovered_versions = [h["reg"].get("wide").version for h in hosts]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # ---- checks --------------------------------------------------------------
+    missing = [k for k in ("ternary_matmul", "fused_transform", "easi_apply") if counts[k] <= 0]
+    if missing:
+        fail(f"fleet: kernels never launched on the fleet path: {missing} ({counts})")
+    if off_card_serve or off_card_end:
+        fail(f"fleet: installed states off the card: {(off_card_serve + off_card_end)[:8]}")
+    n_req = 0
+    for i, (answers, lead) in enumerate(zip(served, leader_answers)):
+        for x, got, want in zip(thirds[i], answers, lead):
+            check_equal(f"fleet: host h{i}'s answer to {x.shape[0]} rows against the leader's",
+                        got, want)
+            check_close(f"fleet: host h{i}'s answer against the torch backend", got,
+                        wt.transform(st1, x), **OUT_TOL)
+            n_req += 1
+    exact, compressed = rounds[0], rounds[1:]
+    total_blocks = len(FLEET_HOSTS) * FLEET_SHARD_BLOCKS
+    if exact["report"]["version"] is None or exact["steps"] != total_blocks:
+        fail(f"fleet: the ratio-1 round installed {exact['report']['version']} with steps "
+             f"{exact['steps']}, "
+             f"want the fleet's {total_blocks} blocks")
+    if sorted(exact["report"]["contributors"]) != list(FLEET_HOSTS):
+        fail(f"fleet: ratio-1 contributors {exact['report']['contributors']}")
+    if compressed[-1]["steps"] != 2 * total_blocks:
+        fail(f"fleet: steps {compressed[-1]['steps']} after the compressed rounds, want "
+             f"{2 * total_blocks}")
+    if not compressed[-1]["carry"] < compressed[0]["carry"]:
+        fail(f"fleet: the carry's norm did not fall over {FLEET_ROUNDS} rounds: "
+             f"{[r['carry'] for r in compressed]}")
+    kernel_sketches = [s for s in sketches if s[3] == "kernel"]
+    if not kernel_sketches or any(tuple(s[0].shape) != (8, 4096) or tuple(s[1].shape) != (1024, 4096)
+                                  for s in kernel_sketches):
+        fail(f"fleet: sketches {[(tuple(s[0].shape), tuple(s[1].shape), s[3]) for s in sketches]}, "
+             f"want x (8, 4096) against R (1024, 4096) on the kernel backend")
+    sketch_err = max(check_close("fleet: B3 sketch against its plain version", y,
+                                 ternary_matmul.plain(x, r), **SKETCH_TOL)
+                     for x, r, y, _ in kernel_sketches)
+    if not fenced or "fenced" not in fenced or old_status["role"] != "follower" or \
+            old_status["leader"] != winner:
+        fail(f"fleet: the old leader was not fenced after healing ({fenced!r}, {old_status})")
+    if len(set(failover_hashes)) != 1:
+        fail(f"fleet: live hashes after failover differ: {failover_hashes}")
+    if recovered_hash != live_hash or len(set(recovered_versions)) != 1:
+        fail(f"fleet: the restarted host holds {recovered_hash} (versions {recovered_versions}), "
+             f"the fleet {live_hash}")
+    if restart_launches.get("fused_transform", 0) <= 0:
+        fail(f"fleet: the restarted host served without launching: {restart_launches}")
+    for x, got in zip(thirds[2][:16], recovered_answers):
+        check_equal(f"fleet: restarted host, {x.shape[0]} rows",
+                    got, eager_served(wk, live_state, [x], policy)[0])
+
+    # ---- the reference: the same shards and rounds on a torch-backend fleet
+    tclock, tbus = VirtualClock(), LocalBus()
+    thosts = [fleet_host(tbus, tclock, hid, policy, elect=False) for hid in FLEET_HOSTS]
+    thosts[0]["svc"].register("wide", wt, st1)
+    trounds = run_merge_rounds(thosts, shards, cfgs, torch.cuda.synchronize)
+    merge_err = []
+    for k, (r, tr) in enumerate(zip(rounds, trounds)):
+        if r["report"]["salt"] != tr["report"]["salt"] or r["steps"] != tr["steps"]:
+            fail(f"fleet: round {k} salt {r['report']['salt']} / {tr['report']['salt']}, "
+                 f"steps {r['steps']} / {tr['steps']}")
+        merge_err.append(check_close(f"fleet: merged B after round {k} (ratio "
+                                     f"{cfgs[k].ratio}) against the torch-backend fleet",
+                                     r["b"], tr["b"], **TRAJ_TOL))
+    del thosts
+
+    # ---- timings -------------------------------------------------------------
+    x8, r8 = kernel_sketches[0][0], kernel_sketches[0][1]
+    r8f = r8.to(torch.float32)
+    sketch = {"shape": [list(x8.shape), list(r8.shape)], "plan": ternary_matmul.plan(8, 4096, 1024),
+              "density": float((r8 != 0).float().mean()),
+              "ms": time_events(lambda: ternary_matmul.ternary_matmul(x8, r8)),
+              "plain_ms": time_events(lambda: ternary_matmul.plain(x8, r8)),
+              "library_ms": time_events(lambda: torch.mm(x8, r8f.T)),
+              "device_ms": time_graph(lambda: ternary_matmul.ternary_matmul(x8, r8)),
+              "plain_device_ms": time_graph(lambda: ternary_matmul.plain(x8, r8)),
+              "library_device_ms": time_graph(lambda: torch.mm(x8, r8f.T)),
+              "max_abs_err": sketch_err, "launches": len(kernel_sketches)}
+    nbytes = x8.numel() * 4 + r8.numel() + x8.shape[0] * r8.shape[0] * 4
+    flops = 2.0 * x8.shape[0] * int((r8 != 0).sum())
+    sketch["bound_ms"], sketch["bound_by"] = bound_ms(flops, nbytes)
+    rows_trained = 2 * total_blocks * blk
+    out = {
+        "card": card_line, "launches": counts, "restart_launches": restart_launches,
+        "requests": n_req, "served_rows": sum(x.shape[0] for x in reqs),
+        "serve_s": t_serve, "served_rows_per_s": sum(x.shape[0] for x in reqs) / t_serve,
+        "train_merge_s": t_train_merge, "trained_rows": rows_trained,
+        "trained_rows_per_s_with_merges": rows_trained / t_train_merge,
+        "round_ms_ratio1": exact["ms"],
+        "round_ms_ratio4": [r["ms"] for r in compressed],
+        "round_calls": [r["calls"] for r in rounds],
+        "bytes_sketched_ratio1": exact["report"]["bytes_sketched"],
+        "bytes_sketched_ratio4": compressed[0]["report"]["bytes_sketched"],
+        "bytes_uncompressed": exact["report"]["bytes_uncompressed"],
+        "carry_norm": [r["carry"] for r in compressed],
+        "merge_max_abs_dB_vs_torch": merge_err, "sketch": sketch,
+        "failover": {"winner": winner, "version": v_failover, "fenced": fenced},
+        "recovery_s": t_recover, "recovered_version": v_down,
+    }
+    print(f"[fleet] ({card_line}) 3 hosts, {n_req} ragged requests ({out['served_rows']} rows) "
+          f"served a third each through their own captured programs at "
+          f"{out['served_rows_per_s']:.0f} rows/s (host clock); followers bit-identical to the "
+          f"leader, within OUT_TOL of the torch backend; every installed state on the card")
+    print(f"[fleet] ({card_line}) train-while-serve {rows_trained} rows on disjoint shards + "
+          f"{len(cfgs)} merge rounds in {t_train_merge:.3f} s ({out['trained_rows_per_s_with_merges']:.0f} "
+          f"rows/s with the merges); merge round ms (host-paced) ratio 1: {exact['ms']:.3f}, "
+          f"ratio 4: " + ", ".join(f"{r['ms']:.3f}" for r in compressed))
+    for what, r in (("ratio 1", exact), ("first ratio 4", compressed[0]),
+                    ("last ratio 4", compressed[-1])):
+        print(f"[fleet] ({card_line}) {what} round, calls / host ms inside it: "
+              + "; ".join(f"{k} {c[0]} / {c[1]:.3f}" for k, c in r["calls"].items()))
+    print(f"[fleet] ({card_line}) bytes sketched ratio 1 {out['bytes_sketched_ratio1']} / ratio 4 "
+          f"{out['bytes_sketched_ratio4']} against tree bytes {out['bytes_uncompressed']} "
+          f"({len(FLEET_HOSTS)} bundles); steps exact ({exact['steps']}, then "
+          f"{compressed[-1]['steps']}); carry norm {compressed[0]['carry']:.4e} -> "
+          f"{compressed[-1]['carry']:.4e} over {FLEET_ROUNDS} rounds; "
+          f"merged B against the torch-backend fleet max |dB| {max(merge_err):.3e} (TRAJ_TOL)")
+    print(f"[fleet] ({card_line}) sketch x {tuple(x8.shape)} against R {tuple(r8.shape)} int8 "
+          f"(density {sketch['density']:.6f}, plan {sketch['plan']}): B3 {sketch['ms']:.4f} ms "
+          f"host-paced / {sketch['device_ms']:.4f} device-only, plain {sketch['plain_ms']:.4f} / "
+          f"{sketch['plain_device_ms']:.4f}, torch.mm f32 {sketch['library_ms']:.4f} / "
+          f"{sketch['library_device_ms']:.4f}, bound "
+          f"{sketch['bound_ms']:.6f} ({sketch['bound_by']}); max |err| {sketch_err:.3e} over "
+          f"{len(kernel_sketches)} sketches")
+    print(f"[fleet] ({card_line}) failover: {winner} elected, promoted v{v_failover}, old leader "
+          f"fenced ({fenced[:60]!r}...), hashes agree; crash + promote while down + restart: "
+          f"recovered in {t_recover:.4f} s, hash {recovered_hash} = fleet's, restarted host "
+          f"re-captured and launched {restart_launches}")
+    print(f"[fleet] launches on the fleet path {json.dumps(counts)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the fleet over TCP, three processes on one card
+# ---------------------------------------------------------------------------
+
+def fleet_tcp_child(role, args, dev=None):
+    """One process of [fleet-tcp]: the leader (prints its address, waits for
+    two followers, registers, pushes an update and promotes it two-phase,
+    serves) or a follower (joins, syncs, waits for the flip, serves).  Every
+    model on the card with the kernel backend.  Prints one CHILD json line,
+    then stays in the fleet until its stdin closes; raises (exit code 1) on
+    any failed check."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.dr import DRModel, EASIStage, Execution, RPStage
+    from repro_torch.serve import BucketPolicy, DRService, ReplicatedRegistry, TCPTransport
+    from repro_torch.serve.replication import state_hash
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    m, p, n, blk = WIDE["m"], WIDE["p"], WIDE["n"], WIDE["block"]
+    model = DRModel(stages=(RPStage(m, p), EASIStage.rotation(p, n, mu=2e-4)),
+                    execution=Execution(backend="kernel", device=dev), block_size=blk)
+    policy = BucketPolicy(**SERVE_BUCKETS)
+    reqs = ragged_requests(24, m, dev, seed=7)
+    deadline = time.time() + FLEET_TCP_TIMEOUT_S
+    if role == "leader":
+        t = TCPTransport("h0")
+        print(f"ADDR {t.address[0]} {t.address[1]}", flush=True)
+        reg = ReplicatedRegistry(t, role="leader")
+        while len(t.peers()) < 2 and time.time() < deadline:
+            time.sleep(0.05)
+        if len(t.peers()) != 2:
+            raise RuntimeError(f"leader: followers never joined ({t.peers()})")
+        svc = DRService(buckets=policy, registry=reg)
+        s0 = model.init(torch.Generator().manual_seed(0))
+        svc.register("wide", model, s0)
+        xb = torch.randn((blk, m), generator=torch.Generator().manual_seed(1)).to(dev)
+        v = reg.push("wide", model.update(s0, xb))
+        if reg.promote("wide", v) != 1:
+            raise RuntimeError("leader: the promote did not land on v1")
+        fs = reg.fleet_status()
+        if len(fs) != 3 or any(s["live"]["wide"] != 1 for s in fs.values()):
+            raise RuntimeError(f"leader: fleet status {fs}")
+    else:
+        hid, host, port = args
+        t = TCPTransport(hid)
+        t.add_peer("h0", (host, int(port)))
+        reg = ReplicatedRegistry(t, role="follower", leader="h0", sync_on_start=False)
+        reg.join()
+        while time.time() < deadline:
+            try:
+                if reg.get("wide").version == 1:
+                    break
+            except KeyError:
+                pass
+            time.sleep(0.05)
+        svc = DRService(buckets=policy, registry=reg)
+    snap = reg.get("wide")
+    if snap.version != 1:
+        raise RuntimeError(f"{t.host_id}: live version {snap.version}, want 1")
+    off = [(v, i) for v in range(reg.n_versions("wide"))
+           for i, s in enumerate(reg.state("wide", v).stages) if s.device.type != dev.type]
+    if off:
+        raise RuntimeError(f"{t.host_id}: installed stages off the card: {off}")
+    tickets = [svc.submit("wide", x) for x in reqs]
+    svc.flush()
+    for x, tk, want in zip(reqs, tickets, eager_served(model, snap.state, reqs, policy)):
+        if not torch.equal(tk.result(), want):
+            raise RuntimeError(f"{t.host_id}: {x.shape[0]} rows not bit-identical to the eager "
+                               f"kernel call")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    need = ("ternary_matmul", "fused_transform", "easi_apply") if role == "leader" \
+        else ("fused_transform",)
+    if any(counts[k] <= 0 for k in need):
+        raise RuntimeError(f"{t.host_id}: kernels did not launch: {counts}")
+    print("CHILD " + json.dumps({"host": t.host_id, "version": snap.version,
+                                 "hash": state_hash(snap.state), "launches": counts,
+                                 "requests": len(reqs)}), flush=True)
+    sys.stdin.read()           # stay in the fleet until the parent closes stdin
+    t.close()
+    return 0
+
+
+def phase_fleet_tcp(card_line):
+    """[fleet-tcp]: a leader and two followers as three fresh python3
+    processes on the one card, over TCPTransport on 127.0.0.1.  Each child
+    has a timeout; any child's failure fails the phase, and every child still
+    running then is killed."""
+    import queue
+    import threading
+
+    lines = queue.Queue()        # (child index, stdout line or None at EOF)
+    children = []
+
+    def spawn(*args):
+        index = len(children)
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                 "--fleet-tcp-child", *args], stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        errs = []
+        threading.Thread(target=lambda: [lines.put((index, l)) for l in proc.stdout]
+                         + [lines.put((index, None))], daemon=True).start()
+        err_reader = threading.Thread(target=lambda: errs.extend(proc.stderr), daemon=True)
+        err_reader.start()
+        children.append({"proc": proc, "errs": errs, "err_reader": err_reader,
+                         "args": args, "result": None})
+        return children[-1]
+
+    def tail(child):
+        try:
+            child["proc"].wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            child["proc"].kill()
+        child["err_reader"].join(timeout=10)
+        return "".join(child["errs"])[-3000:]
+
+    def next_line(until):
+        """The next (child, line) from any child; fails at the deadline and
+        when a child ends its output without its result."""
+        left = until - time.time()
+        try:
+            index, line = lines.get(timeout=max(0.0, left))
+        except queue.Empty:
+            fail(f"fleet-tcp: no result within {FLEET_TCP_TIMEOUT_S} s from "
+                 f"{[c['args'][:2] for c in children if c['result'] is None]}")
+        child = children[index]
+        if line is None and child["result"] is None:
+            fail(f"fleet-tcp: child {child['args'][:2]} ended without its result "
+                 f"(exit {child['proc'].poll()}): {tail(child)}")
+        return child, line
+
+    t0 = time.perf_counter()
+    until = time.time() + FLEET_TCP_TIMEOUT_S
+    try:
+        spawn("leader")
+        addr = None
+        while addr is None:
+            child, line = next_line(until)
+            if line is not None and line.startswith("ADDR "):
+                addr = line.split()[1:]
+        for i in (1, 2):
+            spawn("follower", f"h{i}", *addr)
+        while any(c["result"] is None for c in children):
+            child, line = next_line(until)
+            if line is not None and line.startswith("CHILD "):
+                child["result"] = json.loads(line[len("CHILD "):])
+        for child in children:
+            child["proc"].stdin.close()
+        for child in children:
+            rc = child["proc"].wait(timeout=max(1.0, until - time.time()))
+            if rc != 0:
+                fail(f"fleet-tcp: child {child['args'][:2]} exited {rc}: {tail(child)}")
+    except subprocess.TimeoutExpired:
+        fail("fleet-tcp: a child outlived its timeout")
+    finally:
+        for child in children:
+            if child["proc"].poll() is None:
+                child["proc"].kill()
+                child["proc"].wait(timeout=30)
+    results = {c["result"]["host"]: c["result"] for c in children}
+    hashes = {r["hash"] for r in results.values()}
+    if sorted(results) != ["h0", "h1", "h2"] or len(hashes) != 1:
+        fail(f"fleet-tcp: children disagree: {results}")
+    seconds = time.perf_counter() - t0
+    launches = {k: sum(r["launches"][k] for r in results.values())
+                for k in results["h0"]["launches"]}
+    print(f"[fleet-tcp] ({card_line}) 3 processes over TCPTransport: one two-phase promote "
+          f"flipped all to v1, hash {hashes.pop()}; every state on the card, every child's "
+          f"answers bit-identical to its eager kernel call; launches by host "
+          + "; ".join(f"{h}: {json.dumps(r['launches'])}" for h, r in sorted(results.items()))
+          + f"; {seconds:.1f} s")
+    return {"launches": launches, "by_host": {h: r["launches"] for h, r in results.items()},
+            "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -3340,6 +3941,16 @@ def phase_train_time(dev):
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    if args[:1] == ["--fleet-tcp-child"]:
+        sys.path.insert(0, str(SRC))
+        return fleet_tcp_child(args[1], args[2:])
+    only = None
+    if args[:1] == ["--only"] and len(args) == 2:
+        only = args[1].split(",")
+    elif args:
+        print("usage: chip_smoke.py [--only fleet,fleet-tcp]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -3367,6 +3978,22 @@ def main() -> int:
         print(f"[phase] {name}: {seconds[name]:.1f} s")
         return out
 
+    if only is not None:
+        standalone = {"fleet": lambda card: phase_fleet(dev, card),
+                      "fleet-tcp": phase_fleet_tcp,
+                      "serve": lambda card: phase_serve(dev, card)}
+        try:
+            card_line = timed("card", phase_card)
+            for name in only:
+                if name not in standalone:
+                    fail(f"--only takes {sorted(standalone)}, not {name!r}")
+                out = timed(name, standalone[name], card_line)
+                print(f"[{name}-steps] {json.dumps(out)}")
+        except SmokeFailure as exc:
+            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+            return 1
+        print(f"[only] {only} passed; the full run prints the contract's lines")
+        return 0
     try:
         card_line = timed("card", phase_card)
         timed("kernels", phase_kernels, dev, errs)
@@ -3374,6 +4001,8 @@ def main() -> int:
         t1_counts, table1 = timed("table1", phase_table1, dev)
         rows = timed("wide", phase_wide, dev, errs)
         serve = timed("serve", phase_serve, dev, card_line)
+        fleet = timed("fleet", phase_fleet, dev, card_line)
+        fleet_tcp = timed("fleet-tcp", phase_fleet_tcp, card_line)
         timed("flash", phase_flash, dev, errs)
         lm_launches, lm_by_entry, lm_steps, lm_worst, lm = timed("lm", phase_lm, dev)
         lmq_counts, lmq = timed("lm-queue", phase_lm_queue, dev, lm)
@@ -3406,6 +4035,8 @@ def main() -> int:
         row["launches"] = counts[row["name"]]
         row["launches_table1"] = t1_counts[row["name"]]
         row["paper"] = paper_times[row["name"]]
+        if row["name"] == "ternary_matmul":
+            row["fleet_sketch"] = fleet["sketch"]   # the merge's sketch, a new call site
     flash_row.update(lse_max_abs_err_f32=errs[("lse", "f32")],
                      lse_max_abs_err_bf16=errs[("lse", "bf16")], grad_check=errs["flash_grads"],
                      train_layer=train_layer)
@@ -3419,6 +4050,8 @@ def main() -> int:
         row["launches_serve_warmup"] = serve["launches_by_program"]["warmup"][name]
         row["launches_serve_captured"] = serve["launches_by_program"]["captured"][name]
         row["runs_serve_replayed"] = serve["launches_by_program"]["replayed"][name]
+        row["launches_fleet"] = fleet["launches"][name]
+        row["launches_fleet_tcp"] = fleet_tcp["launches"][name]
         row["launches_lm_queue"] = lmq_counts[name]
         row["launches_kv_rp"] = kvrp_counts[name]
         row["launches_moe"] = moe_counts[name]
@@ -3433,6 +4066,7 @@ def main() -> int:
     print(f"[table1-steps] {json.dumps(table1)}")
     print(f"[lm-steps] {json.dumps(lm_steps)}")
     print(f"[serve-steps] {json.dumps(serve)}")
+    print(f"[fleet-steps] {json.dumps({'fleet': fleet, 'fleet_tcp': fleet_tcp})}")
     zoo = {"lm_queue": lmq, "kv_rp": kvrp, "moe": moe, "frontend": front, "rwkv6": rwkv,
            "zamba": zamba}
     print(f"[lm-zoo-steps] {json.dumps(zoo)}")

@@ -44,6 +44,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_mod
+
 
 def config_hash(obj: Any) -> str:
     return hashlib.sha256(repr(obj).encode()).hexdigest()[:16]
@@ -61,48 +63,15 @@ def leaf_hash(arr: np.ndarray) -> str:
     return h.hexdigest()
 
 
-def _is_namedtuple(t: Any) -> bool:
-    return isinstance(t, tuple) and hasattr(t, "_fields")
-
-
 def flatten_with_path(tree: Any) -> List[Tuple[str, Any]]:
     """(path, leaf) pairs in pytree order, with `jax.tree_util.keystr`'s
-    path strings."""
-    out: List[Tuple[str, Any]] = []
-
-    def walk(t, path):
-        if t is None:
-            return
-        if _is_namedtuple(t):
-            for name in t._fields:
-                walk(getattr(t, name), f"{path}.{name}")
-        elif isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], f"{path}[{k!r}]")
-        elif isinstance(t, (list, tuple)):
-            for i, u in enumerate(t):
-                walk(u, f"{path}[{i}]")
-        else:
-            out.append((path, t))
-
-    walk(tree, "")
-    return out
+    path strings (`repro_torch.tree`)."""
+    return tree_mod.flatten_with_path(tree)
 
 
 def unflatten_like(tree: Any, leaves: dict) -> Any:
     """`tree`'s nesting with each leaf replaced by `leaves[path]`."""
-    def walk(t, path):
-        if t is None:
-            return None
-        if _is_namedtuple(t):
-            return type(t)(*(walk(getattr(t, n), f"{path}.{n}") for n in t._fields))
-        if isinstance(t, dict):
-            return {k: walk(t[k], f"{path}[{k!r}]") for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(walk(u, f"{path}[{i}]") for i, u in enumerate(t))
-        return leaves[path]
-
-    return walk(tree, "")
+    return tree_mod.unflatten(tree, (leaves[path] for path, _ in flatten_with_path(tree)))
 
 
 def _to_host(path: str, leaf: Any) -> np.ndarray:

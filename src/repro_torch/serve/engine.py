@@ -50,9 +50,14 @@ LM prefill / decode steps go through the same queue (`lm_prefill`,
 `lm_decode`), built in the same bounded compile cache as the DR programs
 and run eagerly.
 
+`registry=` takes a `repro_torch.serve.replication.ReplicatedRegistry`, so
+register / push / promote go fleet-wide while each host serves from its own
+device copy of every version; `data_dir=` runs the service over a solo
+durable one (quorum 1, a private `LocalBus`), so a restart with the same
+directory restores the whole registry.
+
 Not ported yet, each refused with `NotImplementedError`: a device mesh
-(ROADMAP A10), the durable solo registry `data_dir` (A8) and ensembles
-(A4c).
+(ROADMAP A10) and ensembles (A4c).
 """
 
 from __future__ import annotations
@@ -73,7 +78,9 @@ from repro_torch.serve.batching import (BoundedCompileCache, BucketPolicy,
 from repro_torch.serve.clock import Clock, MonotonicClock
 from repro_torch.serve.durability import state_hash
 from repro_torch.serve.registry import ModelRegistry, Snapshot
+from repro_torch.serve.replication import ReplicatedRegistry
 from repro_torch.serve.slo import SLOTracker
+from repro_torch.serve.transport import LocalBus
 
 PyTree = Any
 
@@ -280,17 +287,28 @@ class DRService:
             raise NotImplementedError(
                 "DRService(mesh=...) is not ported yet (ROADMAP A10): the "
                 "port serves on one card")
-        if data_dir is not None:
-            raise NotImplementedError(
-                "DRService(data_dir=...), the durable solo registry, is not "
-                "ported yet (ROADMAP A8)")
         if not 0.0 <= update_fraction <= 1.0:
             raise ValueError("update_fraction must be in [0, 1]")
         self.buckets = buckets
         self.clock: Clock = clock if clock is not None else MonotonicClock()
-        # `registry` hook: anything with the ModelRegistry surface (a
-        # replicated registry, once ROADMAP A8 ports one) — get()
-        # semantics unchanged.
+        # `registry` hook: anything with the ModelRegistry surface — e.g. a
+        # `repro_torch.serve.replication.ReplicatedRegistry` so this
+        # service's register/push/promote go fleet-wide (get() semantics
+        # unchanged).  `data_dir` is the single-host durability hook: the
+        # service runs over a solo durable ReplicatedRegistry (quorum=1,
+        # private bus), so every register/push/promote is WAL'd +
+        # snapshotted and a restart with the same data_dir restores the
+        # whole registry.  Fleet hosts configure data_dir on their own
+        # ReplicatedRegistry instead and pass it via `registry=` — both at
+        # once is ambiguous.
+        if data_dir is not None:
+            if registry is not None:
+                raise ValueError(
+                    "pass data_dir OR registry, not both — a fleet host "
+                    "configures data_dir on its ReplicatedRegistry")
+            registry = ReplicatedRegistry(
+                LocalBus().attach("solo"), role="leader", quorum=1,
+                data_dir=data_dir)
         self.registry = registry if registry is not None else ModelRegistry()
         self.cache = BoundedCompileCache(compile_cache_size)
         self.batcher = MicroBatcher(max_queue=max_queue)

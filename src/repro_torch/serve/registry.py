@@ -16,10 +16,10 @@ name is how serving fleets eat mis-shaped traffic).  `get()` returns one
 consistent `(model, state, version)` snapshot under the lock, so a
 concurrent promote can never hand a caller a torn pair.
 
-This registry is single-host.  The JAX package's replicated registry,
-which wraps one of these per host and replicates mutations fleet-wide, is
-not ported yet (ROADMAP A8); `DRService(registry=...)` takes anything with
-this surface.
+This registry is single-host.  `repro_torch.serve.replication.
+ReplicatedRegistry` wraps one of these per host and replicates its
+mutations fleet-wide; `DRService(registry=...)` takes anything with this
+surface.
 """
 
 from __future__ import annotations
@@ -28,7 +28,10 @@ import dataclasses
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch
+
 from repro_torch.checkpoint import config_hash
+from repro_torch.core.execution import Execution
 
 PyTree = Any
 
@@ -37,12 +40,22 @@ def model_config_hash(model: Any) -> str:
     """Registry identity of a model config — the `Execution` policy is
     folded in EXPLICITLY, not just via the model's repr.  Serving identity
     must distinguish "same stages, torch backend" from "same stages, kernel
-    backend" (they build different programs), and the same stages on
-    device="cpu" from device="cuda" (a plain callable against a captured
-    CUDA graph), even for model types whose repr omits their execution
-    attribute — otherwise a kernel re-register dedupes onto the torch
-    entry and the service silently serves plain torch."""
-    return config_hash((model, getattr(model, "execution", None)))
+    backend" (they build different programs), and the same stages on the
+    CPU from the card (a plain callable against a captured CUDA graph),
+    even for model types whose repr omits their execution attribute —
+    otherwise a kernel re-register dedupes onto the torch entry and the
+    service silently serves plain torch.
+
+    The device enters as its TYPE ("cpu" / "cuda"), not as the string the
+    caller gave: two fleet hosts that name the same card "cuda" and
+    "cuda:0" hold the same config, and a replicated register compares these
+    hashes."""
+    exe = getattr(model, "execution", None)
+    if isinstance(exe, Execution):
+        exe = dataclasses.replace(exe, device=torch.device(exe.device).type)
+        if hasattr(model, "with_execution"):
+            model = model.with_execution(exe)
+    return config_hash((model, exe))
 
 
 @dataclasses.dataclass

@@ -15,7 +15,7 @@ the DR update the ternary-matmul and EASI kernels.
 
 The reference's mesh path (`make_train_step`'s shardings) and its
 RP-compressed data-parallel step (`make_dp_compressed_step`) need several
-cards (ROADMAP A10, A8): `make_train_step` raises for a mesh or a
+cards (ROADMAP A10): `make_train_step` raises for a mesh or a
 `grad_compress`.
 """
 
@@ -42,7 +42,7 @@ class TrainConfig:
     opt: opt_mod.AdamWConfig = opt_mod.AdamWConfig()
     remat: bool = True
     grad_accum: int = 1
-    grad_compress: Optional[Any] = None   # the reference's CompressConfig (ROADMAP A8)
+    grad_compress: Optional[Any] = None   # the reference's CompressConfig (ROADMAP A10)
     seed: int = 0
 
 
@@ -129,8 +129,9 @@ def make_train_step(cfg: TrainConfig, *, execution: Execution = Execution(), mes
         raise NotImplementedError("the meshed train step (shardings over several cards) is "
                                   "not ported yet (ROADMAP A10)")
     if cfg.grad_compress is not None:
-        raise NotImplementedError("the RP-compressed data-parallel step is not ported yet "
-                                  "(ROADMAP A8)")
+        raise NotImplementedError("the RP-compressed data-parallel step (its in-collective "
+                                  "sync, dist.compress.compress_sync) is not ported yet "
+                                  "(ROADMAP A10)")
     dev = execution.torch_device()
     dcfg = _dr_cfg(cfg.arch)
     loss_fn = make_loss(cfg, dcfg, execution=execution)

@@ -31,6 +31,7 @@ from harness import small_model as jax_small_model
 from repro.serve import durability as jdurability
 from repro_torch import bridge
 from repro_torch import dr as tdr
+from repro_torch.dist import compress
 from repro_torch.kernels import autotune
 from repro_torch.serve import (BoundedCompileCache, BucketPolicy, DeadlineScheduler, DRService,
                                ModelRegistry, MonotonicClock, QueueFull, SchedulerClosed,
@@ -562,7 +563,7 @@ class TestStateHash:
 
 @pytest.mark.parametrize("call,item", [
     (lambda: DRService(mesh=object()), "A10"),
-    (lambda: DRService(data_dir="/nonexistent"), "A8"),
+    (lambda: compress.compress_sync([], [], compress.CompressConfig(), ("data",)), "A10"),
     (lambda: DRService().register("e", _tmodel(), _states(0)[1], ensemble=2), "A4c"),
     # the LM steps run with mesh=None only (tests/test_torch_lm_zoo.py)
     (lambda: DRService().prefill_step(None, object(), None, None, 8), "A10"),
@@ -571,7 +572,7 @@ class TestStateHash:
     (lambda: DRService().lm_decode(None, object(), None, None, None), "A10"),
     (lambda: DeadlineScheduler(DRService(), start=False).lm_prefill(None, object(), None, None,
                                                                     8), "A10"),
-], ids=["mesh", "data_dir", "ensemble", "prefill_step", "decode_step", "lm_prefill",
+], ids=["mesh", "compress_sync", "ensemble", "prefill_step", "decode_step", "lm_prefill",
         "lm_decode", "scheduler_lm_prefill"])
 def test_not_ported_paths_name_their_item(call, item):
     with pytest.raises(NotImplementedError, match=item):

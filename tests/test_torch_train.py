@@ -438,7 +438,7 @@ def test_train_step_refuses_what_needs_a_mesh():
     _, tc = configs("smollm_135m")
     with pytest.raises(NotImplementedError, match="A10"):
         t_ts.make_train_step(t_ts.TrainConfig(arch=tc), execution=CPU, mesh=object())
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A10"):
         t_ts.make_train_step(t_ts.TrainConfig(arch=tc, grad_compress=object()), execution=CPU)
 
 

@@ -147,11 +147,24 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 idle share, tokens/s, model TFLOP/s, peak memory; one
                 attention layer at h2o's shape: B4 forward + lse, the plain
                 backward, SDPA forward + backward, each beside its bound
+ 18. mesh     — the mesh path on a one-rank NCCL mesh (`make_smoke_mesh`):
+                `DRService(mesh=)` over [serve]'s ragged requests and
+                `dr_transform` at 13 / 16 rows bit-identical to the unmeshed
+                service; the paper model as an ensemble of 4 (each member
+                bit-identical to its solo run, within TRAJ_TOL of the torch
+                backend) and served with `register(..., ensemble=4)`;
+                h2o request A through `lm_prefill` / `lm_decode` with the
+                mesh against the unmeshed run; one meshed [train-lm] step
+                against an unmeshed one; smollm-135m through
+                `make_dp_compressed_step` (its sync re-run with B3 and with
+                the plain sketch, every synced leaf within 1e-5; synced +
+                new carry = gradient + old carry); meshed / unmeshed
+                host-paced times
 
 It prints a `{"kernels": [...]}` JSON line, the card's line from nvidia-smi,
 and as its last line `{"ok": true, "device": {...}}`.  `--only fleet,fleet-tcp`
-(or `serve`) runs the card phase and the named phases alone and prints no
-contract line.  It imports nothing of
+(or `serve`, `mesh`) runs the card phase and the named phases alone and
+prints no contract line.  It imports nothing of
 JAX or of the JAX package.
 """
 
@@ -3940,6 +3953,358 @@ def phase_train_time(dev):
     return row
 
 
+MESH_DR_BATCHES = (13, 16)      # dr_transform at an odd and an even batch
+MESH_ENSEMBLE = 4               # members of the paper model's ensemble
+MESH_ENSEMBLE_ROWS = 100        # test rows served through register(..., ensemble=)
+MESH_DP = dict(arch="smollm_135m", batch=8, seq=512, steps=2)
+MESH_SYNC_REL = 1e-5            # a synced leaf, B3 vs the plain sketch, relative norm
+
+
+def phase_mesh(dev, card_line):
+    """[mesh]: the mesh path on a one-rank NCCL mesh (`make_smoke_mesh(1)`),
+    each path against the unmeshed one on the same card, counts zeroed just
+    before each path and read just after: DR serving (`DRService(mesh=)` over
+    [serve]'s ragged requests, `dr_serve.dr_transform` at an odd and an even
+    batch, bit-identical to `DRService(mesh=None)`), the paper model's
+    ensemble (every member bit-identical to its solo run, within TRAJ_TOL of
+    the torch backend; `register(..., ensemble=)` on the mesh service),
+    h2o-danube-3-4b request A through `DRService.lm_prefill` / `lm_decode`
+    with the mesh (logits within [lm]'s bounds of the unmeshed run), one
+    meshed [train-lm] step against one unmeshed step, and smollm-135m through
+    `make_dp_compressed_step` (the first step's gradients synced again with
+    B3 and with the plain sketch, every compressed leaf within
+    MESH_SYNC_REL; the first loss equal to its state's plain loss; synced +
+    new error feedback = gradient + old error feedback per leaf).  The MoE all-to-all needs two `model` ranks:
+    one card cannot reach it (tests/test_torch_dist.py holds it)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core.execution import Execution
+    from repro_torch.data import synthetic
+    from repro_torch import tree as tree_mod
+    from repro_torch.dist import compress, sharding
+    from repro_torch.dr import DRModel, EASIStage, RPStage
+    from repro_torch.dr.model import member
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import api
+    from repro_torch.serve import BucketPolicy, DRService, dr_serve, serve_step
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts
+
+    mesh = make_smoke_mesh(1)
+    print(f"[mesh] {card_line}: mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} over a "
+          f"{dist.get_backend()} group of {dist.get_world_size()} rank")
+    kexe, texe = Execution(backend="kernel", device=dev), Execution(backend="torch", device=dev)
+    counts, times, out = {}, {}, {}
+
+    def path(name, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts[name] = all_counts()
+        return res
+
+    def host_ms(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    # ---- DR serving -------------------------------------------------------
+    m, p, n, blk = WIDE["m"], WIDE["p"], WIDE["n"], WIDE["block"]
+    wk = DRModel(stages=(RPStage(m, p), EASIStage.rotation(p, n, mu=2e-4)), execution=kexe,
+                 block_size=blk)
+    st = wk.init(torch.Generator().manual_seed(0))
+    reqs = ragged_requests(SERVE_REQUESTS, m, dev, seed=0)
+    windows = [reqs[i:i + SERVE_WINDOW] for i in range(0, len(reqs), SERVE_WINDOW)]
+    gen = torch.Generator().manual_seed(5)
+    xs = {b: torch.randn((b, m), generator=gen).to(dev) for b in MESH_DR_BATCHES}
+
+    def stream(svc):
+        answers = []
+        for win in windows:
+            tickets = [svc.submit("wide", x) for x in win]
+            svc.flush()
+            answers += [t.result() for t in tickets]
+        return answers
+
+    plain = DRService(buckets=BucketPolicy(**SERVE_BUCKETS))
+    plain.register("wide", wk, st)
+    want = stream(plain)
+    want_x = {b: plain.transform("wide", x) for b, x in xs.items()}
+    meshed = DRService(mesh=mesh, buckets=BucketPolicy(**SERVE_BUCKETS))
+
+    def dr_path():
+        meshed.register("wide", wk, st)
+        got = stream(meshed)
+        got_x = {b: sharding.full(dr_serve.dr_transform(wk, st, x, mesh=mesh))
+                 for b, x in xs.items()}
+        return got, got_x
+
+    got, got_x = path("dr_serve", dr_path)
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if not torch.equal(g, w)]
+    if bad:
+        fail(f"mesh: DRService(mesh=) differs from DRService(mesh=None) on requests {bad[:5]}")
+    for b in MESH_DR_BATCHES:
+        if not torch.equal(got_x[b], want_x[b]):
+            fail(f"mesh: dr_transform at {b} rows differs from DRService(mesh=None): max |err| "
+                 f"{max_err(got_x[b], want_x[b]):.3e}")
+    if counts["dr_serve"]["fused_transform"] <= 0:
+        fail(f"mesh: the DR serving path never launched fused_transform: {counts['dr_serve']}")
+    x256 = torch.randn((256, m), generator=gen).to(dev)
+    times["dr_bucket_256_ms"] = {"meshed": host_ms(lambda: meshed.transform("wide", x256)),
+                                 "unmeshed": host_ms(lambda: plain.transform("wide", x256))}
+    print(f"[mesh] DR serving: {SERVE_REQUESTS} ragged requests and dr_transform at "
+          f"{list(MESH_DR_BATCHES)} rows bit-identical to DRService(mesh=None); "
+          f"{meshed.cache.misses} meshed programs; launches {json.dumps(counts['dr_serve'])}")
+
+    # ---- the paper model's ensemble ----------------------------------------
+    def paper_model(exe):
+        return DRModel(stages=(RPStage(PAPER["m"], PAPER["p"]),
+                               EASIStage.rotation(PAPER["p"], PAPER["n"], mu=PAPER["mu"])),
+                       execution=exe, block_size=PAPER["block"])
+
+    pk, pt = paper_model(kexe), paper_model(texe)
+    xtr, xte = paper_data(dev)
+    est = pk.ensemble(MESH_ENSEMBLE).init(torch.Generator().manual_seed(0))
+
+    def ens_path():
+        fitted = pk.ensemble(MESH_ENSEMBLE).fit(est, xtr, epochs=PAPER["epochs"])
+        return fitted, pk.ensemble(MESH_ENSEMBLE).transform(fitted, xte)
+
+    fitted, y_ens = path("ensemble", ens_path)
+    for i in range(MESH_ENSEMBLE):
+        one = member(est, i)
+        solo = pk.fit(one._replace(stages=tuple(t.clone() for t in one.stages)), xtr,
+                      epochs=PAPER["epochs"])
+        if not torch.equal(fitted.stages[1][i], solo.stages[1]) or \
+                not torch.equal(y_ens[i], pk.transform(solo, xte)):
+            fail(f"mesh: ensemble member {i} differs from its solo run")
+    fitted_t = pt.ensemble(MESH_ENSEMBLE).fit(est, xtr, epochs=PAPER["epochs"])
+    ens_err = check_close("mesh: ensemble B, kernel vs torch backend", fitted.stages[1],
+                          fitted_t.stages[1], **TRAJ_TOL)
+    for k in ("ternary_matmul", "easi_apply", "fused_transform"):
+        if counts["ensemble"][k] <= 0:
+            fail(f"mesh: the ensemble path never launched {k}: {counts['ensemble']}")
+
+    def ens_serve():
+        meshed.register("ens", pk, fitted, ensemble=MESH_ENSEMBLE)
+        return meshed.transform("ens", xte[:MESH_ENSEMBLE_ROWS])
+
+    y_served = path("ensemble_serve", ens_serve)
+    served_err = check_close("mesh: served ensemble vs DREnsemble.transform", y_served,
+                             y_ens[:, :MESH_ENSEMBLE_ROWS], **OUT_TOL)
+    print(f"[mesh] ensemble of {MESH_ENSEMBLE} x {PAPER['m']}->{PAPER['p']}->{PAPER['n']}: fit "
+          f"({PAPER['epochs']} epochs) + transform, every member bit-identical to its solo run; "
+          f"B kernel vs torch backend max |err| {ens_err:.3e} (TRAJ_TOL); served through "
+          f"register(ensemble=) max |err| {served_err:.3e} (bit-identical: "
+          f"{bool(torch.equal(y_served, y_ens[:, :MESH_ENSEMBLE_ROWS]))}); launches "
+          f"{json.dumps(counts['ensemble'])}, serving {json.dumps(counts['ensemble_serve'])}")
+    del plain, meshed
+    torch.cuda.empty_cache()
+
+    # ---- LM serving at full width ----------------------------------------
+    cfg = registry.get(LM_ARCH)
+    spec = LM_REQUESTS["A"]
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg, execution=kexe)
+    prompts = torch.randint(0, cfg.vocab_size, (spec["batch"], spec["prompt"]),
+                            generator=torch.Generator(device=dev).manual_seed(1), device=dev,
+                            dtype=torch.int32)
+    batch = {"tokens": prompts}
+    laid = sharding.lay_out(params, sharding.param_specs(params, mesh), mesh)
+    svc = DRService()
+
+    def serve(msh, prm, forced=None):
+        t = svc.lm_prefill(cfg, msh, prm, batch, spec["cache"], execution=kexe)
+        svc.flush()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = svc.lm_prefill(cfg, msh, prm, batch, spec["cache"], execution=kexe)
+        svc.flush()
+        logits, cache = wait_ticket("mesh lm prefill", t)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        outs, toks = [sharding.full(logits)], []
+        t0 = time.perf_counter()
+        for i in range(spec["decode"]):
+            tok = (outs[-1].argmax(-1) if forced is None else forced[i]).to(torch.int32)
+            toks.append(tok)
+            t = svc.lm_decode(cfg, msh, prm, tok, cache, execution=kexe)
+            svc.flush()
+            logits, cache = wait_ticket("mesh lm decode", t)
+            outs.append(sharding.full(logits))
+        torch.cuda.synchronize()
+        return outs, toks, t_pre * 1e3, (time.perf_counter() - t0) / spec["decode"] * 1e3
+
+    ref_logits, ref_toks, pre_u, dec_u = serve(None, params)
+    marks = {}
+
+    def lm_path():
+        marks["before"] = all_counts()["flash_attention"]
+        return serve(mesh, laid, forced=ref_toks)
+
+    got_logits, _, pre_m, dec_m = path("lm", lm_path)
+    worst = (0.0, 0.0)
+    for i, (g, w) in enumerate(zip(got_logits, ref_logits)):
+        rel, mx = logits_diff(f"mesh lm step {i}", g, w, pair="meshed vs unmeshed")
+        worst = (max(worst[0], rel), max(worst[1], mx))
+    identical = all(torch.equal(g, w) for g, w in zip(got_logits, ref_logits))
+    if counts["lm"]["flash_attention"] != 2 * cfg.n_layers:
+        fail(f"mesh: flash launched {counts['lm']['flash_attention']} times for two prefills "
+             f"and {spec['decode']} decode steps, want {cfg.n_layers} per prefill")
+    times["lm_prefill_ms"] = {"meshed": pre_m, "unmeshed": pre_u}
+    times["lm_decode_step_ms"] = {"meshed": dec_m, "unmeshed": dec_u}
+    print(f"[mesh] {cfg.name} request A ({spec['batch']} x {spec['prompt']} + {spec['decode']} "
+          f"decode) through DRService.lm_prefill / lm_decode on the mesh: largest relative row "
+          f"norm {worst[0]:.3e}, |err| {worst[1]:.3e} against the unmeshed run (bounds "
+          f"{LM_REL_NORM} / {LM_MAX_ABS}); bit-identical: {identical}; flash "
+          f"{cfg.n_layers} launches per prefill")
+    out["lm"] = {"max_rel_norm": worst[0], "max_abs_err": worst[1], "bit_identical": identical}
+    del params, laid, svc, ref_logits, got_logits
+    torch.cuda.empty_cache()
+
+    # ---- one train step, meshed against unmeshed --------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    tcfg = ts.TrainConfig(arch=dataclasses.replace(cfg, n_layers=TRAIN_LM["layers"]))
+    data = synthetic.TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_LM["seq"],
+                                       global_batch=TRAIN_LM["batch"], seed=0)
+    tbs = [to_device({"tokens": synthetic.token_batch(data, i)["tokens"]}, dev) for i in (0, 1)]
+
+    def one_step(msh):
+        """The first step's metrics and updated params' leaf norms; the
+        second step's host-paced ms (the first pays the allocator)."""
+        state = ts.init_state(torch.Generator(device=dev).manual_seed(11), tcfg, execution=kexe)
+        if msh is not None:
+            state = ts.lay_out_state(state, msh)
+        step = ts.make_train_step(tcfg, execution=kexe, mesh=msh)
+        state, metrics = step(state, tbs[0])
+        norms = {k: float(torch.linalg.vector_norm(sharding.full(v).to(torch.float32)))
+                 for k, v in tree_mod.flatten_with_path(state.params)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, tbs[1])
+        torch.cuda.synchronize()
+        res = ({k: float(v) for k, v in metrics.items()}, norms,
+               (time.perf_counter() - t0) * 1e3)
+        del state, step
+        torch.cuda.empty_cache()
+        return res
+
+    m_u, n_u, ms_u = one_step(None)
+    m_m, n_m, ms_m = path("train", lambda: one_step(mesh))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    loss_rel, gn_rel = rel(m_m["loss"], m_u["loss"]), rel(m_m["grad_norm"], m_u["grad_norm"])
+    leaf_rel = max(rel(n_m[k], n_u[k]) for k in n_u)
+    if not (loss_rel <= 1e-6 and gn_rel <= 1e-6 and leaf_rel <= 1e-6):
+        fail(f"mesh: meshed train step vs unmeshed: loss {loss_rel:.3e}, grad norm "
+             f"{gn_rel:.3e}, params' leaf norms {leaf_rel:.3e} (relative; bound 1e-6)")
+    if counts["train"]["flash_attention"] != 4 * tcfg.arch.n_layers:
+        fail(f"mesh: flash launched {counts['train']['flash_attention']} times in two meshed "
+             f"steps, want {4 * tcfg.arch.n_layers} (forward and remat recompute per layer)")
+    times["train_step_ms"] = {"meshed": ms_m, "unmeshed": ms_u}
+    print(f"[mesh] train step ({tcfg.arch.name}, {tcfg.arch.n_layers} of 24 layers, "
+          f"{TRAIN_LM['batch']} x {TRAIN_LM['seq']}): loss {m_m['loss']:.6f} meshed / "
+          f"{m_u['loss']:.6f} unmeshed (relative {loss_rel:.3e}), grad norm relative "
+          f"{gn_rel:.3e}, updated params' leaf norms relative {leaf_rel:.3e}; second step "
+          f"{ms_m:.1f} ms meshed / {ms_u:.1f} ms unmeshed host-paced; peak {peak:.1f} GiB")
+    out["train"] = {"loss_rel": loss_rel, "grad_norm_rel": gn_rel, "leaf_norm_rel": leaf_rel,
+                    "peak_gib": peak}
+
+    # ---- the RP-compressed data-parallel step -------------------------------
+    dcfg = registry.get(MESH_DP["arch"])
+    ccfg = compress.CompressConfig()
+    dtcfg = ts.TrainConfig(arch=dcfg, grad_compress=ccfg)
+    state = ts.init_state(torch.Generator(device=dev).manual_seed(3), dtcfg, execution=kexe)
+    ddata = synthetic.TokenStreamConfig(vocab_size=dcfg.vocab_size, seq_len=MESH_DP["seq"],
+                                        global_batch=MESH_DP["batch"], seed=0)
+    dbatches = [to_device({"tokens": synthetic.token_batch(ddata, i)["tokens"]}, dev)
+                for i in range(MESH_DP["steps"])]
+    ident, first = [], {}
+
+    def inspect(grads, ef, synced, new_ef):
+        if not first:
+            first.update(grads=grads, ef=ef, synced=synced)
+        for g, e1, s_, e2 in zip(*(tree_mod.leaves(t) for t in
+                                   (grads, ef, synced, new_ef))):
+            ident.append(float((s_ + e2 - g - e1).abs().max() / (g + e1).abs().max()))
+
+    step = ts.make_dp_compressed_step(dtcfg, mesh, execution=kexe, inspect=inspect)
+
+    def dp_path():
+        st_, ef, losses = state, compress.residual_init(state.params), []
+        for b in dbatches:
+            torch.cuda.synchronize()
+            st_, ef, metrics = step(st_, b, ef)
+            losses.append(float(metrics["loss"]))
+        return losses
+
+    dp_losses = path("dp_compressed", dp_path)
+    n_comp = sum(1 for t in tree_mod.leaves(state.params) if t.numel() >= ccfg.min_size)
+    if not all(math.isfinite(v) for v in dp_losses):
+        fail(f"mesh: compressed DP step losses are not finite: {dp_losses}")
+    with torch.no_grad():
+        plain_loss = float(ts.make_loss(dtcfg, None, execution=kexe)(
+            state.params, None, dbatches[0])[0])
+    first_loss_rel = abs(dp_losses[0] - plain_loss) / abs(plain_loss)
+    if first_loss_rel > 1e-6:
+        fail(f"mesh: the compressed step's first loss {dp_losses[0]} differs from the loss of "
+             f"its initial state {plain_loss} by {first_loss_rel:.3e} relative (bound 1e-6)")
+    # B3 at the gradient chunks' shapes against its plain version: the first
+    # step's gradients and carries synced again on each backend
+    with torch.no_grad():
+        again = {b: compress.compress_sync(first["grads"], first["ef"], ccfg,
+                                           sharding.batch_axes(mesh), mesh=mesh, backend=b)[0]
+                 for b in ("kernel", "torch")}
+    norm = lambda t: float(torch.linalg.vector_norm(t.to(torch.float32)))
+    sync_rel, rerun_rel, rerun_same = 0.0, 0.0, True
+    for g, s_in, s_k, s_t in zip(*(tree_mod.leaves(t) for t in
+                                   (first["grads"], first["synced"], again["kernel"],
+                                    again["torch"]))):
+        if g.numel() < ccfg.min_size:
+            continue
+        sync_rel = max(sync_rel, norm(s_k - s_t) / norm(s_t))
+        rerun_rel = max(rerun_rel, norm(s_in - s_k) / norm(s_k))
+        rerun_same = rerun_same and torch.equal(s_in, s_k)
+    if sync_rel > MESH_SYNC_REL:
+        fail(f"mesh: compressed sync on B3 vs the plain sketch: a synced leaf differs by "
+             f"{sync_rel:.3e} in relative norm (bound {MESH_SYNC_REL})")
+    if rerun_rel > MESH_SYNC_REL:
+        fail(f"mesh: the step's synced gradients differ from the same sync run again by "
+             f"{rerun_rel:.3e} in relative norm (bound {MESH_SYNC_REL})")
+    del first, again
+    if max(ident) > 1e-6:
+        fail(f"mesh: compressed sync: synced + new carry != gradient + old carry, largest "
+             f"relative {max(ident):.3e} (bound 1e-6)")
+    if counts["dp_compressed"]["ternary_matmul"] != n_comp * MESH_DP["steps"]:
+        fail(f"mesh: ternary_matmul launched {counts['dp_compressed']['ternary_matmul']} "
+             f"times, want {n_comp} compressed leaves x {MESH_DP['steps']} steps")
+    print(f"[mesh] {dcfg.name} ({MESH_DP['batch']} x {MESH_DP['seq']}) through "
+          f"make_dp_compressed_step, {MESH_DP['steps']} steps: losses {json.dumps(dp_losses)}; "
+          f"first loss vs its state's plain loss {first_loss_rel:.3e} relative; synced leaves, "
+          f"B3 vs plain sketch, {sync_rel:.3e} in relative norm (bound {MESH_SYNC_REL}); the "
+          f"step's sync run again bit-identical: {rerun_same}; synced + new carry = gradient + "
+          f"old carry to {max(ident):.3e} relative; {n_comp} compressed leaves, B3 launches "
+          f"{counts['dp_compressed']['ternary_matmul']}")
+    out["dp_compressed"] = {"losses": dp_losses, "first_loss_rel": first_loss_rel,
+                            "sync_kernel_vs_plain_rel": sync_rel, "rerun_bit_identical": rerun_same,
+                            "identity_rel": max(ident), "compressed_leaves": n_comp}
+    print("[mesh] MoE expert parallelism (the all-to-all path) needs more than one `model` "
+          "rank: one card cannot reach it; tests/test_torch_dist.py holds it on 8 gloo ranks")
+    print(f"[mesh-time] {card_line}: host-paced ms meshed / unmeshed "
+          + "; ".join(f"{k} {v['meshed']:.3f} / {v['unmeshed']:.3f}" for k, v in times.items()))
+    total = {k: sum(c[k] for c in counts.values()) for k in all_counts()}
+    out.update(times=times, launches_by_path=counts)
+    dist.destroy_process_group()
+    return total, out
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--fleet-tcp-child"]:
@@ -3949,7 +4314,7 @@ def main() -> int:
     if args[:1] == ["--only"] and len(args) == 2:
         only = args[1].split(",")
     elif args:
-        print("usage: chip_smoke.py [--only fleet,fleet-tcp]", file=sys.stderr)
+        print("usage: chip_smoke.py [--only fleet,fleet-tcp,serve,mesh]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -3981,7 +4346,8 @@ def main() -> int:
     if only is not None:
         standalone = {"fleet": lambda card: phase_fleet(dev, card),
                       "fleet-tcp": phase_fleet_tcp,
-                      "serve": lambda card: phase_serve(dev, card)}
+                      "serve": lambda card: phase_serve(dev, card),
+                      "mesh": lambda card: phase_mesh(dev, card)[1]}
         try:
             card_line = timed("card", phase_card)
             for name in only:
@@ -4028,6 +4394,8 @@ def main() -> int:
         trainer_counts, trainer_out = timed("trainer", phase_trainer, dev)
         torch.cuda.empty_cache()
         train_layer = timed("train-time", phase_train_time, dev)
+        torch.cuda.empty_cache()
+        mesh_counts, mesh_out = timed("mesh", phase_mesh, dev, card_line)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4062,6 +4430,7 @@ def main() -> int:
         row["launches_train_dr"] = train_dr_counts[name]
         row["launches_train_recurrent"] = train_rec_counts[name]
         row["launches_trainer"] = trainer_counts[name]
+        row["launches_mesh"] = mesh_counts[name]
     print(f"[paper-steps] {json.dumps({k: paper_times[k] for k in ('update', 'transform', 'transform_1000')})}")
     print(f"[table1-steps] {json.dumps(table1)}")
     print(f"[lm-steps] {json.dumps(lm_steps)}")
@@ -4073,6 +4442,7 @@ def main() -> int:
     train = {"train_lm": train_lm, "train_dr": train_dr, "train_recurrent": train_rec,
              "trainer": trainer_out, "train_layer": train_layer}
     print(f"[train-steps] {json.dumps(train)}")
+    print(f"[mesh-steps] {json.dumps(mesh_out)}")
     print(f"[phase-seconds] {json.dumps(seconds)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -25,7 +25,12 @@ them, and `None` holds no leaf.  Guarantees, as in the reference:
     and restore falls back to the previous step.  Manifests without hashes
     restore unverified.
   * restore places each leaf on `device`, or where the target's leaf lies
-    (the reference's `shardings`).
+    (the reference's `shardings`); a DTensor target leaf is laid out as it
+    is, on its own mesh — an elastic restore onto whatever mesh the caller
+    runs now.
+  * a laid-out (DTensor) state saves from every rank of its process group:
+    each leaf is gathered, rank 0 writes synchronously, and every rank waits
+    for the write before `save` returns.
 
 Leaves are f32, int8 or int32 tensors (every leaf a train state holds);
 bfloat16 has no numpy dtype without a package the port does not need, so
@@ -43,8 +48,10 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_mod
+from repro_torch.dist import sharding as shard_rules
 
 
 def config_hash(obj: Any) -> str:
@@ -78,7 +85,7 @@ def _to_host(path: str, leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(f"checkpoint leaf {path}: bfloat16 is not supported")
-        return leaf.detach().cpu().numpy().copy()
+        return shard_rules.full(leaf).detach().cpu().numpy().copy()
     return np.asarray(leaf)
 
 
@@ -119,7 +126,10 @@ class CheckpointManager:
     # ---- save ----
     def save(self, step: int, state: Any, *, blocking: bool = False) -> None:
         self.wait()  # one in-flight save at a time
-        host = [(path, _to_host(path, leaf)) for path, leaf in flatten_with_path(state)]
+        flat = flatten_with_path(state)
+        host = [(path, _to_host(path, leaf)) for path, leaf in flat]
+        meshed = any(shard_rules.is_dtensor(leaf) for _, leaf in flat) and \
+            dist.is_initialized() and dist.get_world_size() > 1
 
         def write():
             tmp = os.path.join(self.dir, f"tmp_step_{step:08d}")
@@ -140,7 +150,11 @@ class CheckpointManager:
             os.rename(tmp, final)
             self._gc_old()
 
-        if self.async_save and not blocking:
+        if meshed:
+            if dist.get_rank() == 0:
+                write()
+            dist.barrier()
+        elif self.async_save and not blocking:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
         else:
@@ -189,6 +203,11 @@ class CheckpointManager:
             if want is not None and leaf_hash(arr) != want:
                 raise ValueError(f"checksum mismatch for {path}: leaf bytes corrupt on disk — "
                                  f"quarantining this checkpoint")
+            if shard_rules.is_dtensor(leaf):
+                loaded[path] = shard_rules.lay_out_leaf(
+                    torch.from_numpy(arr.copy(order="C")).to(leaf.to_local().device),
+                    shard_rules.spec_of(leaf), leaf.device_mesh)
+                continue
             dev = leaf.device if device is None else torch.device(device)
             loaded[path] = torch.from_numpy(arr.copy(order="C")).to(dev)
         return unflatten_like(target, loaded)

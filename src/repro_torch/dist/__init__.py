@@ -1,15 +1,17 @@
-"""Distribution layer: the paper's ternary RP sketch as a compressor.
+"""Distribution layer: the mesh's sharding rules and the paper's ternary RP
+sketch as a compressor.
 
-  compress — staged-delta sketches for the serving fleet's merge rounds
-             (`delta_sketch` / `merge_deltas`, the least-squares projection
-             decode with error feedback), and the wire-byte accounting.
-
-The mesh half (`sharding`, and `compress.compress_sync`, the in-collective
-gradient sync) is not ported yet (ROADMAP A10).
+  sharding — the reference's sharding rules (param / batch / cache specs),
+             the layouts they give DTensors (`lay_out`, `full`,
+             `to_numpy`), the ambient mesh (`use_mesh`) and the collectives
+             the meshed steps use on local tensors.
+  compress — `compress_sync`, the RP-sketched data-parallel gradient sync;
+             staged-delta sketches for the serving fleet's merge rounds
+             (`delta_sketch` / `merge_deltas`); the wire-byte accounting.
 """
 
 from __future__ import annotations
 
-from repro_torch.dist import compress
+from repro_torch.dist import compress, sharding
 
-__all__ = ["compress"]
+__all__ = ["compress", "sharding"]

@@ -1,4 +1,19 @@
-"""Ternary random-projection sketches of state deltas, for fleet merges.
+"""Ternary random-projection sketches: the data-parallel gradient sync of
+the mesh path (`compress_sync`), and state deltas for fleet merges.
+
+Gradient sync.  Each data shard sketches its local gradient g (plus its
+error-feedback carry e) with a shared sparse ternary R (p × c, P[±1] =
+1/(2s), s = p), the sketch is averaged across the DP ranks, and every rank
+back-projects the averaged sketch:
+
+    y   = (g + e) Rᵀ            sketch: B3 (`ternary_matmul`), scale 1
+    y   ← mean(y, DP ranks)     the only cross-rank traffic: c/ratio floats
+    ĝ   = (s/p) · y R           unbiased back-projection (s = p: scale 1)
+    e'  = (g + e) − ĝ           the residual, kept on this rank
+
+R's key is (seed, leaf index), so every rank draws the same R; a test may
+pass the reference's R in instead.  Leaves smaller than `min_size` sync
+uncompressed (a plain mean).
 
 A serving fleet (`repro_torch.serve.fleet_merge`) has no collective: hosts
 ship their staged-state deltas to the leader over the replication
@@ -43,19 +58,20 @@ What the port does its own way:
   * Bundles hold CPU tensors (host copies): they cross the transport and
     land in the WAL.
 
-`compress_sync`, the in-collective gradient sync of the mesh path, is not
-ported yet (ROADMAP A10).
+The gradient sync's back-projection is a plain `torch.matmul` in f32, as
+the reference's is XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.dist import sharding as shard_rules
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ternary_matmul_ref
 
@@ -278,8 +294,58 @@ def collective_bytes_saved(grads: PyTree, cfg: CompressConfig) -> Dict[str, floa
             "ratio": orig / max(comp, 1.0), "skipped_leaves": n_skipped}
 
 
-def compress_sync(grads: PyTree, ef: PyTree, cfg: CompressConfig, axes) -> Tuple[PyTree, PyTree]:
-    """The in-collective gradient sync of the mesh path."""
-    raise NotImplementedError(
-        "compress_sync (the sketch-synced gradients of a data-parallel mesh) is not "
-        "ported yet (ROADMAP A10); the fleet merge's delta_sketch / merge_deltas are")
+_SYNC_R: Dict[Tuple[Any, ...], torch.Tensor] = {}
+
+
+def _sync_r(cfg: CompressConfig, leaf: int, p: int, c: int) -> torch.Tensor:
+    """The gradient sync's R for one leaf, keyed by (seed, leaf index): the
+    same draw on every rank and every step (kept, as the draws are the
+    same each step)."""
+    key = (int(cfg.seed), int(leaf), p, c)
+    r = _SYNC_R.get(key)
+    if r is None:
+        if len(_SYNC_R) >= 512:
+            _SYNC_R.clear()
+        r = _SYNC_R[key] = _rp_matrix((int(cfg.seed), int(leaf)), p, c, p)
+    return r
+
+
+def compress_sync(grads: PyTree, ef: PyTree, cfg: CompressConfig, axes, *, mesh,
+                  backend: str = "kernel",
+                  r: Optional[Dict[int, torch.Tensor]] = None) -> Tuple[PyTree, PyTree]:
+    """Sketch-sync `grads` over the mesh axes `axes` (the DP axes).
+
+    Returns (synced_grads, new_error_feedback).  Every rank receives the
+    SAME synced estimate (the sketches are averaged, not the gradients);
+    the residual of each compressed leaf stays in this rank's
+    error-feedback tree, so no gradient signal is lost.  `mesh=None` is a
+    world of one rank (no collective).  `r`: leaf index → ternary R (p, c)
+    to use instead of the draw (the reference's, in parity tests)."""
+    flat_g = tree_mod.leaves(grads)
+    flat_e = tree_mod.leaves(ef)
+    if len(flat_e) != len(flat_g):
+        raise ValueError("error-feedback tree must mirror the gradient tree")
+
+    def mean_(t):
+        return t if mesh is None else shard_rules.all_reduce_mean_(t, mesh, axes)
+
+    out_g, out_e = [], []
+    for i, (g, e) in enumerate(zip(flat_g, flat_e)):
+        if g.numel() < max(1, cfg.min_size):
+            out_g.append(mean_(g.detach().clone()))
+            out_e.append(e)
+            continue
+        v = (g + e).to(torch.float32)
+        c, n_chunks, p = _chunk_dims(g.numel(), cfg)
+        flat = v.reshape(-1)
+        pad = n_chunks * c - flat.numel()
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        chunks = flat.reshape(n_chunks, c)
+        rr = (r[i] if r is not None else _sync_r(cfg, i, p, c)).to(v.device)
+        y = mean_(_sketch(chunks, rr.to(torch.int8), backend))      # (n_chunks, p)
+        # unbiased back-projection scale is s/p; s = p here → unit scale
+        est = (y @ rr.to(torch.float32)).reshape(-1)[:g.numel()].reshape(g.shape).to(g.dtype)
+        out_g.append(est)
+        out_e.append((v.reshape(g.shape) - est).to(e.dtype))
+    return tree_mod.unflatten(grads, out_g), tree_mod.unflatten(ef, out_e)

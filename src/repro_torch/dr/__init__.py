@@ -17,11 +17,11 @@ reduction, in PyTorch:
 
 from repro_torch.core.execution import KERNEL, TORCH, Execution
 from repro_torch.dr.legacy import model_from_config
-from repro_torch.dr.model import DRModel, ModelState
+from repro_torch.dr.model import DREnsemble, DRModel, ModelState
 from repro_torch.dr.stages import EASIStage, RPStage, Stage
 
 __all__ = [
-    "DRModel", "ModelState",
+    "DRModel", "DREnsemble", "ModelState",
     "Stage", "RPStage", "EASIStage",
     "Execution", "TORCH", "KERNEL",
     "model_from_config",

@@ -6,6 +6,9 @@
     state = model.fit(state, x, epochs=3)       # unsupervised streaming
     y     = model.transform(state, x)           # deployment
 
+`model.ensemble(k)` trains and serves k independent members of one model
+(seed sweeps / scenario diversity) behind the same API.
+
 The execution policy (backend, device, dtype) is fixed at construction.
 Every entry point runs on `execution.device` — the card unless the caller
 asks for the CPU — and under `torch.no_grad()`: no DR path needs autograd.
@@ -221,7 +224,7 @@ class DRModel:
                           steps=state.steps + nblocks,
                           trainable=self.trainable_mask)
 
-    # ---- cost model --------------------------------------------------------
+    # ---- cost model / sharding ---------------------------------------------
     def mac_counts(self) -> Dict[str, Any]:
         """Aggregate paper-Table-II cost: RP adds + adaptive-stage MACs per
         processed sample, plus the per-stage breakdown."""
@@ -231,6 +234,16 @@ class DRModel:
             "easi_macs": float(sum(c["macs"] for c in per_stage)),
             "per_stage": per_stage,
         }
+
+    def shard_specs(self, mesh) -> ModelState:
+        """Specs shaped like a `ModelState` (`repro_torch.dist.sharding`):
+        every stage state replicated, as the reference's."""
+        return ModelState(stages=tuple(s.shard_spec(mesh) for s in self.stages),
+                          steps=(), trainable=self.trainable_mask)
+
+    # ---- ensembling --------------------------------------------------------
+    def ensemble(self, k: int) -> "DREnsemble":
+        return DREnsemble(model=self, k=k)
 
 
 def _update_stages(stages, states, h, exe: Execution) -> Tuple[Any, ...]:
@@ -243,3 +256,63 @@ def _update_stages(stages, states, h, exe: Execution) -> Tuple[Any, ...]:
         if i + 1 < len(stages):
             h = stage.transform(s, h, exe)
     return tuple(new)
+
+
+def member(state: ModelState, i: int) -> ModelState:
+    """Member i of an ensemble state (views of its stage tensors)."""
+    return ModelState(stages=tuple(None if s is None else s[i] for s in state.stages),
+                      steps=state.steps[i], trainable=state.trainable)
+
+
+def stack_members(states: Tuple[ModelState, ...]) -> ModelState:
+    """k member states as one ensemble state: a leading (k,) axis on every
+    leaf, the step counters a (k,) host tensor."""
+    stages = tuple(None if ss[0] is None else torch.stack(ss)
+                   for ss in zip(*(st.stages for st in states)))
+    return ModelState(stages=stages, steps=torch.stack([st.steps for st in states]),
+                      trainable=states[0].trainable)
+
+
+@dataclasses.dataclass(frozen=True)
+class DREnsemble:
+    """k independent replicas of one `DRModel` — the reference's vmapped
+    ensemble.  States carry a leading (k,) axis on every leaf; data is
+    shared across members (each differs only in its init).
+
+    The members run one after another through the model's own entry
+    points, so each member's result is the one it would get alone (the same
+    kernels on the same tensors).  One launch with a grid axis over the
+    members is later kernel work."""
+
+    model: DRModel
+    k: int
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError("ensemble size must be >= 1")
+
+    @property
+    def execution(self) -> Execution:
+        return self.model.execution
+
+    def members(self, state: ModelState) -> Tuple[ModelState, ...]:
+        n = state.steps.shape[0] if state.steps.ndim else 0
+        if n != self.k:
+            raise ValueError(f"an ensemble of {self.k} takes a state with a leading ({self.k},) "
+                             f"axis; got steps of shape {tuple(state.steps.shape)}")
+        return tuple(member(state, i) for i in range(self.k))
+
+    def init(self, generator: torch.Generator) -> ModelState:
+        """Member i draws after members 0..i-1, from one generator."""
+        return stack_members(tuple(self.model.init(generator) for _ in range(self.k)))
+
+    def update(self, state: ModelState, x_block) -> ModelState:
+        return stack_members(tuple(self.model.update(s, x_block) for s in self.members(state)))
+
+    def fit(self, state: ModelState, x, *, epochs: int = 1) -> ModelState:
+        return stack_members(tuple(self.model.fit(s, x, epochs=epochs)
+                                   for s in self.members(state)))
+
+    def transform(self, state: ModelState, x) -> torch.Tensor:
+        """x (..., m) → (k, ..., n)."""
+        return torch.stack([self.model.transform(s, x) for s in self.members(state)])

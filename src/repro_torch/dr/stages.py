@@ -46,6 +46,8 @@ class Stage(Protocol):
 
     def mac_counts(self) -> Dict[str, float]: ...
 
+    def shard_spec(self, mesh) -> tuple: ...
+
 
 def _dtype(stage_dtype, exe: Execution):
     return stage_dtype if stage_dtype is not None else exe.dtype
@@ -93,6 +95,9 @@ class RPStage:
     def mac_counts(self) -> Dict[str, float]:
         cfg = self.rp_cfg(Execution())
         return {"adds": cfg.expected_nonzeros(), "macs": 0.0}
+
+    def shard_spec(self, mesh) -> tuple:
+        return (None, None)  # int8 (p, m): tiny — replicate
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +183,9 @@ class EASIStage:
         gradb = n * n * m                              # G @ B
         upd = n * m                                    # B − μ(·)
         return {"adds": 0.0, "macs": float(mv + nl + outer + gradb + upd)}
+
+    def shard_spec(self, mesh) -> tuple:
+        return (None, None)  # B (n, m): small — replicate
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,10 @@
   waveform_repro  — the full Table I protocol with ablations and the
                     ideal-PCA reference (`examples/waveform_repro.py`)
   quickstart      — the technique in a few lines (`examples/quickstart.py`)
+  serve_lm        — DR and LM traffic through one engine, the LM on a mesh,
+                    a replicated registry with failover (`examples/serve_lm.py`)
+  lm_dr_frontend  — a DR front-end co-trained in a meshed LM train step
+                    (`examples/lm_dr_frontend.py`)
 
 `run()` functions return rows in the reference's `(name, us, detail)` form.
 """

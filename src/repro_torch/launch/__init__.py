@@ -1,3 +1,4 @@
-"""Launch drivers of the port.  `train` is the training CLI
-(`python -m repro_torch.launch.train`); the reference's dry-run, mesh,
-report, rescore and roofline drivers wait for the mesh path (ROADMAP A10)."""
+"""Launch entry points of the port.  `mesh` builds the device meshes
+(`make_production_mesh`, `make_smoke_mesh`); `train` is the training CLI
+(`python -m repro_torch.launch.train`).  The reference's dry-run, report,
+rescore and roofline tools are not ported yet (ROADMAP A13)."""

@@ -3,12 +3,14 @@
     python -m repro_torch.launch.train --arch smollm_135m --smoke --steps 30 --device cpu
     python -m repro_torch.launch.train --arch h2o_danube3_4b --steps 100
 
-The JAX package's `launch/train.py` on one device: `--device` (the card
-unless it says "cpu") is added; the kernel backend runs on the card (and
-its plain versions on the CPU).  `--smoke` takes the config's reduced
-variant and one micro-batch a step; otherwise the config's own
-`train_grad_accum`.  `--multi-pod` (the production mesh across pods) is
-not ported yet (ROADMAP A10).
+The JAX package's `launch/train.py`: `--device` (the card unless it says
+"cpu") is added; the kernel backend runs on the card (and its plain
+versions on the CPU).  `--smoke` takes the config's reduced variant and one
+micro-batch a step; otherwise the config's own `train_grad_accum`.
+`--multi-pod` trains over `make_production_mesh(multi_pod=True)`: one
+process per card, started by a launcher that sets `RANK`, `WORLD_SIZE`,
+`MASTER_ADDR` and `MASTER_PORT` (512 ranks); without them it stops at once,
+naming the world size it has and needs.  Otherwise one card, unmeshed.
 """
 
 import argparse
@@ -36,9 +38,11 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
+    mesh = None
     if args.multi_pod:
-        raise NotImplementedError("--multi-pod needs the production mesh, which is not ported "
-                                  "yet (ROADMAP A10)")
+        from repro_torch.launch.mesh import make_production_mesh
+
+        mesh = make_production_mesh(multi_pod=True, device=args.device)
 
     cfg = registry.get_smoke(args.arch) if args.smoke else registry.get(args.arch)
     tcfg = ts_mod.TrainConfig(
@@ -55,7 +59,7 @@ def main(argv=None):
         global_batch=args.global_batch, seed=tcfg.seed)
     res = trainer_mod.train(trainer_cfg, execution=Execution(backend="kernel",
                                                              device=args.device),
-                            data_cfg=data_cfg)
+                            mesh=mesh, data_cfg=data_cfg)
     print(f"done: final loss {res['losses'][-1]:.4f} over {args.steps} steps; "
           f"straggler events: {len(res['watchdog'])}")
     return res

@@ -15,8 +15,9 @@ also returns each row's log-sum-exp, and the backward
 chunk, in plain PyTorch, as the reference's backward is XLA outside any
 Pallas kernel.  `chunked_softmax_xent` is the training loss, one
 checkpointed chunk of logits at a time.  The MoE layer is the reference's
-single-device capacity dispatch; its expert-parallel all-to-all path needs
-a mesh (ROADMAP A10).
+capacity dispatch; under a mesh (`dist.sharding.use_mesh`) it goes
+expert-parallel over `model` through two all-to-alls, as the reference's
+`shard_map` branch does.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import sharding as shard_rules
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF, flash_attention_bwd_ref, flash_attention_ref
 from repro_torch.models.config import MoESpec
@@ -321,22 +323,100 @@ def _moe_compute(params: Dict[str, torch.Tensor], x: torch.Tensor, spec: MoESpec
         * torch.einsum("ecd,edf->ecf", xe, params["w_in"])
     ye = torch.einsum("ecf,efd->ecd", h, params["w_out"]).reshape(e * c, d)
 
-    gathered = ye[torch.where(keep, dest, 0)] * keep[:, None].to(x.dtype)
-    contrib = gathered * r.sw[:, None].to(x.dtype)                  # (T·k, d), sorted
-    # each token's k sorted rows, in sorted (ascending expert) order
+    return _combine(ye, r, keep, dest, t, k, x.dtype), aux
+
+
+def _combine(ye: torch.Tensor, r: Routing, keep: torch.Tensor, dest: torch.Tensor,
+             t: int, k: int, dtype) -> torch.Tensor:
+    """y (T, d): each token's kept expert rows of ye, weighted and summed in
+    a fixed order (ascending expert, the stable sort's)."""
+    gathered = ye[torch.where(keep, dest, 0)] * keep[:, None].to(dtype)
+    contrib = gathered * r.sw[:, None].to(dtype)                    # (T·k, d), sorted
     mine = torch.argsort(r.stok, stable=True).reshape(t, k)
     y = contrib[mine[:, 0]]
     for j in range(1, k):
         y = y + contrib[mine[:, j]]
-    return y, aux
+    return y
+
+
+def _moe_a2a_block(params: Dict[str, torch.Tensor], x_my: torch.Tensor, spec: MoESpec,
+                   act: str, mesh, n_model: int):
+    """Token-split all-to-all expert parallelism on this rank's DISJOINT
+    token slice x_my (T_my, d): route over all E experts, build an
+    (n_model, E_loc, c, d) send buffer, all-to-all it over `model` so each
+    rank receives its experts' tokens from every peer, run the expert FFN
+    on its E_loc experts (`params`' expert weights hold only those), send
+    the results back the same way and combine locally.  The capacity c is
+    the local slice's, as the reference's."""
+    e, k = spec.n_experts, spec.top_k
+    e_loc = e // n_model
+    t_my, d = x_my.shape
+    r, aux = _route(x_my, params["router"], spec)
+    c = moe_capacity(t_my, spec)
+    keep = r.pos < c
+    dest = torch.where(keep, r.se * c + r.pos, e * c)               # drop -> sink row
+    send = torch.zeros((e * c + 1, d), dtype=x_my.dtype, device=x_my.device)
+    send[dest] = x_my[r.stok]
+    send = send[: e * c].reshape(n_model, e_loc, c, d)
+    # block j of dim 0 goes to the owner of experts j·E_loc.., block i of
+    # the result came from rank i
+    recv = shard_rules.AllToAll.apply(send, mesh, "model")
+    recv = recv.transpose(0, 1).reshape(e_loc, n_model * c, d)
+    h = act_fn(act)(torch.einsum("ecd,edf->ecf", recv, params["w_gate"])) \
+        * torch.einsum("ecd,edf->ecf", recv, params["w_in"])
+    ye = torch.einsum("ecf,efd->ecd", h, params["w_out"])           # (E_loc, n_model·c, d)
+    back = ye.reshape(e_loc, n_model, c, d).transpose(0, 1).contiguous()
+    ye_my = shard_rules.AllToAll.apply(back, mesh, "model").reshape(e * c, d)
+    return _combine(ye_my, r, keep, dest, t_my, k, x_my.dtype), aux
 
 
 def moe_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, spec: MoESpec, act: str):
-    """x (B, S, d) -> (y (B, S, d), aux dict), dropped-on-overflow capacity
-    over the B·S tokens.  The reference's single-device path."""
+    """x (B, S, d) -> (y (B, S, d), aux dict), dropped-on-overflow capacity.
+
+    Outside a mesh: the reference's single-device path over the B·S tokens.
+    Inside `use_mesh`, x holds this rank's rows (its DP shard when the batch
+    splits) and every rank of `model` holds the same x.  Expert parallelism
+    runs under the reference's conditions (more than one `model` rank, E
+    and S divisible by it, the batch split over the DP axes or no DP
+    axis): this rank takes its S/n_model slice of the stream and its
+    E/n_model experts, exchanges tokens with the expert owners
+    (`_moe_a2a_block`), and the slices are gathered back; the aux terms are
+    the mean over every rank (the reference's pmean).  Otherwise, when the
+    batch splits over the DP axes, the tokens are gathered and dispatched
+    over the whole batch, with the capacity of the whole batch, as the
+    reference's unsplit program computes them, and each rank keeps its
+    rows; the gather's backward is a reduce-scatter, so a train step's
+    gradients, averaged over the DP axes, are the whole batch's."""
     b, s, d = x.shape
+    mesh = shard_rules.ambient_mesh()
+    if mesh is not None:
+        e = spec.n_experts
+        n_model = shard_rules.axis_size(mesh, "model")
+        dax = shard_rules.batch_axes(mesh)
+        n_data = shard_rules.axis_size(mesh, dax)
+        split = shard_rules.rows_split()
+        if n_model > 1 and e % n_model == 0 and s % n_model == 0 and (split or n_data == 1):
+            return _moe_expert_parallel(params, x, spec, act, mesh, dax, n_model)
+        if split and n_data > 1:
+            xg = shard_rules.GatherRows.apply(x, mesh, dax, 0)
+            y, aux = _moe_compute(params, xg.reshape(-1, d), spec, act,
+                                  moe_capacity(xg.shape[0] * s, spec))
+            return shard_rules.BlockRows.apply(y.reshape(xg.shape), mesh, dax, 0), aux
     y, aux = _moe_compute(params, x.reshape(b * s, d), spec, act, moe_capacity(b * s, spec))
     return y.reshape(b, s, d), aux
+
+
+def _moe_expert_parallel(params, x, spec: MoESpec, act: str, mesh, dax, n_model: int):
+    b, s, d = x.shape
+    split, gather = shard_rules.SplitRepl.apply, shard_rules.GatherRepl.apply
+    x_my = split(x, mesh, "model", 1)                              # (b, s/n, d)
+    p = {"router": shard_rules.SumGrad.apply(params["router"], mesh, "model")}
+    for name in ("w_gate", "w_in", "w_out"):
+        p[name] = split(params[name], mesh, "model", 0)           # this rank's experts
+    y_my, aux = _moe_a2a_block(p, x_my.reshape(-1, d), spec, act, mesh, n_model)
+    y = gather(y_my.reshape(b, s // n_model, d), mesh, "model", 1)
+    every = ("model",) + shard_rules.as_axes(dax)
+    return y, {k: shard_rules.MeanRepl.apply(v, mesh, every, "model") for k, v in aux.items()}
 
 
 # ---------------------------------------------------------------------------

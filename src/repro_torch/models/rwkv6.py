@@ -10,7 +10,7 @@ token-shift inputs of each layer and the position, no KV cache.
 Parameters are a plain dict with the reference's keys and its stacked
 `[L, ...]` layout (`bridge.params_from_reference` maps the JAX pytree leaf
 by leaf); the layer stack is a Python loop in place of `lax.scan`, and the
-reference's mesh pins are dropped (one card has no mesh).  The WKV
+reference's mesh pins are dropped (the model code runs on local tensors).  The WKV
 recurrence is a step loop in plain PyTorch, as the reference's is a
 `lax.scan` outside any Pallas kernel: r, k, v, w and g are computed for the
 whole sequence first, and only the state update and the read-out run per

@@ -16,7 +16,8 @@ single-device capacity dispatch, `blocks.moe_layer`), the audio and vision
 front-ends (`embed_inputs`; with a DR front-end the caller reduces the raw
 features first, `train.train_step._apply_dr_frontend`) and the
 RP-compressed KV cache (`kv_rp`).  The mesh constraint of the reference's
-layer body is dropped: one card has no mesh (ROADMAP A10).
+layer body has no counterpart: the port's meshed steps hand the model code
+local tensors, on which a layout hint pins nothing.
 """
 
 from __future__ import annotations

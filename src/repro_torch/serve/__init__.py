@@ -30,17 +30,18 @@ the hosts' train-while-serve deltas through the paper's RP sketch.
   fleet_merge — `FleetMerger`
   engine      — `DRService`, `CapturedProgram`
   scheduler   — `DeadlineScheduler`, `SchedulerClosed`
-  serve_step  — `make_prefill` / `make_decode` over `models.api`
-
-The mesh adapters (`dr_serve`: `dr_transform` / `make_dr_transform`) are not
-ported yet (ROADMAP A10).
+  serve_step  — `make_prefill` / `make_decode` over `models.api`, with or
+                without a mesh
+  dr_serve    — `make_dr_transform` / `dr_transform`: DR serving on a mesh
 """
 
-from repro_torch.serve import (batching, clock, durability, election, engine, fleet_merge,
-                               registry, replication, scheduler, serve_step, slo, transport)
+from repro_torch.serve import (batching, clock, dr_serve, durability, election, engine,
+                               fleet_merge, registry, replication, scheduler, serve_step, slo,
+                               transport)
 from repro_torch.serve.batching import (BoundedCompileCache, BucketPolicy, MicroBatcher,
                                         QueueFull, Ticket)
 from repro_torch.serve.clock import Clock, MonotonicClock, VirtualClock
+from repro_torch.serve.dr_serve import dr_transform, make_dr_transform
 from repro_torch.serve.durability import (BlobStore, CorruptBlobError, DurableStore,
                                           WriteAheadLog)
 from repro_torch.serve.election import Elector
@@ -53,7 +54,7 @@ from repro_torch.serve.slo import LatencyStats, SLOTracker
 from repro_torch.serve.transport import LocalBus, TCPTransport, Transport, TransportError
 
 __all__ = [
-    "engine", "registry", "batching", "serve_step", "scheduler", "clock", "slo",
+    "engine", "registry", "batching", "serve_step", "dr_serve", "scheduler", "clock", "slo",
     "replication", "transport", "election", "durability", "fleet_merge",
     "Elector", "FleetMerger", "MergeError",
     "DurableStore", "WriteAheadLog", "BlobStore", "CorruptBlobError",
@@ -63,4 +64,5 @@ __all__ = [
     "LatencyStats", "SLOTracker",
     "ReplicatedRegistry", "ReplicationError", "Op", "state_hash",
     "LocalBus", "TCPTransport", "Transport", "TransportError",
+    "dr_transform", "make_dr_transform",
 ]

@@ -50,14 +50,20 @@ LM prefill / decode steps go through the same queue (`lm_prefill`,
 `lm_decode`), built in the same bounded compile cache as the DR programs
 and run eagerly.
 
+`DRService(mesh=...)` serves over a `DeviceMesh`
+(`repro_torch.launch.mesh`): each bucket program is
+`dr_serve.make_dr_transform`'s step — every rank transforms its DP rows
+(on the card through the bucket's captured program) and the answer is
+gathered before it is cut to the request's rows.  `register(...,
+ensemble=k)` serves a k-member `DREnsemble` state: answers are (k, B, n).
+Programs are keyed by config hash AND the device they run on, so one
+process serving a config on two cards builds a program for each.
+
 `registry=` takes a `repro_torch.serve.replication.ReplicatedRegistry`, so
 register / push / promote go fleet-wide while each host serves from its own
 device copy of every version; `data_dir=` runs the service over a solo
 durable one (quorum 1, a private `LocalBus`), so a restart with the same
 directory restores the whole registry.
-
-Not ported yet, each refused with `NotImplementedError`: a device mesh
-(ROADMAP A10) and ensembles (A4c).
 """
 
 from __future__ import annotations
@@ -71,8 +77,9 @@ import torch
 from repro_torch import kernels
 from repro_torch.core.execution import Execution
 from repro_torch.dr.model import ModelState
+from repro_torch.dist import sharding as shard_rules
 from repro_torch.kernels import autotune
-from repro_torch.serve import serve_step
+from repro_torch.serve import dr_serve, serve_step
 from repro_torch.serve.batching import (BoundedCompileCache, BucketPolicy,
                                         MicroBatcher, Ticket)
 from repro_torch.serve.clock import Clock, MonotonicClock
@@ -97,6 +104,16 @@ def _dummy_batch(model: Any, rows: int, dtype) -> torch.Tensor:
     built (and captured) on."""
     return torch.zeros((rows, model.in_dim), dtype=dtype,
                        device=model.execution.torch_device())
+
+
+def _device_key(model: Any) -> Tuple[str, Optional[int]]:
+    """(device type, index) a model's programs run on; an unindexed CUDA
+    device is the current card.  Part of every program key: the config hash
+    names the device type only (fleet hosts compare it)."""
+    dev = torch.device(model.execution.device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev.type, dev.index
 
 
 def _batch_rows(batch: PyTree) -> int:
@@ -283,12 +300,10 @@ class DRService:
                  clock: Optional[Clock] = None,
                  registry: Optional[Any] = None,
                  data_dir: Optional[str] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DRService(mesh=...) is not ported yet (ROADMAP A10): the "
-                "port serves on one card")
+        shard_rules.check_mesh(mesh)
         if not 0.0 <= update_fraction <= 1.0:
             raise ValueError("update_fraction must be in [0, 1]")
+        self.mesh = mesh
         self.buckets = buckets
         self.clock: Clock = clock if clock is not None else MonotonicClock()
         # `registry` hook: anything with the ModelRegistry surface — e.g. a
@@ -355,10 +370,9 @@ class DRService:
     def register(self, name: str, model: Any, state: PyTree, *,
                  ensemble: Optional[int] = None, replace: bool = False) -> int:
         if ensemble is not None:
-            raise NotImplementedError(
-                "serving an ensemble (register(..., ensemble=k)) is not "
-                "ported yet (ROADMAP A4c)")
-        v = self.registry.register(name, model, state, replace=replace)
+            model.ensemble(ensemble).members(state)     # a (k,)-stacked state
+        v = self.registry.register(name, model, state, ensemble=ensemble,
+                                   replace=replace)
         # Registry-register time is when a kernel model's bucket programs
         # are built and get their tile sweep: build every bucket of the
         # policy now (on the card each one is captured here), keyed by
@@ -367,7 +381,8 @@ class DRService:
         # (same config hash); only an eviction — which drops program AND
         # tiles together — rebuilds.
         exe = getattr(model, "execution", None)
-        if exe is not None and getattr(exe, "use_kernel", False):
+        if (ensemble is None and self.mesh is None and exe is not None
+                and getattr(exe, "use_kernel", False)):
             snap = self.registry.get(name)
             for b in self.buckets.buckets():    # empty for EXACT policies
                 self._transform_fn(snap, b, exe.dtype)
@@ -574,7 +589,8 @@ class DRService:
                 n_batches += -(-xcat.shape[0] // self.buckets.max_bucket)
                 off = 0
                 for t in tickets:
-                    sl = ycat[off:off + t.rows]
+                    sl = ycat[:, off:off + t.rows] if snap.ensemble \
+                        else ycat[off:off + t.rows]
                     off += t.rows
                     self._record_slo(name, self.buckets.bucket_for(t.rows),
                                      t, t_flush)
@@ -590,7 +606,8 @@ class DRService:
     # is constructed (cache key, rows derivation, in-place cache contract);
     # both the direct lm_* methods and the DeadlineScheduler's LM helpers
     # call them, so the two admission paths can't drift apart.  The steps
-    # run eagerly (no CUDA graph); `mesh` must be None (ROADMAP A10).
+    # run eagerly (no CUDA graph); with a mesh they are `serve_step`'s
+    # meshed steps (params, batch and cache laid out by the sharding rules).
     def prefill_step(self, cfg: Any, mesh: Any, params: PyTree,
                      batch: PyTree, cache_size: int, *,
                      execution: Execution = Execution(),
@@ -649,7 +666,7 @@ class DRService:
         staged states are call arguments.  It returns the staged state's
         new stage tensors; `steps` lives on the host and is advanced by the
         caller, outside any graph."""
-        key = ("fused", snap.chash, tuple(x.shape), str(x.dtype))
+        key = ("fused", snap.chash, tuple(x.shape), str(x.dtype), _device_key(snap.model))
         model = snap.model  # close over the config only, never the state
         state = snap.state
 
@@ -679,6 +696,10 @@ class DRService:
         rebuilt there (rare, waived)."""
         snap0 = self.registry.get(name)
         self._check_request(snap0, x)
+        if snap0.ensemble:
+            raise NotImplementedError(
+                "train-while-serve targets single models; ensembles are "
+                "serve-only (fit them offline via DREnsemble.fit)")
         with self._tws_guard:
             acc = self._accum.get(name, 0.0) + self.update_fraction
             skip = acc < 1.0 - 1e-9
@@ -792,14 +813,21 @@ class DRService:
         return fn
 
     def _transform_fn(self, snap: Snapshot, bucket: int, dtype):
-        key = ("transform", snap.chash, bucket, str(dtype))
+        key = ("transform", snap.chash, snap.ensemble, self.mesh is not None, bucket,
+               str(dtype), _device_key(snap.model))
+        model = snap.model
+        fn = model.ensemble(snap.ensemble).transform if snap.ensemble else model.transform
 
         def build():
-            if snap.model.execution.use_kernel:
-                return self._tuned_transform(snap.model, snap.state,
-                                             bucket, dtype)
-            return self._program(snap.model.transform, (snap.state,),
-                                 _dummy_batch(snap.model, bucket, dtype))
+            if self.mesh is not None:
+                n_dp = shard_rules.axis_size(self.mesh, shard_rules.batch_axes(self.mesh))
+                rows = bucket // n_dp if shard_rules.splits_rows(bucket, self.mesh) else bucket
+                local = self._program(fn, (snap.state,), _dummy_batch(model, rows, dtype))
+                return dr_serve.make_dr_transform(model, self.mesh, batch_size=bucket,
+                                                  ensemble=snap.ensemble, local=local)
+            if snap.ensemble is None and model.execution.use_kernel:
+                return self._tuned_transform(model, snap.state, bucket, dtype)
+            return self._program(fn, (snap.state,), _dummy_batch(model, bucket, dtype))
 
         return self.cache.get_or_build(key, build)
 
@@ -834,7 +862,7 @@ class DRService:
 
     def _serve_rows(self, snap: Snapshot, x: torch.Tensor) -> torch.Tensor:
         """Run (R, m) rows through bucketed batches; returns (R, n) rows in
-        order."""
+        order ((k, R, n) for ensembles)."""
         outs = []
         i, step = 0, self.buckets.max_bucket
         while i < x.shape[0]:
@@ -842,11 +870,13 @@ class DRService:
             rows = chunk.shape[0]
             bucket = self.buckets.bucket_for(rows)
             fn = self._transform_fn(snap, bucket, x.dtype)
-            if chunk.device.type == "cuda":
-                # a captured program: it pads into its own input buffer
+            if chunk.device.type == "cuda" and self.mesh is None and not snap.ensemble:
+                # a captured row-wise program: it pads into its own input buffer
                 y = fn(snap.state, chunk)
             else:
-                y = fn(snap.state, _pad_rows(chunk, bucket))[:rows]
+                # a meshed answer is gathered whole before its rows are cut
+                y = shard_rules.full(fn(snap.state, _pad_rows(chunk, bucket)))
+                y = y[:, :rows] if snap.ensemble else y[:rows]
             outs.append(y)
             with self._metrics_lock:
                 self.padded_rows += bucket - rows
@@ -855,4 +885,4 @@ class DRService:
             i += rows
         if len(outs) == 1:
             return outs[0]
-        return torch.cat(outs, dim=0)
+        return torch.cat(outs, dim=1 if snap.ensemble else 0)

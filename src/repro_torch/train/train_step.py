@@ -1,7 +1,8 @@
-"""The single-device train step: loss → autograd → AdamW, remat,
-grad-accumulation, and the DR front-end co-trained inside the step.
+"""The train step: loss → autograd → AdamW, remat, grad-accumulation,
+the DR front-end co-trained inside the step, on one card or a mesh, and
+the data-parallel step with the RP-compressed gradient sync.
 
-The JAX package's `train/train_step.py` without its mesh.  `make_train_step`
+The JAX package's `train/train_step.py`.  `make_train_step`
 returns a callable `(state, batch) -> (state, metrics)`: the loss
 (`api.loss_fn`, each layer under checkpoint with `remat`) and its
 gradients by autograd, `optimizer.apply_updates`, then, for a
@@ -13,21 +14,39 @@ caller's `Execution`, so with `backend="kernel"` attention's forward runs
 the flash kernel, the front-end's transform the fused-transform kernel and
 the DR update the ternary-matmul and EASI kernels.
 
-The reference's mesh path (`make_train_step`'s shardings) and its
-RP-compressed data-parallel step (`make_dp_compressed_step`) need several
-cards (ROADMAP A10): `make_train_step` raises for a mesh or a
-`grad_compress`.
+On a mesh (`make_train_step(..., mesh=)`) the state is stored as
+`state_specs` lays it out — params and AdamW m / v sharded by
+`param_specs`, as DTensors (`dist.sharding.lay_out`); the DR unit and the
+counters replicated — and the batch shards over the DP axes.  The step
+itself computes on whole copies: each rank gathers every param, runs the DR
+front-end on the whole (micro-)batch as the reference's unsplit program
+does, takes the loss and its gradients on its own rows (under `use_mesh`:
+a MoE layer goes expert-parallel), averages the whole gradients over the
+DP axes, clips them by their global norm, keeps its shard of each and runs
+AdamW on its shards only.  So the sharded storage saves memory between
+steps, not during one: per-layer gathers and reduce-scattered gradients
+are still to come (ROADMAP).  The DR unit's update sees the whole batch on
+every rank, so it stays replicated.  Without a mesh the same body runs as
+a world of one rank.
+
+`make_dp_compressed_step` is the reference's pure-DP variant: params
+replicated, each rank's gradients synced through `compress.compress_sync`
+(B3 sketches averaged over the DP axes, error feedback per rank), the loss
+averaged over the DP axes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import tree as tree_mod
 from repro_torch.core import dr_unit
 from repro_torch.core.execution import Execution
+from repro_torch.dist import compress as compress_mod
+from repro_torch.dist import sharding as shard_rules
 from repro_torch.models import api
 from repro_torch.models.config import ArchConfig
 from repro_torch.train import optimizer as opt_mod
@@ -42,7 +61,7 @@ class TrainConfig:
     opt: opt_mod.AdamWConfig = opt_mod.AdamWConfig()
     remat: bool = True
     grad_accum: int = 1
-    grad_compress: Optional[Any] = None   # the reference's CompressConfig (ROADMAP A10)
+    grad_compress: Optional[compress_mod.CompressConfig] = None
     seed: int = 0
 
 
@@ -71,6 +90,26 @@ def init_state(gen: torch.Generator, cfg: TrainConfig, *,
     dr = dr_unit.init(gen, dcfg, execution=execution) if dcfg is not None else None
     return TrainState(params=params, opt=opt_mod.init(params), dr=dr,
                       step=torch.zeros((), dtype=torch.int32))
+
+
+def state_specs(state: TrainState, mesh) -> shard_rules.Specs:
+    """{path: spec} of a train state: params and AdamW m / v by
+    `param_specs`, everything else replicated (`()`)."""
+    pspec = shard_rules.param_specs(state.params, mesh)
+    out = {f".params{p}": sp for p, sp in pspec.items()}
+    out[".opt.step"] = ()
+    for moment in ("m", "v"):
+        out.update({f".opt.{moment}{p}": sp for p, sp in pspec.items()})
+    if state.dr is not None:
+        out.update({".dr.r": (), ".dr.b": (), ".dr.steps": ()})
+    out[".step"] = ()
+    return out
+
+
+def lay_out_state(state: TrainState, mesh) -> TrainState:
+    """`state` (the same on every rank) laid out on `mesh` by
+    `state_specs`."""
+    return shard_rules.lay_out(state, state_specs(state, mesh), mesh)
 
 
 def _dr_normalize(flat: torch.Tensor) -> torch.Tensor:
@@ -117,6 +156,28 @@ def value_and_grad(loss_fn, params: Tree, dr, batch) -> Tuple[torch.Tensor, dict
             opt_mod.tree_unflatten(params, grads))
 
 
+def _micro_batches(batch: Dict[str, torch.Tensor], k: int):
+    if k == 1:
+        return [batch]
+    return [{name: t.reshape((k, t.shape[0] // k) + t.shape[1:])[i] for name, t in batch.items()}
+            for i in range(k)]
+
+
+def _local_batch(batch: Dict[str, torch.Tensor], mesh, split: bool):
+    return {name: shard_rules.dp_rows(t, mesh, split) for name, t in batch.items()}
+
+
+def _relaid(new_local: torch.Tensor, like):
+    """`new_local` as a DTensor with `like`'s layout (`like` a DTensor), or
+    as it is."""
+    if not shard_rules.is_dtensor(like):
+        return new_local
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(new_local, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
 def make_train_step(cfg: TrainConfig, *, execution: Execution = Execution(), mesh=None):
     """Returns `step(state, batch) -> (state, metrics)` on the execution's
     device; `batch` holds CPU or device tensors (`tokens`, and `frames` or
@@ -124,39 +185,63 @@ def make_train_step(cfg: TrainConfig, *, execution: Execution = Execution(), mes
     is split into k micro-batches along its first axis: their gradients are
     summed and divided by k, the loss averaged, the aux terms dropped, as
     the reference's scan does.  `metrics` holds `loss`, `grad_norm`, `lr`
-    and the loss's aux terms."""
-    if mesh is not None:
-        raise NotImplementedError("the meshed train step (shardings over several cards) is "
-                                  "not ported yet (ROADMAP A10)")
-    if cfg.grad_compress is not None:
-        raise NotImplementedError("the RP-compressed data-parallel step (its in-collective "
-                                  "sync, dist.compress.compress_sync) is not ported yet "
-                                  "(ROADMAP A10)")
+    and the loss's aux terms.  `mesh=None` is a world of one rank: nothing
+    is gathered, split or reduced."""
+    shard_rules.check_mesh(mesh)
     dev = execution.torch_device()
     dcfg = _dr_cfg(cfg.arch)
-    loss_fn = make_loss(cfg, dcfg, execution=execution)
+    dax = shard_rules.batch_axes(mesh)
     k = cfg.grad_accum
+    no_clip = dataclasses.replace(cfg.opt, grad_clip=None)
+
+    def loss_fn(params, _dr, batch):
+        return api.loss_fn(params, batch, cfg.arch, remat=cfg.remat, execution=execution)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        batch = {name: torch.as_tensor(t).to(dev) for name, t in batch.items()
+        batch = {name: torch.as_tensor(shard_rules.full(t)).to(dev) for name, t in batch.items()
                  if name != "step"}
-        if k > 1:
-            gsum, lsum = None, 0.0
-            for i in range(k):
-                micro = {name: t.reshape((k, t.shape[0] // k) + t.shape[1:])[i]
-                         for name, t in batch.items()}
-                loss, _, g = value_and_grad(loss_fn, state.params, state.dr, micro)
-                gsum = g if gsum is None else opt_mod.tree_map(torch.add, gsum, g)
-                lsum = lsum + loss
-            grads = opt_mod.tree_map(lambda t: t / k, gsum)
-            loss, aux = lsum / k, {}
-        else:
-            loss, aux, grads = value_and_grad(loss_fn, state.params, state.dr, batch)
+        params = shard_rules.full_tree(state.params)
+        gsum, lsum, aux, split = None, 0.0, {}, False
+        for micro in _micro_batches(batch, k):
+            # the front-end's normalisation reads the whole (micro-)batch
+            micro = _apply_dr_frontend(state.dr, dcfg, micro, execution=execution)
+            split = shard_rules.splits_rows(next(iter(micro.values())).shape[0], mesh)
+            with shard_rules.use_mesh(mesh, rows_split=split):
+                loss, aux, g = value_and_grad(loss_fn, params, None,
+                                              _local_batch(micro, mesh, split))
+            gsum = g if gsum is None else opt_mod.tree_map(torch.add, gsum, g)
+            lsum = lsum + loss
+        del params
         with torch.no_grad():
-            params, opt_state, metrics = opt_mod.apply_updates(state.params, grads, state.opt,
-                                                               cfg.opt)
+            grads = gsum if k == 1 else opt_mod.tree_map(lambda t: t / k, gsum)
+            del gsum
+            loss, aux = (lsum, aux) if k == 1 else (lsum / k, {})
+            if split:
+                for t in opt_mod.tree_leaves(grads) + [loss] + list(aux.values()):
+                    shard_rules.all_reduce_mean_(t, mesh, dax)
+            if cfg.opt.grad_clip is not None:
+                grads, gnorm = opt_mod.clip_by_global_norm(grads, cfg.opt.grad_clip)
+            else:
+                gnorm = opt_mod.global_norm(grads)
+            if mesh is not None:
+                # each rank updates its own shard of params and AdamW m / v
+                specs = shard_rules.param_specs(state.params, mesh)
+                paths = [p for p, _ in tree_mod.flatten_with_path(state.params)]
+                grads = opt_mod.tree_unflatten(state.params, (
+                    shard_rules.local_slice(g, specs[p], mesh)
+                    for p, g in zip(paths, opt_mod.tree_leaves(grads))))
+            loc = lambda tree: opt_mod.tree_map(shard_rules.local, tree)
+            params, opt_state, metrics = opt_mod.apply_updates(
+                loc(state.params), grads, state.opt._replace(m=loc(state.opt.m),
+                                                            v=loc(state.opt.v)), no_clip)
             del grads
-            # DR front-end: streaming EASI update on this batch's raw features
+            metrics["grad_norm"] = gnorm
+            relay = lambda new, like: opt_mod.tree_map(_relaid, new, like)
+            params = relay(params, state.params)
+            opt_state = opt_state._replace(m=relay(opt_state.m, state.opt.m),
+                                           v=relay(opt_state.v, state.opt.v))
+            # DR front-end: streaming EASI update on this batch's raw features,
+            # the whole batch on every rank, so the DR unit stays replicated
             dr = state.dr
             if dr is not None:
                 key = "frames" if "frames" in batch else "patches"
@@ -164,5 +249,55 @@ def make_train_step(cfg: TrainConfig, *, execution: Execution = Execution(), mes
                 dr = dr_unit.update(dr, dcfg, feats[:DR_UPDATE_ROWS], execution=execution)
         new_state = TrainState(params=params, opt=opt_state, dr=dr, step=state.step + 1)
         return new_state, {"loss": loss, **metrics, **aux}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# pure-DP variant with the RP-compressed gradient sync
+# ---------------------------------------------------------------------------
+
+def make_dp_compressed_step(cfg: TrainConfig, mesh, *, execution: Execution = Execution(),
+                            r: Optional[Dict[int, torch.Tensor]] = None,
+                            inspect: Optional[Callable[..., None]] = None):
+    """Returns `step(state, batch, ef) -> (state, ef, metrics)`:
+    replicated params (plain tensors, the same on every rank), the batch
+    split over the DP axes, each rank's gradients (its rows through the DR
+    front-end and the loss) synced by `compress_sync` with its own error
+    feedback `ef` (start from `compress.residual_init(state.params)`), the
+    loss averaged over the DP axes, then AdamW on every rank alike.  The DR
+    unit is not updated, as in the reference's.  `r`: the sync's R per leaf
+    (parity tests); `inspect(grads, ef, synced, new_ef)` sees each step's
+    sync."""
+    if cfg.grad_compress is None:
+        raise ValueError("make_dp_compressed_step needs TrainConfig.grad_compress")
+    shard_rules.check_mesh(mesh)
+    if mesh is None:
+        raise ValueError("make_dp_compressed_step needs a mesh")
+    dev = execution.torch_device()
+    dcfg = _dr_cfg(cfg.arch)
+    loss_fn = make_loss(cfg, dcfg, execution=execution)
+    ax = shard_rules.batch_axes(mesh)
+    n_dp = shard_rules.axis_size(mesh, ax)
+
+    def step(state: TrainState, batch, ef):
+        batch = {name: torch.as_tensor(shard_rules.full(t)).to(dev) for name, t in batch.items()
+                 if name != "step"}
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n_dp:
+            raise ValueError(f"a batch of {rows} rows does not split over {n_dp} DP ranks")
+        loss, _, grads = value_and_grad(loss_fn, state.params, state.dr,
+                                        _local_batch(batch, mesh, n_dp > 1))
+        with torch.no_grad():
+            synced, new_ef = compress_mod.compress_sync(
+                grads, ef, cfg.grad_compress, ax, mesh=mesh, backend=execution.backend, r=r)
+            if inspect is not None:
+                inspect(grads, ef, synced, new_ef)
+            del grads
+            loss = shard_rules.all_reduce_mean_(loss.clone(), mesh, ax)
+            params, opt_state, metrics = opt_mod.apply_updates(state.params, synced, state.opt,
+                                                               cfg.opt)
+        return (TrainState(params=params, opt=opt_state, dr=state.dr, step=state.step + 1),
+                new_ef, {"loss": loss, **metrics})
 
     return step

@@ -1,7 +1,10 @@
 """Fault-tolerant training loop: auto-resume, deterministic data, straggler
 watchdog, preemption-safe checkpointing.
 
-The JAX package's `train/trainer.py` on one device.  Restart contract:
+The JAX package's `train/trainer.py`, on one card or over a mesh
+(`mesh=`: the state laid out by `train_step.state_specs`, the meshed
+step, checkpoints gathered and written by rank 0; a restore lays every leaf
+out for the CURRENT mesh, whatever mesh saved it).  Restart contract:
 batches are a pure function of (seed, step) (`data.synthetic`), so resuming
 from step k replays nothing and skips nothing.  The trainer restores the
 newest valid checkpoint (quarantining corrupt ones) into a freshly
@@ -81,7 +84,7 @@ def make_batch(arch, data_cfg: synthetic.TokenStreamConfig, step: int) -> Dict[s
     return out
 
 
-def train(cfg: TrainerConfig, *, execution: Execution = Execution(),
+def train(cfg: TrainerConfig, *, execution: Execution = Execution(), mesh=None,
           data_cfg: Optional[synthetic.TokenStreamConfig] = None,
           log: Callable[[str], None] = print) -> Dict[str, Any]:
     """Run (or resume) to `total_steps`: {"state", "losses" (this call's
@@ -95,14 +98,16 @@ def train(cfg: TrainerConfig, *, execution: Execution = Execution(),
                             config_tag=config_hash((arch, cfg.train.opt)))
     state = ts_mod.init_state(torch.Generator(device=dev).manual_seed(cfg.train.seed),
                               cfg.train, execution=execution)
-    # auto-resume: the newest valid checkpoint, each leaf where the fresh
-    # state's lies
+    if mesh is not None:
+        state = ts_mod.lay_out_state(state, mesh)
+    # auto-resume: the newest valid checkpoint, each leaf where (and laid
+    # out as) the fresh state's lies
     start_step, state = mgr.restore(state)
     start_step = 0 if start_step is None else start_step
     if start_step:
         log(f"[trainer] resumed from step {start_step}")
 
-    step_fn = ts_mod.make_train_step(cfg.train, execution=execution)
+    step_fn = ts_mod.make_train_step(cfg.train, execution=execution, mesh=mesh)
     watchdog = StragglerWatchdog(cfg.straggler_factor, cfg.straggler_min_steps)
     losses = []
     try:

@@ -370,9 +370,14 @@ class TestCompressionMath:
         assert sizes[32] == sizes[1] // 32
 
     def test_compress_sync_names_a10(self):
+        """The gradient sync (ROADMAP A10, the mesh path) beside the fleet's
+        merge: on a world of one rank its synced tree plus its new carry
+        is the gradient plus the old carry, leaf by leaf."""
         v = _toy_tree(4)
-        with pytest.raises(NotImplementedError, match="A10"):
-            compress.compress_sync(v, residual_init(v), CFG8, ("data",))
+        ef = residual_init(v)
+        synced, new_ef = compress.compress_sync(v, ef, CFG8, ("data",), mesh=None)
+        for g, s, e in zip(*(tree_mod.leaves(t) for t in (v, synced, new_ef))):
+            np.testing.assert_allclose((s + e).numpy(), g.numpy(), rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

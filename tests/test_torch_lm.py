@@ -291,9 +291,10 @@ def test_serve_steps_build_once_per_signature_within_the_bound():
     serve_step.make_prefill(cfg, None, params, batch, 32, cache=lru, execution=CPU)
     serve_step.make_prefill(cfg, None, params, batch, 24, cache=lru, execution=CPU_KERNEL)
     assert (lru.misses, lru.evictions, len(lru)) == (4, 2, 2)
-    with pytest.raises(NotImplementedError, match="A10"):
+    # a mesh must be a named DeviceMesh (the meshed steps: tests/test_torch_mesh.py)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         serve_step.make_prefill(cfg, object(), params, batch, 24, cache=lru, execution=CPU)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         serve_step.make_decode(cfg, object(), params, cache, cache=lru, execution=CPU)
 
 

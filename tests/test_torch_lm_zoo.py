@@ -289,5 +289,5 @@ def test_service_lm_steps_share_the_dr_programs_cache():
     assert td.result()[0].shape == (2, cfg.padded_vocab)
     assert svc.cache.misses == dr_builds + 2 and len(svc.cache) == 3
     assert svc.prefill_step(cfg, None, params, batch, 24, execution=CPU)[0] is fn
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         svc.lm_prefill(cfg, object(), params, batch, 24, execution=CPU)

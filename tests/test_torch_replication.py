@@ -592,12 +592,11 @@ def test_tcp_fleet_multiprocess(tmp_path):
 
 
 def test_serve_exports_the_references_names():
-    """`repro_torch.serve` exports what `repro.serve` does, but for the mesh
-    adapters (`dr_serve`, ROADMAP A10)."""
+    """`repro_torch.serve` exports what `repro.serve` does, the mesh
+    adapters (`dr_serve`, `dr_transform`, `make_dr_transform`) included."""
     import repro.serve as jserve
     import repro_torch.serve as tserve
 
-    left_out = {"dr_serve", "dr_transform", "make_dr_transform"}
-    assert set(jserve.__all__) - left_out == set(tserve.__all__)
+    assert set(jserve.__all__) == set(tserve.__all__)
     for name in tserve.__all__:
         assert hasattr(tserve, name), name

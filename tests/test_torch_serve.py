@@ -561,21 +561,28 @@ class TestStateHash:
         assert copy.stages[1] is not ts.stages[1] and durability.state_hash(copy) == h
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda: DRService(mesh=object()), "A10"),
-    (lambda: compress.compress_sync([], [], compress.CompressConfig(), ("data",)), "A10"),
-    (lambda: DRService().register("e", _tmodel(), _states(0)[1], ensemble=2), "A4c"),
-    # the LM steps run with mesh=None only (tests/test_torch_lm_zoo.py)
-    (lambda: DRService().prefill_step(None, object(), None, None, 8), "A10"),
-    (lambda: DRService().decode_step(None, object(), None, None, None), "A10"),
-    (lambda: DRService().lm_prefill(None, object(), None, None, 8), "A10"),
-    (lambda: DRService().lm_decode(None, object(), None, None, None), "A10"),
+@pytest.mark.parametrize("call,exc,item", [
+    # the mesh path and ensembles are ported (tests/test_torch_mesh.py,
+    # tests/test_torch_dist.py, tests/test_torch_ensemble.py): what is
+    # refused now is a mesh that is not a DeviceMesh, a gradient sync with
+    # no mesh argument, and an ensemble state without its member axis
+    (lambda: DRService(mesh=object()), TypeError, "DeviceMesh"),
+    (lambda: compress.compress_sync([], [], compress.CompressConfig(), ("data",)), TypeError,
+     "mesh"),
+    (lambda: DRService().register("e", _tmodel(), _states(0)[1], ensemble=2), ValueError,
+     r"leading \(2,\) axis"),
+    (lambda: DRService().prefill_step(None, object(), None, None, 8), TypeError, "DeviceMesh"),
+    (lambda: DRService().decode_step(None, object(), None, None, None), TypeError,
+     "DeviceMesh"),
+    (lambda: DRService().lm_prefill(None, object(), None, None, 8), TypeError, "DeviceMesh"),
+    (lambda: DRService().lm_decode(None, object(), None, None, None), TypeError, "DeviceMesh"),
     (lambda: DeadlineScheduler(DRService(), start=False).lm_prefill(None, object(), None, None,
-                                                                    8), "A10"),
+                                                                    8), TypeError,
+     "DeviceMesh"),
 ], ids=["mesh", "compress_sync", "ensemble", "prefill_step", "decode_step", "lm_prefill",
         "lm_decode", "scheduler_lm_prefill"])
-def test_not_ported_paths_name_their_item(call, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_not_ported_paths_name_their_item(call, exc, item):
+    with pytest.raises(exc, match=item):
         call()
 
 

@@ -52,6 +52,7 @@ from repro_torch.checkpoint import CheckpointManager, leaf_hash
 from repro_torch.checkpoint.manager import flatten_with_path
 from repro_torch.configs import registry as t_registry
 from repro_torch.data import synthetic as t_synthetic
+from repro_torch.dist import compress as t_compress
 from repro_torch.kernels import ref as t_ref
 from repro_torch.launch import train as t_launch
 from repro_torch.models import api as t_api
@@ -435,11 +436,18 @@ def test_train_step_matches_a_reference_step(case):
 
 
 def test_train_step_refuses_what_needs_a_mesh():
+    """A mesh must be a named `DeviceMesh` (the meshed step itself is
+    tests/test_torch_mesh.py's); the compressed DP step needs a
+    `grad_compress` and a mesh."""
     _, tc = configs("smollm_135m")
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         t_ts.make_train_step(t_ts.TrainConfig(arch=tc), execution=CPU, mesh=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        t_ts.make_train_step(t_ts.TrainConfig(arch=tc, grad_compress=object()), execution=CPU)
+    with pytest.raises(ValueError, match="grad_compress"):
+        t_ts.make_dp_compressed_step(t_ts.TrainConfig(arch=tc), None, execution=CPU)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        t_ts.make_dp_compressed_step(
+            t_ts.TrainConfig(arch=tc, grad_compress=t_compress.CompressConfig()), None,
+            execution=CPU)
 
 
 def test_training_entry_points_without_a_card_raise(tmp_path):
@@ -456,7 +464,8 @@ def test_training_entry_points_without_a_card_raise(tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    with pytest.raises(NotImplementedError, match="A10"):
+    # the multi-pod mesh needs 512 ranks; one process has one
+    with pytest.raises(ValueError, match="needs a world size of 512"):
         t_launch.main(["--arch", "smollm_135m", "--smoke", "--multi-pod", "--device", "cpu"])
 
 

@@ -1,0 +1,293 @@
+"""Rank programs of the port's multi-rank mesh tests.
+
+`spawn(scenario, world, directory, inputs)` saves `inputs` under
+`directory`, starts `world` processes of this file (`python
+torch_mesh_ranks.py <scenario> <rank> <world> <directory>`), each with one
+thread, a gloo process group through a `FileStore` under `directory` (so
+xdist workers never share a port) and a time limit, and returns every
+rank's result dict.  A rank imports torch and the port only: `jax_loaded`
+in each result says whether anything brought JAX in.  The reference's
+numbers are computed by the test process and compared there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+
+
+def spawn(scenario: str, world: int, directory, inputs, *, timeout: float = 240.0):
+    d = Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    torch.save(inputs, d / "inputs.pt")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs, logs = [], []
+    for r in range(world):
+        log = open(d / f"rank{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, scenario, str(r), str(world), str(d)],
+            env=env, stdout=log, stderr=subprocess.STDOUT))
+    end = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        text = (d / f"rank{bad[0]}.log").read_text()[-4000:]
+        raise AssertionError(f"{scenario}: ranks {bad} failed (exit "
+                             f"{[procs[r].returncode for r in bad]}):\n{text}")
+    return [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# helpers shared by the scenarios
+# ---------------------------------------------------------------------------
+
+def _cpu(backend="kernel"):
+    from repro_torch.core.execution import Execution
+
+    return Execution(backend=backend, device="cpu")
+
+
+def _mesh(shape, names=("data", "model")):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def _gathered(tree):
+    """{path: numpy} of a (laid-out) tree; collective."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.dist import sharding
+
+    return {p: np.asarray(v) for p, v in tree_mod.flatten_with_path(sharding.to_numpy(tree))}
+
+
+def _local_shapes(tree, mesh):
+    """{path: (local shape, the shape its spec gives)} of a laid-out tree's
+    DTensor leaves."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.dist import sharding
+
+    out = {}
+    for p, v in tree_mod.flatten_with_path(tree):
+        if sharding.is_dtensor(v):
+            want = list(v.shape)
+            for dim, ax in enumerate(sharding.spec_of(v)):
+                want[dim] //= sharding.axis_size(mesh, ax)
+            out[p] = (tuple(v.to_local().shape), tuple(want))
+    return out
+
+
+def _train_cases(rank, inputs, mesh, out, key="train"):
+    from repro_torch.train import train_step as ts
+
+    for name, case in inputs.get(key, {}).items():
+        state = ts.lay_out_state(case["state"], mesh)
+        step = ts.make_train_step(case["tcfg"], execution=_cpu(), mesh=mesh)
+        metrics = []
+        for batch in case["batches"]:
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        shapes = _local_shapes(state, mesh)
+        leaves = _gathered(state)
+        out[f"train/{name}"] = {"metrics": metrics, "shapes": shapes,
+                                "leaves": leaves if rank == 0 else None}
+
+
+# ---------------------------------------------------------------------------
+# scenarios
+# ---------------------------------------------------------------------------
+
+def scenario_mesh_2x2(rank, world, inputs, d):
+    """(2 data, 2 model): the meshed train steps; on (4 data, 1 model) the
+    MoE train step without expert parallelism and the RP-compressed DP step;
+    a sharded checkpoint saved over 4 ranks, and the trainer's resume on the
+    mesh."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist import compress
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import trainer
+
+    out = {}
+    mesh = _mesh((2, 2))
+    _train_cases(rank, inputs, mesh, out)
+
+    dmesh = _mesh((4, 1))
+    _train_cases(rank, inputs, dmesh, out, key="train_data_mesh")
+
+    dp = inputs["dp"]
+    r = {int(i): torch.as_tensor(v) for i, v in dp["r"].items()}
+    seen = []
+    step = ts.make_dp_compressed_step(dp["tcfg"], dmesh, execution=_cpu(), r=r,
+                                      inspect=lambda *a: seen.append(a))
+    state, ef = dp["state"], compress.residual_init(dp["state"].params)
+    metrics = []
+    for batch in dp["batches"]:
+        state, ef, m = step(state, batch, ef)
+        metrics.append({k: float(v) for k, v in m.items()})
+    # synced + new error feedback = gradient + old error feedback, on every
+    # compressed leaf (the plain-mean leaves keep their carry)
+    min_size = dp["tcfg"].grad_compress.min_size
+    ident = max(float(torch.max(torch.abs(s + e2 - g - e1)) / torch.max(torch.abs(g + e1)))
+                for g, e1, s, e2 in zip(*(tree_mod.leaves(t) for t in seen[0]))
+                if g.numel() >= min_size)
+    out["dp"] = {"metrics": metrics, "ident": ident,
+                 "params": _gathered(state.params) if rank == 0 else None,
+                 "ef": _gathered(ef)}
+
+    ck = inputs["elastic"]
+    saved = ts.lay_out_state(ck["state"], mesh)
+    CheckpointManager(ck["dir"], async_save=False).save(1, saved)
+    out["elastic_saved_shapes"] = _local_shapes(saved, mesh)
+
+    tr = inputs["trainer"]
+    quiet = dict(execution=_cpu("torch"), mesh=mesh, data_cfg=tr["data"], log=lambda s: None)
+    cfg = lambda sub, **kw: dataclasses.replace(tr["cfg"], ckpt_dir=os.path.join(d, sub), **kw)
+    full = trainer.train(cfg("a"), **quiet)
+    first = trainer.train(cfg("b", total_steps=3), **quiet)
+    resumed = trainer.train(cfg("b"), **quiet)
+    long = trainer.train(cfg("c", total_steps=12, ckpt_every=20), **quiet)
+    out["trainer"] = {"full": full["losses"], "first": first["losses"],
+                      "resumed": resumed["losses"], "start": resumed["start_step"],
+                      "full_params": _gathered(full["state"].params),
+                      "resumed_params": _gathered(resumed["state"].params),
+                      "long": long["losses"]}
+    return out
+
+
+def scenario_mesh_4x2(rank, world, inputs, d):
+    """(4 data, 2 model): `dr_transform` at an odd and an even batch,
+    `DRService(mesh=)` over ragged rows, the meshed train steps, meshed
+    prefill + decode, and the elastic restore of the 4-rank checkpoint."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist import sharding
+    from repro_torch.serve import BucketPolicy, DRService, dr_serve, serve_step
+    from repro_torch.train import train_step as ts
+
+    out = {}
+    mesh = _mesh((4, 2))
+
+    dr = inputs["dr"]
+    model, state = dr["model"], dr["state"]
+    for name, x in dr["x"].items():
+        y = dr_serve.dr_transform(model, state, x, mesh=mesh)
+        out[f"dr/{name}"] = {"y": sharding.full(y).numpy(), "spec": sharding.spec_of(y),
+                             "local": tuple(y.to_local().shape)}
+    svc = DRService(mesh=mesh, buckets=BucketPolicy(min_bucket=8, max_bucket=64))
+    svc.register("m", model, state)
+    out["service"] = {"answers": {n: svc.transform("m", x).numpy()
+                                  for n, x in dr["rows"].items()},
+                      "misses": svc.cache.misses}
+
+    _train_cases(rank, inputs, mesh, out)
+
+    for name, case in inputs["serve"].items():
+        cfg, params = case["cfg"], case["params"]
+        laid = sharding.lay_out(params, sharding.param_specs(params, mesh), mesh)
+        exe = _cpu()
+        pre = serve_step.make_prefill(cfg, mesh, laid, case["batch"], case["cache_size"],
+                                      execution=exe)
+        logits, cache = pre(laid, case["batch"])
+        steps = [sharding.full(logits).numpy()]
+        placements = {k: sharding.spec_of(v) for k, v in cache.items()
+                      if sharding.is_dtensor(v)}
+        dec = serve_step.make_decode(cfg, mesh, laid, cache, execution=exe)
+        for tok in case["forced"]:
+            logits, cache = dec(laid, tok, cache)
+            steps.append(sharding.full(logits).numpy())
+        out[f"serve/{name}"] = {"logits": steps, "cache": _gathered(cache),
+                                "specs": placements, "shapes": _local_shapes(cache, mesh)}
+
+    ck = inputs["elastic"]
+    target = ts.lay_out_state(ck["target"], mesh)
+    step, restored = CheckpointManager(ck["dir"]).restore(target)
+    out["elastic"] = {"step": step, "leaves": _gathered(restored),
+                      "shapes": _local_shapes(restored, mesh)}
+    return out
+
+
+def scenario_dist_8(rank, world, inputs, d):
+    """8 ranks: expert-parallel MoE on (2 data, 4 model), its gradients,
+    and `compress_sync` over (8 data,)."""
+    from repro_torch.dist import compress, sharding
+    from repro_torch.models import blocks
+
+    out = {}
+    moe = inputs["moe"]
+    mesh = _mesh((2, 4))
+    params, x, spec = moe["params"], moe["x"], moe["spec"]
+    di = mesh.get_local_rank("data")
+    rows = x.shape[0] // 2
+    x_loc = x[di * rows:(di + 1) * rows]
+    with sharding.use_mesh(mesh, rows_split=True):
+        y, aux = blocks.moe_layer(params, x_loc, spec, "silu")
+    out["moe"] = {"y": y.numpy(), "aux": {k: float(v) for k, v in aux.items()}, "data": di}
+    # gradients: sum over the DP ranks of <y, w> on each rank's rows
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    xl = x_loc.clone().requires_grad_(True)
+    with sharding.use_mesh(mesh, rows_split=True):
+        y, _ = blocks.moe_layer(p, xl, spec, "silu")
+    (y * moe["w"][di * rows:(di + 1) * rows]).sum().backward()
+    grads = {k: sharding.all_reduce_sum_(v.grad.clone(), mesh, "data").numpy()
+             for k, v in p.items()}
+    out["moe_grad"] = {"x": xl.grad.numpy(), "params": grads}
+
+    cs = inputs["compress"]
+    cmesh = _mesh((8,), ("data",))
+    g = cs["g"][rank:rank + 1]
+    cfg = cs["cfg"]
+    synced, ef = compress.compress_sync({"g": g}, {"g": torch.zeros_like(g)}, cfg, ("data",),
+                                        mesh=cmesh)
+    rr = {0: torch.as_tensor(cs["r"])}
+    synced_r, ef_r = compress.compress_sync({"g": g}, {"g": torch.zeros_like(g)}, cfg,
+                                            ("data",), mesh=cmesh, r=rr)
+    out["compress"] = {"synced": synced["g"].numpy(), "ef": ef["g"].numpy(),
+                       "synced_r": synced_r["g"].numpy(), "ef_r": ef_r["g"].numpy()}
+    return out
+
+
+SCENARIOS = {"mesh_2x2": scenario_mesh_2x2, "mesh_4x2": scenario_mesh_4x2,
+             "dist_8": scenario_dist_8}
+
+
+def main():
+    import torch.distributed as dist
+
+    scenario, rank, world, d = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(d, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        inputs = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+        out = SCENARIOS[scenario](rank, world, inputs, d)
+        out["jax_loaded"] = "jax" in sys.modules or "repro" in sys.modules
+        torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -17,6 +17,12 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 (`plan`: small, one launch; split, two) under each
                 (so, ho), each g, f32 and bf16; integers exact at the wide
                 shape for s = 1, 3 and p; two calls give the same bits
+  2b. resources — every template instance of the ten kernel bodies
+                (`resource_model.every_instance`): cudaFuncGetAttributes
+                through `csrc/attributes.cu` against the resource model —
+                static and dynamic shared bytes equal, registers at most the
+                launch-bounds ceiling, CTAs an SM at least the model's;
+                spilled bytes printed
   3. paper    — the paper's model rp24_easi_n16 (RP 32→24, rotation EASI
                 24→16, block 32) on Waveform-V2: init → fit (4000 rows, 40
                 epochs) → transform (1000 rows) → train-while-serve over
@@ -37,20 +43,30 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 update + transform through the kernels, then each kernel
                 timed beside its plain version, a cuBLAS yardstick and its
                 bound (fused_transform again with R at s = 3, ternary_matmul
-                at s = 3 and 1), and its launches per call counted around
-                one call at the wide shape and one at the paper block
+                at s = 3 and 1; both at each sparse tile template), and its
+                launches per call counted around one call at the wide shape
+                and one at the paper block
   5. serve    — the serving engine (`repro_torch.serve.DRService`) with the
                 wide model and the kernel backend in the reference's default
-                buckets (8 … 1024): `register` captures one CUDA graph per
-                bucket (launches counted per captured program, the body each
-                reaches); a ragged stream of requests through submit + flush,
-                each answer bit-identical to the eager kernel call on the
-                padded bucket and within OUT_TOL of the torch backend;
+                buckets (8 … 1024): `register` races the tile templates and
+                captures one CUDA graph per bucket (launches counted per
+                captured program, the body each reaches); a ragged stream of
+                requests through submit + flush, each answer bit-identical to
+                the eager kernel call on the padded bucket under the tiles
+                its bucket won and within OUT_TOL of the torch backend;
                 promote / rollback with no rebuild; train-while-serve (the
                 paper model's 5000 blocks of a 40-epoch fit and 8 wide blocks,
                 then promote, against `fit` on the torch backend); a threaded
                 DeadlineScheduler with four clients while a fifth thread
                 registers a second model; stand-in latency and rate numbers
+  5a. autotune — the tile race at register: the wide model (B1) and an
+                RP-only model of the wide width (B3) at buckets 8 … 1024 on a
+                real clock; per bucket the candidates, their times and the
+                winner, each candidate within OUT_TOL of the plain version,
+                the captured winner bit-identical to the eager call under its
+                tiles, a second host on a real clock with the same winners
+                and bits; register seconds with one candidate and with the
+                race (candidates timed on the card's clock)
   5b. fleet   — the wide model on three DRService hosts in one process (one
                 LocalBus, one VirtualClock; each a durable ReplicatedRegistry
                 under build/chip_smoke_fleet/, removed after, a pumped Elector
@@ -160,16 +176,22 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 the plain sketch, every synced leaf within 1e-5; synced +
                 new carry = gradient + old carry); meshed / unmeshed
                 host-paced times
+ 19. dryrun   — `launch/dryrun.py`: h2o at train-lm's cut on a one-rank
+                mesh built on fake CUDA tensors, its predicted peak within
+                10% of max_memory_allocated over the same step run for real,
+                its counted FLOPs at least 6·N·tokens; then the production
+                (16, 16) mesh's record for h2o train_4k
 
 It prints a `{"kernels": [...]}` JSON line, the card's line from nvidia-smi,
 and as its last line `{"ok": true, "device": {...}}`.  `--only fleet,fleet-tcp`
-(or `serve`, `mesh`) runs the card phase and the named phases alone and
-prints no contract line.  It imports nothing of
+(or `kernels`, `resources`, `wide`, `serve`, `autotune`, `mesh`, `dryrun`) runs
+the card phase and the named phases alone and prints no contract line.  It imports nothing of
 JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
@@ -577,6 +599,25 @@ def phase_kernels(dev, errs):
             n_checks += 1
     if bodies != {"dense", "sparse"}:
         fail(f"ternary_matmul: the edge cases reach only {sorted(bodies)}")
+    for (b, m, p, s, zero_rows) in TMM_EDGE:     # every tile template of the sparse body
+        if ternary_matmul.plan(b, m, p) == 0:
+            continue
+        cfg = rp.RPConfig(m=m, p=p, sparsity=s)
+        r = rp.sample_ternary(gen, cfg, ensure_nonzero_rows=not zero_rows)
+        if zero_rows:
+            r[::3] = 0
+        r = r.to(dev)
+        x = normal(b, m)
+        want = ternary_matmul.plain(x, r, scale=cfg.scale)
+        for bm, bp in tile_points():
+            kw = dict(scale=cfg.scale, block_m=bm, block_p=bp)
+            got = tmm(x, r, **kw)
+            note("ternary_matmul", torch.float32, check_close(
+                f"ternary_matmul b={b} m={m} p={p} s={cfg.s} tiles ({bm}, {bp}) "
+                f"plan={ternary_matmul.plan(b, m, p, bm, bp)}", got, want, **F32_TOL))
+            if not torch.equal(got, tmm(x, r, **kw)):
+                fail(f"ternary_matmul b={b} m={m} p={p} tiles ({bm}, {bp}): two calls differ")
+            n_checks += 1
     for s in (1, 3, None):                         # integers stay exact at every density
         r = rp.sample_ternary(gen, rp.RPConfig(m=WIDE["m"], p=WIDE["p"], sparsity=s)).to(dev)
         xi = torch.randint(-8, 8, (WIDE["block"], WIDE["m"]), generator=gen).to(torch.float32)
@@ -617,6 +658,28 @@ def phase_kernels(dev, errs):
             note("fused_transform", dtype, check_close(
                 f"fused_transform rows={rows} m={m} p={p} n={n} s={cfg.s} zero_rows={zero_rows} "
                 f"tiles={tiles} {dtype}", got, want, **tol))
+            n_checks += 1
+    for (rows, m, p, n, s, zero_rows) in FUSED_EDGE:   # every tile template of the sparse body
+        if fused_transform.tiles(rows, m, p) == 0:
+            continue
+        cfg = rp.RPConfig(m=m, p=p, sparsity=s)
+        r = rp.sample_ternary(gen, cfg, ensure_nonzero_rows=not zero_rows)
+        if zero_rows:
+            r[::3] = 0
+        r = r.to(dev)
+        x, bm_ = normal(rows, m), normal(n, p, scale=p ** -0.5)
+        want = fused_transform.plain(x, r, bm_, scale=cfg.scale)
+        for bm, bp in tile_points():
+            kw = dict(scale=cfg.scale, block_m=bm, block_p=bp)
+            tiles = fused_transform.tiles(rows, m, p, bm, bp)
+            bodies.add("sparse, one p tile" if tiles == 1 else "sparse, p split")
+            got = ft(x, r, bm_, **kw)
+            note("fused_transform", torch.float32, check_close(
+                f"fused_transform rows={rows} m={m} p={p} n={n} s={cfg.s} tiles ({bm}, {bp}) "
+                f"p tiles={tiles}", got, want, **F32_TOL))
+            if not torch.equal(got, ft(x, r, bm_, **kw)):
+                fail(f"fused_transform rows={rows} m={m} p={p} tiles ({bm}, {bp}): two calls "
+                     f"differ")
             n_checks += 1
     if len(bodies) != 3:
         fail(f"fused_transform: the edge cases reach only {sorted(bodies)}")
@@ -1029,7 +1092,7 @@ def paper_timings(model, state, blk, xte):
 # phase 4: the wide configuration, then timings
 # ---------------------------------------------------------------------------
 
-def phase_wide(dev, errs):
+def phase_wide(dev, errs, card_line):
     import torch
     from repro_torch.kernels import easi_update, fused_transform, ternary_matmul
     from repro_torch.dr import DRModel, EASIStage, Execution, RPStage
@@ -1151,6 +1214,20 @@ def phase_wide(dev, errs):
         print(f"[launches] {row['name']}: {per_call['wide']} a call at the wide shape, "
               f"{per_call['paper']} at the paper block")
     by_name = {row["name"]: row for row in rows}
+    # each sparse tile template of B1 and B3 at the wide row, in this one call;
+    # the rows above ran the default (Execution's 128 x 128: 32 x 64)
+    tile_calls = {
+        "ternary_matmul": lambda bm, bp: ternary_matmul.ternary_matmul(
+            x, r, scale=scale, block_m=bm, block_p=bp),
+        "fused_transform": lambda bm, bp: fused_transform.fused_transform(
+            x, r, b_mat, scale=scale, block_m=bm, block_p=bp)}
+    for name, call in tile_calls.items():
+        per = {f"{bm}x{bp}": time_graph(lambda bm=bm, bp=bp: call(bm, bp))
+               for bm, bp in tile_points()}
+        by_name[name]["tile_device_ms"] = per
+        print(f"[time] {name} {by_name[name]['shape']} ({card_line}) device-only ms by tile "
+              f"(rows of x x rows of R a CTA): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in per.items()))
     by_name["fused_transform"]["density_s3"] = fused_density_timing(x, b_mat, bt)
     for s in (3, 1):
         by_name["ternary_matmul"][f"density_s{s}"] = tmm_density_timing(x, s)
@@ -1318,18 +1395,54 @@ def serve_program_launches(svc):
     return out
 
 
-def eager_served(model, state, xs, policy):
+def tile_points():
+    """B1's and B3's sparse tile templates, (rows of x, rows of R at most) a
+    CTA: the resource model's TILE_ROWS x TILE_P, which `[resources]` holds
+    against the card."""
+    from repro_torch.kernels import resource_model
+
+    return [(bm, bp) for bm in resource_model.TILE_ROWS for bp in resource_model.TILE_P]
+
+
+def with_tiles(model, tiles):
+    """`model` with its Execution's tmm_block_* set to `tiles` (a TileConfig)."""
+    import dataclasses
+
+    return model.with_execution(dataclasses.replace(
+        model.execution, tmm_block_m=tiles.block_m, tmm_block_p=tiles.block_p,
+        tmm_block_k=tiles.block_k))
+
+
+def served_tiles(svc, name, policy):
+    """The tiles each of `name`'s bucket programs won its race with."""
+    import torch
+    from repro_torch.kernels.autotune import TunedProgram
+
+    out = {}
+    for b in policy.buckets():
+        prog = svc._transform_fn(svc.registry.get(name), b, torch.float32)
+        if not isinstance(prog, TunedProgram):
+            fail(f"serve: the bucket {b} program of {name!r} is a {type(prog).__name__}, not a "
+                 f"TunedProgram")
+        out[b] = prog.tiles
+    return out
+
+
+def eager_served(model, state, xs, policy, tiles=None):
     """What a flush of `xs` must return bit for bit: the requests coalesced,
     cut into max_bucket chunks, each padded to its bucket and run through the
-    model's own eager call."""
+    model's own eager call, under the tiles its bucket's program won with
+    (`tiles`, bucket -> TileConfig; the model's own where not given)."""
     import torch
 
     xcat = torch.cat(xs)
     outs = []
     for i in range(0, xcat.shape[0], policy.max_bucket):
         chunk = xcat[i:i + policy.max_bucket]
-        pad = chunk.new_zeros((policy.bucket_for(chunk.shape[0]) - chunk.shape[0], chunk.shape[1]))
-        outs.append(model.transform(state, torch.cat([chunk, pad]))[:chunk.shape[0]])
+        bucket = policy.bucket_for(chunk.shape[0])
+        pad = chunk.new_zeros((bucket - chunk.shape[0], chunk.shape[1]))
+        mdl = with_tiles(model, tiles[bucket]) if tiles else model
+        outs.append(mdl.transform(state, torch.cat([chunk, pad]))[:chunk.shape[0]])
     y, per, off = torch.cat(outs), [], 0
     for x in xs:
         per.append(y[off:off + x.shape[0]])
@@ -1351,8 +1464,10 @@ def phase_serve(dev, card_line):
     once; then the threaded DeadlineScheduler with a concurrent register."""
     import torch
     from repro_torch import kernels
+    import dataclasses
+
     from repro_torch.dr import DRModel, EASIStage, Execution, RPStage
-    from repro_torch.kernels import easi_update, fused_transform, ternary_matmul
+    from repro_torch.kernels import autotune, easi_update, fused_transform, ternary_matmul
     from repro_torch.serve import BucketPolicy, DRService
 
     m, p, n, blk = WIDE["m"], WIDE["p"], WIDE["n"], WIDE["block"]
@@ -1395,14 +1510,31 @@ def phase_serve(dev, card_line):
         fail(f"serve: register built {met['compile_cache']['misses']} programs and "
              f"{met['autotunes']} sweeps, want {len(policy.buckets())} each")
     at_register = kernels.launch_counts()
+    won = served_tiles(svc, "wide", policy)
+    at_register_programs = serve_program_launches(svc)
+    # at register every candidate of every bucket's race made one warm-up
+    # call and one capture; the losers were dropped
+    exe = wk.execution
+    first = autotune.TileConfig(exe.tmm_block_m, exe.tmm_block_p, exe.tmm_block_k)
+    n_cands, want_register = 0, 0
+    for b in policy.buckets():
+        for c in autotune.candidates(b, p, m, first=first):
+            t = fused_transform.tiles(b, m, p, c.block_m, c.block_p)
+            want_register += 2 * (2 if t > 1 else 1)
+            n_cands += 1
+    if at_register != {**dict.fromkeys(at_register, 0), "fused_transform": want_register}:
+        fail(f"serve: register launched {at_register}, want fused_transform {want_register} "
+             f"(a warm-up call and a capture of each of {n_cands} candidates)")
     per_bucket = {}
     for b in policy.buckets():
         launched, _ = program_stats(bucket_program(svc, "wide", b))
-        tiles = fused_transform.tiles(b, m, p)
+        w = won[b]
+        tiles = fused_transform.tiles(b, m, p, w.block_m, w.block_p)
         if launched != {"fused_transform": 2 if tiles > 1 else 1}:
             fail(f"serve: bucket {b} captured {launched}, want fused_transform's "
                  f"{'two launches (p split)' if tiles > 1 else 'one launch'}")
         per_bucket[b] = {"captured_launches": launched, "tiles": tiles,
+                         "won": list(dataclasses.astuple(w.effective(b, p, m))),
                          "body": "dense" if tiles == 0 else "sparse, one p tile" if tiles == 1
                          else f"sparse, p split in {tiles} (+ summing launch)"}
 
@@ -1455,13 +1587,14 @@ def phase_serve(dev, card_line):
     by_program = serve_program_launches(svc)
     # ---- end of the main path ----------------------------------------------
 
-    # Every launch the wrappers counted on the main path is a program's
-    # warm-up call or its capture: nothing ran eagerly besides.
+    # Every launch the wrappers counted on the main path after register is a
+    # program's warm-up call or its capture: nothing ran eagerly besides.
     for k, v in counts.items():
-        if v != by_program["warmup"][k] + by_program["captured"][k]:
-            fail(f"serve: {k} counted {v} launches on the serving path, but the programs' "
-                 f"warm-up calls and captures account for {by_program['warmup'][k]} + "
-                 f"{by_program['captured'][k]}")
+        built = (by_program["warmup"][k] + by_program["captured"][k]
+                 - at_register_programs["warmup"][k] - at_register_programs["captured"][k])
+        if v - at_register[k] != built:
+            fail(f"serve: {k} counted {v - at_register[k]} launches on the serving path after "
+                 f"register, but the programs built since account for {built}")
 
     missing = [k for k in ("ternary_matmul", "fused_transform", "easi_apply") if counts[k] <= 0]
     if missing:
@@ -1488,16 +1621,16 @@ def phase_serve(dev, card_line):
     # ---- checks ------------------------------------------------------------
     n_req = 0
     for win, outs in zip(windows, served):
-        for x, got, want in zip(win, outs, eager_served(wk, st1, win, policy)):
+        for x, got, want in zip(win, outs, eager_served(wk, st1, win, policy, won)):
             check_equal(f"serve: a request of {x.shape[0]} rows", got, want)
             check_close(f"serve: a request of {x.shape[0]} rows against the torch backend",
                         got, wt.transform(st1, x), **OUT_TOL)
             n_req += 1
     for x, a, r in zip(probe, after_promote, after_rollback):
         check_equal(f"serve: {x.shape[0]} rows after promote", a,
-                    eager_served(wk, st2, [x], policy)[0])
+                    eager_served(wk, st2, [x], policy, won)[0])
         check_equal(f"serve: {x.shape[0]} rows after rollback", r,
-                    eager_served(wk, st1, [x], policy)[0])
+                    eager_served(wk, st1, [x], policy, won)[0])
     for i, y in paper_answers:
         check_equal(f"serve: paper answer to block {i}", y, pk.transform(pst, paper_blocks[i]))
     fitted = pt.fit(pst, xtr, epochs=PAPER["epochs"])
@@ -1517,7 +1650,8 @@ def phase_serve(dev, card_line):
     err_wide = check_close("serve: wide B after stream + promote against fit (torch)",
                            wprom.b, wfit.b, **TRAJ_TOL)
     print(f"[serve] ({card_line}) register: {len(policy.buckets())} bucket programs captured in "
-          f"{t_register:.3f} s ({met['autotunes']} sweeps, one candidate each); per bucket: "
+          f"{t_register:.3f} s ({met['autotunes']} sweeps, {n_cands} candidates raced); per "
+          f"bucket: "
           + "; ".join(f"{b}: {v['captured_launches']} ({v['body']})" for b, v in per_bucket.items()))
     print(f"[serve] ({card_line}) ragged stream: {n_req} requests ({sum(x.shape[0] for w in windows for x in w)} "
           f"rows, windows of {SERVE_WINDOW}, plus {SERVE_BIG}) in {stream_batches} device "
@@ -1559,6 +1693,156 @@ def phase_serve(dev, card_line):
     print(f"[serve] ({card_line}) served {out['stream']['rows_per_s']:.0f} rows/s over the "
           f"ragged stream (host clock, ends in a synchronize); train-while-serve "
           f"{out['train_while_serve']['paper_rows_per_s']:.0f} rows/s at the paper width")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase: every kernel body's resources on the card against the resource model
+# ---------------------------------------------------------------------------
+
+def phase_resources(card_line):
+    """Each template instance of every kernel body (resource_model.every_instance):
+    cudaFuncGetAttributes (csrc/attributes.cu) against the model.  Static and
+    dynamic shared bytes must be equal, the registers the compiler gave at
+    most the __launch_bounds__ ceiling, and the CTAs an SM holds at least the
+    model's (which counts every thread at that ceiling); local (spilled) bytes
+    are printed."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import resource_model as rm
+
+    lib = _build.library()
+    rows, bad = [], []
+    for est in rm.every_instance():
+        name = f"{est.kernel}<{est.variant}>"
+        bad += est.validate()
+        out = (ctypes.c_int * 7)()
+        _build.raise_on_error(f"attributes of {name}",
+                              lib.repro_kernel_attributes(*est.lookup, est.threads, out))
+        regs, static, local, max_threads, dyn, ctas, _ = list(out)
+        if static != est.static_smem:
+            bad.append(f"{name}: static shared {static} B on the card, model {est.static_smem}")
+        if dyn != est.dynamic_smem:
+            bad.append(f"{name}: dynamic shared {dyn} B requested, model {est.dynamic_smem}")
+        if regs > est.reg_ceiling:
+            bad.append(f"{name}: {regs} registers > the launch-bounds ceiling {est.reg_ceiling}")
+        if ctas < est.ctas_per_sm:
+            bad.append(f"{name}: {ctas} CTAs an SM on the card, model {est.ctas_per_sm}")
+        if max_threads < est.threads:
+            bad.append(f"{name}: launches {est.threads} threads, the card allows {max_threads}")
+        rows.append({"kernel": est.kernel, "variant": est.variant, "regs": regs,
+                     "reg_ceiling": est.reg_ceiling, "static_smem": static,
+                     "dynamic_smem": dyn, "local_bytes": local, "ctas_per_sm": ctas,
+                     "ctas_per_sm_model": est.ctas_per_sm, "threads": est.threads,
+                     "cluster": est.cluster})
+    for r in rows:
+        print(f"[resources] {r['kernel']}<{r['variant']}>: regs {r['regs']} (ceiling "
+              f"{r['reg_ceiling']}), smem static {r['static_smem']} dynamic {r['dynamic_smem']}, "
+              f"local {r['local_bytes']} B, CTAs/SM {r['ctas_per_sm']} (model "
+              f"{r['ctas_per_sm_model']})")
+    if bad:
+        fail("resources: " + "; ".join(bad))
+    spills = sorted({f"{r['kernel']}<{r['variant']}>" for r in rows if r["local_bytes"]})
+    print(f"[resources] ({card_line}) {len(rows)} template instances of "
+          f"{len({r['kernel'] for r in rows})} bodies match the model; spilling: {spills or 'none'}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase: the tile race at register
+# ---------------------------------------------------------------------------
+
+def phase_autotune(dev, card_line):
+    """The wide model (B1's race) and an RP-only model of the wide width (B3's
+    race) registered at buckets 8 … 1024 on a real clock: register seconds
+    with one candidate a bucket (the model's own tiles) and with the race;
+    per bucket the candidates, their times and the winner; every candidate's
+    answer within OUT_TOL of the plain version; the captured winner
+    bit-identical to the eager call under its tiles; a second host on a real
+    clock choosing the same tiles and serving the same bits."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.dr import DRModel, EASIStage, Execution, RPStage
+    from repro_torch.kernels import autotune, fused_transform, ternary_matmul
+    from repro_torch.serve import BucketPolicy, DRService, MonotonicClock
+
+    m, p, n, blk = WIDE["m"], WIDE["p"], WIDE["n"], WIDE["block"]
+    policy = BucketPolicy(**SERVE_BUCKETS)
+    exe = Execution(backend="kernel", device=dev)
+    first = autotune.TileConfig(exe.tmm_block_m, exe.tmm_block_p, exe.tmm_block_k)
+    models = {"wide": DRModel(stages=(RPStage(m, p), EASIStage.rotation(p, n, mu=2e-4)),
+                              execution=exe, block_size=blk),
+              "rp": DRModel(stages=(RPStage(m, p),), execution=exe, block_size=blk)}
+    gen = torch.Generator().manual_seed(31)
+    out = {}
+    for name, model in models.items():
+        state = model.init(torch.Generator().manual_seed(0))
+        one = lambda rows, p_, m_, first=None, **kw: (first,)   # noqa: E731
+        with mock.patch.object(autotune, "candidates", one):
+            svc1 = DRService(buckets=policy, clock=MonotonicClock())
+            t0 = time.perf_counter()
+            svc1.register(name, model, state)
+            torch.cuda.synchronize()
+            t_one = time.perf_counter() - t0
+        del svc1
+        svc = DRService(buckets=policy, clock=MonotonicClock())
+        t0 = time.perf_counter()
+        svc.register(name, model, state)
+        torch.cuda.synchronize()
+        t_race = time.perf_counter() - t0
+        # a second host on a real clock races the same model: its winners,
+        # and with them its answers' bits, must be the first host's
+        twin = DRService(buckets=policy, clock=MonotonicClock())
+        twin.register(name, model, state)
+        won, twin_won = served_tiles(svc, name, policy), served_tiles(twin, name, policy)
+        if won != twin_won:
+            fail(f"autotune: {name}: two hosts on a real clock chose different tiles: "
+                 + ", ".join(f"bucket {b} {won[b]} / {twin_won[b]}" for b in won
+                             if won[b] != twin_won[b]))
+        r = state.stages[0]
+        scale = model.stages[0].rp_cfg(exe).scale
+        per_bucket = {}
+        for b in policy.buckets():
+            prog = svc._transform_fn(svc.registry.get(name), b, torch.float32)
+            cands = autotune.candidates(b, p, m, first=first)
+            if not isinstance(prog, autotune.TunedProgram) or \
+                    set(prog.timings_ms) != set(cands):
+                fail(f"autotune: {name} bucket {b}: the race did not time {cands}")
+            x = torch.randn((b, m), generator=gen).to(dev)
+            if name == "wide":
+                want = fused_transform.plain(x, r, state.stages[1], scale=scale)
+            else:
+                want = ternary_matmul.plain(x, r, scale=scale)
+            worst = 0.0
+            for c in cands:
+                kw = dict(scale=scale, block_m=c.block_m, block_p=c.block_p)
+                got = (fused_transform.fused_transform(x, r, state.stages[1], **kw)
+                       if name == "wide" else ternary_matmul.ternary_matmul(x, r, **kw))
+                worst = max(worst, check_close(
+                    f"autotune: {name} bucket {b} tiles {c.effective(b, p, m)}", got, want,
+                    **OUT_TOL))
+            served = svc.transform(name, x)
+            check_equal(f"autotune: {name} bucket {b}, the captured winner",
+                        served, with_tiles(model, prog.tiles).transform(state, x))
+            check_equal(f"autotune: {name} bucket {b}, two hosts on a real clock",
+                        twin.transform(name, x), served)
+            eff = lambda c: "x".join(map(str, dataclasses.astuple(c.effective(b, p, m))))  # noqa
+            per_bucket[str(b)] = {"winner": eff(prog.tiles),
+                                  "timings_ms": {eff(c): t for c, t in prog.timings_ms.items()},
+                                  "candidates": len(cands), "max_abs_err": worst}
+            print(f"[autotune] ({card_line}) {name} bucket {b}: winner {eff(prog.tiles)}; "
+                  + ", ".join(f"{eff(c)} {t:.4f}" for c, t in prog.timings_ms.items())
+                  + f" ms a call (device time: the fastest of 3 samples of 16 replays between "
+                  f"CUDA events); largest |err| against the plain version {worst:.3e}")
+        out[name] = {"register_s_one_candidate": t_one, "register_s_race": t_race,
+                     "per_bucket": per_bucket}
+        print(f"[autotune] ({card_line}) {name}: register {t_one:.3f} s with one candidate a "
+              f"bucket, {t_race:.3f} s with the race "
+              f"({sum(v['candidates'] for v in per_bucket.values())} candidates); a second "
+              f"host on a real clock chose the same tiles at every bucket and served the same "
+              f"bits")
     return out
 
 
@@ -2223,7 +2507,8 @@ def fleet_tcp_child(role, args, dev=None):
         raise RuntimeError(f"{t.host_id}: installed stages off the card: {off}")
     tickets = [svc.submit("wide", x) for x in reqs]
     svc.flush()
-    for x, tk, want in zip(reqs, tickets, eager_served(model, snap.state, reqs, policy)):
+    won = served_tiles(svc, "wide", policy)
+    for x, tk, want in zip(reqs, tickets, eager_served(model, snap.state, reqs, policy, won)):
         if not torch.equal(tk.result(), want):
             raise RuntimeError(f"{t.host_id}: {x.shape[0]} rows not bit-identical to the eager "
                                f"kernel call")
@@ -3989,7 +4274,7 @@ def phase_mesh(dev, card_line):
     from repro_torch.dr.model import member
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.models import api
-    from repro_torch.serve import BucketPolicy, DRService, dr_serve, serve_step
+    from repro_torch.serve import BucketPolicy, DRService, VirtualClock, dr_serve, serve_step
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train import train_step as ts
 
@@ -4034,7 +4319,9 @@ def phase_mesh(dev, card_line):
             answers += [t.result() for t in tickets]
         return answers
 
-    plain = DRService(buckets=BucketPolicy(**SERVE_BUCKETS))
+    # the meshed service serves with the model's own tiles (no race); a
+    # VirtualClock ties the unmeshed service's race, so it keeps them too
+    plain = DRService(buckets=BucketPolicy(**SERVE_BUCKETS), clock=VirtualClock())
     plain.register("wide", wk, st)
     want = stream(plain)
     want_x = {b: plain.transform("wide", x) for b, x in xs.items()}
@@ -4305,6 +4592,85 @@ def phase_mesh(dev, card_line):
     return total, out
 
 
+# ---------------------------------------------------------------------------
+# phase: the dry run against the step it predicts
+# ---------------------------------------------------------------------------
+
+DRYRUN_TOL = 0.10    # predicted peak within 10% of the measured one
+
+
+def phase_dryrun(dev, card_line):
+    """`launch/dryrun.py` on the card's machine: h2o at [train-lm]'s cut (8
+    layers, 2 x 4096, the reference's train_4k at batch 2) on a one-rank
+    mesh, built on fake CUDA tensors over a fake one-rank group, against the
+    same step run for real on a one-rank NCCL mesh: the predicted peak within
+    DRYRUN_TOL of max_memory_allocated over the step (reset just before, read
+    just after, less what earlier phases left allocated), and the counted
+    FLOPs at least the model FLOPs 6·N·tokens.  Then the production mesh's
+    record for h2o train_4k (no card memory)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    layers, batch, seq = TRAIN_LM["layers"], TRAIN_LM["batch"], TRAIN_LM["seq"]
+    cfg = dryrun.apply_cut(registry.get(LM_ARCH), layers=layers)
+    t0 = time.perf_counter()
+    with dryrun.fake_world(1):
+        pred = dryrun.build_and_count(cfg, "train_4k", dryrun.make_mesh("one", dev), batch=batch,
+                                      seq=seq, device=dev)
+    t_pred = time.perf_counter() - t0
+    count = pred["count"]
+    if not count.flops >= pred["model_flops"]:
+        fail(f"dryrun: counted {count.flops:.4e} FLOPs, under the model's 6·N·tokens "
+             f"{pred['model_flops']:.4e}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    mesh = make_smoke_mesh(1, device=dev)
+    try:
+        cell = dryrun.build_cell(cfg, "train_4k", mesh, batch=batch, seq=seq, device=dev,
+                                 fake=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = cell.run()
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+        measured = torch.cuda.max_memory_allocated(dev) - base
+        loss = float(out[1]["loss"])
+        del out, cell
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = abs(count.peak_bytes - measured) / measured
+    print(f"[dryrun] ({card_line}) h2o {layers} layers, {batch} x {seq}, one-rank mesh: "
+          f"predicted peak {count.peak_bytes / 2**30:.3f} GiB (fake CUDA tensors, built in "
+          f"{t_pred:.1f} s), measured {measured / 2**30:.3f} GiB (max_memory_allocated over "
+          f"one step of {t_step:.3f} s, loss {loss:.4f}): {100 * rel:.2f}% apart; counted "
+          f"{count.flops:.4e} FLOPs against 6·N·tokens {pred['model_flops']:.4e} "
+          f"(ratio {count.flops / pred['model_flops']:.3f}); kernels {json.dumps(count.kernels)}")
+    if not rel <= DRYRUN_TOL:
+        fail(f"dryrun: predicted peak {count.peak_bytes} B is {100 * rel:.2f}% from the "
+             f"measured {measured} B (bound {100 * DRYRUN_TOL:.0f}%)")
+
+    t0 = time.perf_counter()
+    prod = dryrun.run_cell(LM_ARCH, "train_4k", "single", verbose=False)
+    t_prod = time.perf_counter() - t0
+    shown = {k: v for k, v in prod.items() if k != "collective_calls"}
+    print(f"[dryrun] ({card_line}) production mesh, {LM_ARCH} train_4k (dry run, priced with "
+          f"H100 data-sheet figures; built in {t_prod:.1f} s): {json.dumps(shown)}")
+    return {"predicted_peak_bytes": count.peak_bytes, "measured_peak_bytes": measured,
+            "peak_rel_diff": rel, "flops": count.flops, "model_flops": pred["model_flops"],
+            "bytes": count.bytes, "build_s": t_pred, "step_s": t_step, "loss": loss,
+            "production_train_4k": shown}
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--fleet-tcp-child"]:
@@ -4314,7 +4680,8 @@ def main() -> int:
     if args[:1] == ["--only"] and len(args) == 2:
         only = args[1].split(",")
     elif args:
-        print("usage: chip_smoke.py [--only fleet,fleet-tcp,serve,mesh]", file=sys.stderr)
+        print("usage: chip_smoke.py [--only kernels,resources,wide,serve,autotune,fleet,"
+              "fleet-tcp,mesh,dryrun]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -4344,10 +4711,15 @@ def main() -> int:
         return out
 
     if only is not None:
-        standalone = {"fleet": lambda card: phase_fleet(dev, card),
+        standalone = {"kernels": lambda card: phase_kernels(dev, {}),
+                      "resources": phase_resources,
+                      "wide": lambda card: phase_wide(dev, {}, card),
+                      "fleet": lambda card: phase_fleet(dev, card),
                       "fleet-tcp": phase_fleet_tcp,
                       "serve": lambda card: phase_serve(dev, card),
-                      "mesh": lambda card: phase_mesh(dev, card)[1]}
+                      "autotune": lambda card: phase_autotune(dev, card),
+                      "mesh": lambda card: phase_mesh(dev, card)[1],
+                      "dryrun": lambda card: phase_dryrun(dev, card)}
         try:
             card_line = timed("card", phase_card)
             for name in only:
@@ -4363,10 +4735,12 @@ def main() -> int:
     try:
         card_line = timed("card", phase_card)
         timed("kernels", phase_kernels, dev, errs)
+        resources = timed("resources", phase_resources, card_line)
         counts, paper_times = timed("paper", phase_paper, dev)
         t1_counts, table1 = timed("table1", phase_table1, dev)
-        rows = timed("wide", phase_wide, dev, errs)
+        rows = timed("wide", phase_wide, dev, errs, card_line)
         serve = timed("serve", phase_serve, dev, card_line)
+        tuned = timed("autotune", phase_autotune, dev, card_line)
         fleet = timed("fleet", phase_fleet, dev, card_line)
         fleet_tcp = timed("fleet-tcp", phase_fleet_tcp, card_line)
         timed("flash", phase_flash, dev, errs)
@@ -4396,6 +4770,8 @@ def main() -> int:
         train_layer = timed("train-time", phase_train_time, dev)
         torch.cuda.empty_cache()
         mesh_counts, mesh_out = timed("mesh", phase_mesh, dev, card_line)
+        torch.cuda.empty_cache()
+        dryrun = timed("dryrun", phase_dryrun, dev, card_line)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4443,6 +4819,9 @@ def main() -> int:
              "trainer": trainer_out, "train_layer": train_layer}
     print(f"[train-steps] {json.dumps(train)}")
     print(f"[mesh-steps] {json.dumps(mesh_out)}")
+    print(f"[resources-steps] {json.dumps(resources)}")
+    print(f"[autotune-steps] {json.dumps(tuned)}")
+    print(f"[dryrun-steps] {json.dumps(dryrun)}")
     print(f"[phase-seconds] {json.dumps(seconds)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

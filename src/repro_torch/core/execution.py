@@ -13,10 +13,12 @@ caller asks for the CPU (`device="cpu"`, as the tests do).  With no card
 and no explicit "cpu", `resolve_device` raises; nothing drops to the CPU
 quietly.
 
-The tile fields mirror the JAX policy's and are kept for the autotuner
-(not ported yet); the present CUDA kernels use the fixed tiles set in their
-sources.  `dtype` is the compute dtype stages inherit unless they pin their
-own.
+The `tmm_block_*` fields name the tile template of B1's and B3's sparse
+bodies (`kernels/resource_model.effective_tiles` clamps them to the
+templates and the problem); the serving engine races the templates per
+bucket (`kernels/autotune.py`).  B2 and B4 choose their own tiles:
+`easi_block_m` mirrors the JAX policy's field and no kernel reads it.
+`dtype` is the compute dtype stages inherit unless they pin their own.
 """
 
 from __future__ import annotations
@@ -60,18 +62,31 @@ class Execution:
 
 def resolve_device(device: Any) -> torch.device:
     """The torch device an entry point runs on; raises for a CUDA device
-    when no card is present (no silent CPU fallback)."""
+    when no card is present (no silent CPU fallback).  Under a
+    FakeTensorMode (the dry run, `launch/dryrun.py`) tensors hold no data
+    and need no card: a torch built without CUDA has no CUDA device guard,
+    which in-place copies take, so there the card's fake tensors lie on the
+    meta device."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "port on the CPU")
+            if _active_fake_mode() is None:
+                raise RuntimeError(
+                    "no CUDA device is available; pass device='cpu' to run the "
+                    "port on the CPU")
+            if not torch.backends.cuda.is_built():
+                return torch.device("meta")
         # The f32 tolerances (1e-5) do not survive TF32, so every f32
         # matmul on the card runs in full IEEE f32.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
     return dev
+
+
+def _active_fake_mode():
+    from torch._guards import active_fake_mode
+
+    return active_fake_mode()
 
 
 TORCH = Execution(backend="torch")

@@ -112,7 +112,8 @@ def apply_rp(r_int8: torch.Tensor, x: torch.Tensor, cfg: RPConfig, *,
     if execution is not None and execution.use_kernel:
         from repro_torch.kernels import ops as kops
 
-        y = kops.ternary_matmul(x2, r_int8, scale=cfg.scale)
+        y = kops.ternary_matmul(x2, r_int8, scale=cfg.scale, block_m=execution.tmm_block_m,
+                                block_p=execution.tmm_block_p)
     else:
         y = _apply_dense(r_int8, x2, cfg.scale)
     return y.reshape(x.shape[:-1] + (cfg.p,))

@@ -309,9 +309,19 @@ def lay_out(tree: Any, specs: Specs, mesh, *, device=None) -> Any:
     return tree_mod.unflatten(tree, (one(p, l) for p, l in tree_mod.flatten_with_path(tree)))
 
 
+def contiguous_stride(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of `shape`, with no tensor made."""
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
 def _mesh_device(mesh) -> torch.device:
     if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
+        # a mesh over the dry run's fake group lives on a card it does not need
+        return torch.device("cuda", 0 if fake_group() else torch.cuda.current_device())
     return torch.device(mesh.device_type)
 
 
@@ -375,6 +385,12 @@ def gathered_except(x, keep: Sequence[str]) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # collectives on local tensors
 # ---------------------------------------------------------------------------
+
+def fake_group() -> bool:
+    """Whether the current process group is a fake one (backend "fake", as
+    the dry run starts: no communication, no card)."""
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
 
 def _groups(mesh, axes: AxisName):
     """(axis, group, size) for each axis of `axes` with more than one rank."""

@@ -205,5 +205,6 @@ def fused_pair_transform(rp: RPStage, easi: EASIStage, r_state: torch.Tensor,
 
     cfg = rp.rp_cfg(exe)
     x2 = x.reshape((-1, cfg.m)).to(cfg.dtype)
-    y = kops.fused_transform(x2, r_state, b_state, scale=cfg.scale)
+    y = kops.fused_transform(x2, r_state, b_state, scale=cfg.scale, block_m=exe.tmm_block_m,
+                             block_p=exe.tmm_block_p)
     return y.reshape(x.shape[:-1] + (easi.n,))

@@ -14,6 +14,8 @@
                     a replicated registry with failover (`examples/serve_lm.py`)
   lm_dr_frontend  — a DR front-end co-trained in a meshed LM train step
                     (`examples/lm_dr_frontend.py`)
+  roofline_table  — the dry-run sweep's roofline rows
+                    (`benchmarks/roofline_table.py`; no card needed)
 
 `run()` functions return rows in the reference's `(name, us, detail)` form.
 """

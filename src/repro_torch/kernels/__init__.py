@@ -7,7 +7,10 @@ spots:
   flash_attention — online-softmax attention forward (causal / SWA / GQA)
   ops             — the entry points the DR and LM layers call
   ref             — plain PyTorch versions (the CPU path and the ground truth)
-  autotune        — the serving engine's per-bucket tile sweep
+  autotune        — the serving engine's per-bucket tile race
+  resource_model  — each kernel body's threads, shared bytes, registers and
+                    occupancy on the H100, and the tile templates
+  fake            — the wrappers' shape-only branch for the dry run's fake tensors
 
 Sources live in `csrc/`; `_build` compiles them with nvcc at first use and
 loads them through ctypes.  Importing this package builds nothing.

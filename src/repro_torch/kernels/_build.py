@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("ternary_matmul.cu", "fused_transform.cu", "easi_update.cu",
-           "flash_attention.cu", "errors.cu")
+           "flash_attention.cu", "attributes.cu", "errors.cu")
 HEADERS = ("common.cuh", "ternary_encode.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -38,14 +38,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: argtypes (all entries return the cudaError_t as int)
-    "repro_ternary_matmul_plan": (_I, _I, _I, _IP),
-    "repro_ternary_matmul": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
-    "repro_fused_transform_tiles": (_I, _I, _I, _IP),
-    "repro_fused_transform": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "repro_ternary_matmul_plan": (_I, _I, _I, _I, _I, _IP),
+    "repro_ternary_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "repro_fused_transform_tiles": (_I, _I, _I, _I, _I, _IP),
+    "repro_fused_transform": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                              _P),
     "repro_easi_apply_plan": (_I, _I, _I, _I, _I, _IP),
     "repro_easi_apply": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                               _P),
+    "repro_kernel_attributes": (_I, _I, _I, _I, _I, _I, _I, _IP),
 }
 
 _lock = threading.Lock()

@@ -619,3 +619,29 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   return static_cast<int>(rc);
 }
 
+// A kernel body, for csrc/attributes.cu: body 0 the f32 FMA kernel with its
+// tile of Dh (dh 64 or 128), 1 the bf16 tensor-core kernel with its tile of
+// Dh (64 or 128) and vec 1 for 16-byte cp.async loads (0: element by
+// element).  *fn is the kernel, *dyn the dynamic shared bytes its launch
+// requests.
+extern "C" int repro_flash_attention_body(int body, int dh, int vec, int unused0, int unused1,
+                                          const void** fn, int* dyn) {
+  (void)unused0;
+  (void)unused1;
+  if (dh != 64 && dh != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const bool d64 = dh == 64;
+  if (body == 0) {
+    *fn = d64 ? (const void*)flash_attention_kernel<float, 64>
+              : (const void*)flash_attention_kernel<float, 128>;
+    *dyn = (int)(d64 ? smem_bytes<64>() : smem_bytes<128>());
+  } else if (body == 1) {
+    *fn = d64 ? (vec ? (const void*)flash_tc_kernel<64, true>
+                     : (const void*)flash_tc_kernel<64, false>)
+              : (vec ? (const void*)flash_tc_kernel<128, true>
+                     : (const void*)flash_tc_kernel<128, false>);
+    *dyn = (int)(d64 ? tc_smem_bytes<64>() : tc_smem_bytes<128>());
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}

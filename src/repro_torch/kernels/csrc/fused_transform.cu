@@ -20,10 +20,17 @@
 //     At these sizes its one short round trip per tile beats any encoding.
 //   - sparse, for larger R: work in proportion to R's nonzeros and a grid
 //     that fills the card.
-//       - Grid: (row tiles of 32) x (p tiles of pt rows of R).  pt (at most
-//         64) is chosen so that a small batch still puts about two CTAs on
-//         each SM (256 CTAs at (256, 1024, 256, 128)); where the row tiles
-//         alone fill the card, pt is 64.
+//       - Grid: (row tiles of 32 RL) x (p tiles of pt rows of R).  pt (at
+//         most PT) is chosen so that a small batch still puts about two CTAs
+//         on each SM (256 CTAs at (256, 1024, 256, 128) with 32-row tiles);
+//         where the row tiles alone fill the card, pt is PT.
+//       - Tiles: templated over RL (32 or 64 rows of x a CTA) and PT (at most
+//         16, 32 or 64 rows of R a CTA), ternary_encode.cuh's tile
+//         templates; the caller names one (Execution.tmm_block_m / _p,
+//         clamped by kernels/resource_model.py).  Each sums every output in
+//         a fixed order (within a p tile, then the partials in p-tile
+//         order), so it gives the same bits on every run; tiles that split
+//         p differently round differently.
 //       - Encoding and projection: ternary_encode.cuh (shared with
 //         ternary_matmul's sparse body): per-warp "nonzero" / "negative"
 //         ballot masks of R, built per call and never cached; lanes run
@@ -129,24 +136,27 @@ fused_transform_dense_kernel(const TX* __restrict__ x, const int8_t* __restrict_
 
 // ---- sparse body -----------------------------------------------------------
 
+template <int RL, int PT>
 struct FtSmem {
-  float ys[FT_PMAX][FT_ROWS];       // y tile; row r of x sits in column (r % 4) * 8 + r / 4
-  float xs[FT_WARPS][32][FT_XLD];   // a warp's staged chunk of x, transposed: xs[w][k][row]
-  int queue[FT_WARPS][FT_QUEUE];    // a warp's queued reads: col << 7 | j << 1 | negative
-  float bs[FT_BCAP + FT_NC];        // B's slice, bs[j * ld + col] (the pad keeps the last
-                                    // pass's out-of-range columns inside the array)
+  float ys[PT][FT_ROWS * RL];             // y tile; row 32 u + r of x sits in column
+                                          // 32 u + (r % 4) * 8 + r / 4
+  float xs[FT_WARPS][32][ft_xld<RL>()];   // a warp's staged chunk of x, transposed:
+                                          // xs[w][k][row]
+  int queue[FT_WARPS][FT_QUEUE];          // a warp's queued reads: col << 7 | j << 1 | negative
+  float bs[FT_BCAP + FT_NC];              // B's slice, bs[j * ld + col] (the pad keeps the
+                                          // last pass's out-of-range columns inside the array)
 };
 
-template <typename TX, typename TB>
+template <typename TX, typename TB, int RL, int PT>
 __global__ void __launch_bounds__(FT_THREADS, 2)
 fused_transform_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
                        const TB* __restrict__ bmat, TB* __restrict__ out,
                        float* __restrict__ part, int rows, int m, int p, int n, int pt,
                        float scale) {
   extern __shared__ __align__(16) unsigned char ft_smem[];
-  FtSmem& sm = *reinterpret_cast<FtSmem*>(ft_smem);
+  FtSmem<RL, PT>& sm = *reinterpret_cast<FtSmem<RL, PT>*>(ft_smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * FT_ROWS, p0 = blockIdx.y * pt;
+  const int row0 = blockIdx.x * FT_ROWS * RL, p0 = blockIdx.y * pt;
   const int np = min(pt, p - p0);
   // B's slice is held whole when it fits (else it is staged 64 output
   // columns at a time in the product); a thread's first FT_BPT elements
@@ -172,11 +182,12 @@ fused_transform_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
     }
   }
 
-  ft_project<FT_ROWS>(sm.ys, sm.xs[warp], sm.queue[warp], x, r, row0, rows, m, p0, np, scale,
-                      warp, lane);
+  ft_project<RL>(sm.ys, sm.xs[warp], sm.queue[warp], x, r, row0, rows, m, p0, np, scale, warp,
+                 lane);
 
-  // out tile (32 rows x n) += y (32 x np) @ B[:, p0 : p0 + np]^T; thread
-  // (rg, cc) owns rows rg + 4 i (ys columns 8 rg + i) of output column cc
+  // out tile (32 RL rows x n) += y (32 RL x np) @ B[:, p0 : p0 + np]^T; thread
+  // (rg, cc) owns rows 32 u + rg + 4 i (ys columns 32 u + 8 rg + i) of output
+  // column cc
   const int cc = tid % FT_NC, rg = tid / FT_NC;
   if (b_whole) {
     int c = tid / np1, j = tid % np1;
@@ -207,33 +218,41 @@ fused_transform_kernel(const TX* __restrict__ x, const int8_t* __restrict__ r,
       __syncthreads();
     }
     const float* bcol = sm.bs + (b_whole ? n0 : 0) + cc;
-    float acc[8];
+    float acc[RL][8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+    for (int u = 0; u < RL; ++u)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[u][k] = 0.f;
 #pragma unroll 4
     for (int j = 0; j < np; ++j) {
       const float bv = bcol[j * bld];
-      const float4 a = *reinterpret_cast<const float4*>(&sm.ys[j][8 * rg]);
-      const float4 b = *reinterpret_cast<const float4*>(&sm.ys[j][8 * rg + 4]);
-      acc[0] = fmaf(a.x, bv, acc[0]);
-      acc[1] = fmaf(a.y, bv, acc[1]);
-      acc[2] = fmaf(a.z, bv, acc[2]);
-      acc[3] = fmaf(a.w, bv, acc[3]);
-      acc[4] = fmaf(b.x, bv, acc[4]);
-      acc[5] = fmaf(b.y, bv, acc[5]);
-      acc[6] = fmaf(b.z, bv, acc[6]);
-      acc[7] = fmaf(b.w, bv, acc[7]);
+#pragma unroll
+      for (int u = 0; u < RL; ++u) {
+        const float4 a = *reinterpret_cast<const float4*>(&sm.ys[j][FT_ROWS * u + 8 * rg]);
+        const float4 b = *reinterpret_cast<const float4*>(&sm.ys[j][FT_ROWS * u + 8 * rg + 4]);
+        acc[u][0] = fmaf(a.x, bv, acc[u][0]);
+        acc[u][1] = fmaf(a.y, bv, acc[u][1]);
+        acc[u][2] = fmaf(a.z, bv, acc[u][2]);
+        acc[u][3] = fmaf(a.w, bv, acc[u][3]);
+        acc[u][4] = fmaf(b.x, bv, acc[u][4]);
+        acc[u][5] = fmaf(b.y, bv, acc[u][5]);
+        acc[u][6] = fmaf(b.z, bv, acc[u][6]);
+        acc[u][7] = fmaf(b.w, bv, acc[u][7]);
+      }
     }
     const int gn = n0 + cc;
     if (gn < n) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int g = row0 + rg + 4 * k;
-        if (g >= rows) continue;
-        if (gridDim.y == 1)
-          out[(size_t)g * n + gn] = from_f32<TB>(acc[k]);
-        else
-          part[((size_t)blockIdx.y * rows + g) * n + gn] = acc[k];
+      for (int u = 0; u < RL; ++u) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int g = row0 + FT_ROWS * u + rg + 4 * k;
+          if (g >= rows) continue;
+          if (gridDim.y == 1)
+            out[(size_t)g * n + gn] = from_f32<TB>(acc[u][k]);
+          else
+            part[((size_t)blockIdx.y * rows + g) * n + gn] = acc[u][k];
+        }
       }
     }
   }
@@ -263,9 +282,25 @@ fused_transform_sum_kernel(const float* __restrict__ part, TB* __restrict__ out,
   out[i] = from_f32<TB>(s);
 }
 
+template <typename TX, typename TB, int RL, int PT>
+cudaError_t launch_sparse(const TX* xt, const int8_t* r, const TB* bt, TB* ot, float* part,
+                          int rows, int m, int p, int n, int tiles, float scale,
+                          cudaStream_t stream) {
+  constexpr int bytes = (int)sizeof(FtSmem<RL, PT>);   // above 48 KB: opt in
+  const cudaError_t rc = cudaFuncSetAttribute(fused_transform_kernel<TX, TB, RL, PT>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return rc;
+  const int pt = ceil_div(p, tiles);
+  const dim3 grid(ceil_div(rows, FT_ROWS * RL), tiles);
+  fused_transform_kernel<TX, TB, RL, PT><<<grid, FT_THREADS, bytes, stream>>>(
+      xt, r, bt, ot, part, rows, m, p, n, pt, scale);
+  return cudaGetLastError();
+}
+
 template <typename TX, typename TB>
 cudaError_t launch(const void* x, const int8_t* r, const void* bmat, void* out, float* part,
-                   int rows, int m, int p, int n, int tiles, float scale, cudaStream_t stream) {
+                   int rows, int m, int p, int n, int tiles, int bm, int bp, float scale,
+                   cudaStream_t stream) {
   const TX* xt = static_cast<const TX*>(x);
   const TB* bt = static_cast<const TB*>(bmat);
   TB* ot = static_cast<TB*>(out);
@@ -275,14 +310,12 @@ cudaError_t launch(const void* x, const int8_t* r, const void* bmat, void* out, 
         xt, r, bt, ot, rows, m, p, n, scale);
     return cudaGetLastError();
   }
-  constexpr int bytes = (int)sizeof(FtSmem);   // above 48 KB: opt in
-  const cudaError_t rc = cudaFuncSetAttribute(fused_transform_kernel<TX, TB>,
-                                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t rc = ft_with_tile(bm, bp, cudaErrorInvalidValue, [&](auto t) {
+    using T = decltype(t);
+    return launch_sparse<TX, TB, T::RL, T::PT>(xt, r, bt, ot, part, rows, m, p, n, tiles, scale,
+                                               stream);
+  });
   if (rc != cudaSuccess) return rc;
-  const int pt = ceil_div(p, tiles);
-  const dim3 grid(ceil_div(rows, FT_ROWS), tiles);
-  fused_transform_kernel<TX, TB><<<grid, FT_THREADS, bytes, stream>>>(
-      xt, r, bt, ot, part, rows, m, p, n, pt, scale);
   if (tiles > 1) {
     const size_t count = (size_t)rows * n;
     cudaLaunchAttribute pdl[1];
@@ -301,13 +334,37 @@ cudaError_t launch(const void* x, const int8_t* r, const void* bmat, void* out, 
   return cudaGetLastError();
 }
 
+template <typename TX, typename TB>
+const void* sparse_body(int bm, int bp) {
+  return ft_with_tile(bm, bp, (const void*)nullptr, [](auto t) {
+    using T = decltype(t);
+    return (const void*)fused_transform_kernel<TX, TB, T::RL, T::PT>;
+  });
+}
+
+int sparse_bytes(int bm, int bp) {
+  return ft_with_tile(bm, bp, -1, [](auto t) {
+    using T = decltype(t);
+    return (int)sizeof(FtSmem<T::RL, T::PT>);
+  });
+}
+
+template <typename TX, typename TB>
+const void* body_of(int body, int bm, int bp) {
+  if (body == 0) return (const void*)fused_transform_dense_kernel<TX, TB>;
+  if (body == 1) return sparse_body<TX, TB>(bm, bp);
+  if (body == 2) return (const void*)fused_transform_sum_kernel<TB>;
+  return nullptr;
+}
+
 }  // namespace
 
-// The body a call of (rows, m, p) takes on the current device: *tiles = 0
-// for the dense body (one launch), else the number of p tiles of the sparse
-// body (one launch, and a second, the summing pass, when *tiles > 1).
-extern "C" int repro_fused_transform_tiles(int rows, int m, int p, int* tiles) {
-  if (rows < 1 || m < 0 || p < 0 || tiles == nullptr)
+// The body a call of (rows, m, p) with the sparse tile template (bm, bp)
+// takes on the current device: *tiles = 0 for the dense body (one launch),
+// else the number of p tiles of the sparse body (one launch, and a second,
+// the summing pass, when *tiles > 1).
+extern "C" int repro_fused_transform_tiles(int rows, int m, int p, int bm, int bp, int* tiles) {
+  if (rows < 1 || m < 0 || p < 0 || tiles == nullptr || !ft_tile_ok(bm, bp))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((long long)p * m < FT_DENSE_MAX_R) {
     *tiles = 0;
@@ -316,18 +373,20 @@ extern "C" int repro_fused_transform_tiles(int rows, int m, int p, int* tiles) {
   int sms = 0;
   const cudaError_t rc = sm_count(&sms);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  *tiles = ft_p_tiles(rows, p, sms);
+  *tiles = ft_p_tiles(rows, p, sms, bp, bm);
   return 0;
 }
 
-// tiles: what repro_fused_transform_tiles gave for (rows, m, p).  part: f32
-// scratch of tiles * rows * n values, written and read only when tiles > 1
-// (may be null otherwise).
+// tiles: what repro_fused_transform_tiles gave for (rows, m, p, bm, bp).
+// part: f32 scratch of tiles * rows * n values, written and read only when
+// tiles > 1 (may be null otherwise).
 extern "C" int repro_fused_transform(const void* x, const void* r, const void* bmat, void* out,
                                      void* part, int rows, int m, int p, int n, int tiles,
-                                     float scale, int x_dtype, int b_dtype, void* stream) {
+                                     int bm, int bp, float scale, int x_dtype, int b_dtype,
+                                     void* stream) {
   if (rows < 1 || n < 1 || m < 0 || m >= (1 << 24) || p < 0 || tiles < 0 ||
-      (tiles > 0 && (p < tiles || ceil_div(p, tiles) > FT_PMAX ||
+      !ft_tile_ok(bm, bp) ||
+      (tiles > 0 && (p < tiles || ceil_div(p, tiles) > bp ||
                      ceil_div(p, ceil_div(p, tiles)) != tiles)) ||
       (tiles > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -336,16 +395,36 @@ extern "C" int repro_fused_transform(const void* x, const void* r, const void* b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   if (x_dtype == kF32 && b_dtype == kF32) {
-    rc = launch<float, float>(x, r8, bmat, out, pf, rows, m, p, n, tiles, scale, s);
+    rc = launch<float, float>(x, r8, bmat, out, pf, rows, m, p, n, tiles, bm, bp, scale, s);
   } else if (x_dtype == kF32 && b_dtype == kBF16) {
-    rc = launch<float, __nv_bfloat16>(x, r8, bmat, out, pf, rows, m, p, n, tiles, scale, s);
+    rc = launch<float, __nv_bfloat16>(x, r8, bmat, out, pf, rows, m, p, n, tiles, bm, bp, scale,
+                                      s);
   } else if (x_dtype == kBF16 && b_dtype == kF32) {
-    rc = launch<__nv_bfloat16, float>(x, r8, bmat, out, pf, rows, m, p, n, tiles, scale, s);
+    rc = launch<__nv_bfloat16, float>(x, r8, bmat, out, pf, rows, m, p, n, tiles, bm, bp, scale,
+                                      s);
   } else if (x_dtype == kBF16 && b_dtype == kBF16) {
-    rc = launch<__nv_bfloat16, __nv_bfloat16>(x, r8, bmat, out, pf, rows, m, p, n, tiles, scale,
-                                              s);
+    rc = launch<__nv_bfloat16, __nv_bfloat16>(x, r8, bmat, out, pf, rows, m, p, n, tiles, bm,
+                                              bp, scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(rc);
+}
+
+// A kernel body, for csrc/attributes.cu: body 0 the dense body, 1 the sparse
+// body with the tile template (bm, bp), 2 the summing pass; dtypes as above.
+// *fn is the kernel, *dyn the dynamic shared bytes its launch requests.
+extern "C" int repro_fused_transform_body(int body, int x_dtype, int b_dtype, int bm, int bp,
+                                          const void** fn, int* dyn) {
+  if ((x_dtype != kF32 && x_dtype != kBF16) || (b_dtype != kF32 && b_dtype != kBF16) ||
+      (body == 1 && !ft_tile_ok(bm, bp)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool xf = x_dtype == kF32, bf = b_dtype == kF32;
+  *fn = xf ? (bf ? body_of<float, float>(body, bm, bp)
+                 : body_of<float, __nv_bfloat16>(body, bm, bp))
+           : (bf ? body_of<__nv_bfloat16, float>(body, bm, bp)
+                 : body_of<__nv_bfloat16, __nv_bfloat16>(body, bm, bp));
+  if (*fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  *dyn = body == 1 ? sparse_bytes(bm, bp) : 0;
+  return 0;
 }

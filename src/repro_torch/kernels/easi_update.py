@@ -17,7 +17,8 @@ cluster into f32 scratch this wrapper allocates, then B − μ G B tile by
 tile.  `launches` counts the kernel launches made: 1 or 2 a call.
 
 For a CPU tensor the wrapper runs the plain version (`ref.easi_apply_ref`);
-for a CUDA tensor it launches the kernel or raises.
+for a CUDA tensor it launches the kernel or raises.  A fake CUDA tensor (the
+dry run, `kernels/fake.py`) takes a shape-only branch that launches nothing.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake
 from repro_torch.kernels.ref import easi_apply_ref
 
 launches = 0   # kernel launches made by `easi_apply` in this process
@@ -60,6 +61,14 @@ def easi_apply(b_mat: torch.Tensor, y: torch.Tensor, *, mu: float,
         return plain(b_mat, y, mu=mu, second_order=second_order,
                      higher_order=higher_order, g_name=g_name)
     name = "easi_apply"
+    if fake.is_fake(b_mat):
+        n, m = b_mat.shape
+        bsz = y.shape[0]
+        out = torch.empty_like(b_mat)
+        grams = int(second_order) + int(higher_order)
+        fake.report(name, 2.0 * bsz * n * n * grams + 2.0 * n * n * m,
+                    fake.nbytes(y, b_mat, out))
+        return out
     _build.check_cuda(name, b_mat, y)
     if b_mat.ndim != 2 or y.ndim != 2 or b_mat.shape[0] != y.shape[1]:
         raise ValueError(f"{name}: want b (n, m) and y (b, n), got {tuple(b_mat.shape)} "

@@ -26,7 +26,10 @@ m + log(max(l, 1e-30)), the residual the attention backward
 written and the output is the same.
 
 For a CPU tensor the wrapper runs the plain version; for a CUDA tensor it
-launches the kernel for its dtype or raises.
+launches the kernel for its dtype or raises.  A fake CUDA tensor (the dry
+run, `kernels/fake.py`) takes a shape-only branch that launches nothing and
+allocates what the kernel's outputs take, never the S × S scores of the plain
+version.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake
 from repro_torch.kernels.ref import flash_attention_ref
 
 launches = 0   # kernel launches made by `flash_attention` in this process
@@ -57,6 +60,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return plain(q, k, v, causal=causal, window=window, q_offset=q_offset,
                      return_lse=return_lse)
     name = "flash_attention"
+    if fake.is_fake(q):
+        b, sq, hq, dh = q.shape
+        skv = k.shape[1]
+        out = torch.empty_like(q)
+        lse = q.new_empty((b, hq, sq), dtype=torch.float32) if return_lse else None
+        pairs = fake.visible_pairs(sq, skv, causal, window, q_offset)
+        fake.report(name, 4.0 * b * hq * dh * pairs, fake.nbytes(q, k, v, out, lse))
+        return (out, lse) if return_lse else out
     _build.check_cuda(name, q, k, v)
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: want q (B, Sq, Hq, Dh) and k, v (B, Skv, Hkv, Dh), got "

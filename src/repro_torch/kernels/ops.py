@@ -18,16 +18,21 @@ from repro_torch.kernels import fused_transform as _fused_kernel
 from repro_torch.kernels import ternary_matmul as _tmm_kernel
 
 
-def ternary_matmul(x: torch.Tensor, r_int8: torch.Tensor, *, scale: float = 1.0):
-    return _tmm_kernel.ternary_matmul(x.contiguous(), r_int8.contiguous(), scale=scale)
+def ternary_matmul(x: torch.Tensor, r_int8: torch.Tensor, *, scale: float = 1.0,
+                   block_m: int = 128, block_p: int = 128):
+    """scale · x Rᵀ; the tiles are an `Execution`'s `tmm_block_m` / `tmm_block_p`."""
+    return _tmm_kernel.ternary_matmul(x.contiguous(), r_int8.contiguous(), scale=scale,
+                                      block_m=block_m, block_p=block_p)
 
 
 def fused_transform(x: torch.Tensor, r_int8: torch.Tensor, b_mat: torch.Tensor, *,
-                    scale: float = 1.0):
+                    scale: float = 1.0, block_m: int = 128, block_p: int = 128):
     """Fused project + whiten: (scale · x Rᵀ) Bᵀ in one kernel (the serve
-    transform hot path)."""
+    transform hot path); the tiles are an `Execution`'s `tmm_block_m` /
+    `tmm_block_p`."""
     return _fused_kernel.fused_transform(x.contiguous(), r_int8.contiguous(),
-                                         b_mat.contiguous(), scale=scale)
+                                         b_mat.contiguous(), scale=scale, block_m=block_m,
+                                         block_p=block_p)
 
 
 def easi_apply(b_mat: torch.Tensor, y: torch.Tensor, cfg):

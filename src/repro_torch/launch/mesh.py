@@ -16,7 +16,9 @@ the tests do.
 
 With no process group yet, a launcher's environment (`RANK`,
 `WORLD_SIZE`, `MASTER_ADDR`, `MASTER_PORT`) starts one; without that
-environment the smoke mesh starts a one-rank group of its own.
+environment the smoke mesh starts a one-rank group of its own.  Over the
+dry run's fake process group (`launch/dryrun.py`, backend "fake", any world
+size) the production mesh builds with no card and no communication.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.execution import resolve_device
+from repro_torch.dist.sharding import fake_group
 
 PRODUCTION: dict = {
     False: ((16, 16), ("data", "model")),
@@ -51,9 +54,9 @@ def world_size() -> int:
 def ensure_group(device="cuda") -> None:
     """Start the process group if none exists: NCCL for a card, gloo for
     `device="cpu"`; from a launcher's environment, else one rank alone."""
-    dev = resolve_device(device)
     if dist.is_initialized():
         return
+    dev = resolve_device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
@@ -67,7 +70,9 @@ def ensure_group(device="cuda") -> None:
 def _mesh(device, shape: Tuple[int, ...], axes: Tuple[str, ...]):
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(resolve_device(device).type, shape, mesh_dim_names=axes)
+    # over the dry run's fake group a CUDA mesh needs no card
+    kind = torch.device(device).type if fake_group() else resolve_device(device).type
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"):

@@ -6,6 +6,7 @@
     decode_step(params, token, cache, cfg, *, execution, kv_rp_r) -> (logits, cache')
     init_cache(cfg, batch, size, *, execution)                    -> zero cache
     exact_param_counts(cfg)                                       -> (total, active)
+    input_specs(cfg, shape_name, *, mode, device)                 -> fake inputs  [dry run]
 
 `execution` is the port's `Execution`: its `device` ("cuda" unless the
 caller asks for "cpu"; with no card the entry points raise) and its
@@ -23,6 +24,7 @@ step loops, and with `remat` every layer runs under checkpoint.
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Any, Dict, Optional, Tuple
 
@@ -113,3 +115,71 @@ def init_cache(cfg: ArchConfig, batch: int, cache_size: int, *,
     if cfg.family == "rwkv6":
         return rwkv6.init_state(cfg, batch, dev)
     return _mod(cfg).init_cache(cfg, batch, cache_size, dev)
+
+
+# ---------------------------------------------------------------------------
+# assigned shape cells (the dry run's)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_supported(cfg: ArchConfig, shape_name: str) -> Tuple[bool, str]:
+    """Assignment rules: encoder archs skip decode; long_500k needs
+    sub-quadratic attention (SSM/hybrid/SWA)."""
+    cell = SHAPES[shape_name]
+    if not cfg.causal and cell.kind == "decode":
+        return False, "encoder-only arch has no decode step"
+    if shape_name == "long_500k":
+        subquad = cfg.family in ("rwkv6", "zamba") or cfg.sliding_window is not None
+        if not subquad:
+            return False, "pure full-attention arch; 500k cache excluded by assignment rule"
+    return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape_name: str, *, batch_override: Optional[int] = None,
+                seq_override: Optional[int] = None, mode=None, device="cuda") -> Dict[str, Any]:
+    """Fake stand-ins for every model input of this cell: tensors of the
+    cell's shapes and dtypes on `device` that hold no data, made under the
+    `FakeTensorMode` `mode` (a new one when None), so nothing of model size
+    is allocated and no card is needed.  Train and prefill cells get a
+    batch dict (`tokens`, plus `frames` for an audio front-end or
+    `patches` for a vision one); decode cells one token a sequence and the
+    cache `init_cache(cfg, b, s)` makes.  `batch_override` / `seq_override`
+    cut the cell's batch and length."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mode = mode if mode is not None else FakeTensorMode(allow_non_fake_inputs=True)
+    cell = SHAPES[shape_name]
+    b = batch_override or cell.global_batch
+    s = seq_override or cell.seq_len
+    dev = torch.device(device)
+    with mode:
+        if cell.kind in ("train", "prefill"):
+            d: Dict[str, Any] = {"tokens": torch.empty((b, s), dtype=torch.int32, device=dev)}
+            if cfg.frontend == "audio":
+                d["frames"] = torch.empty((b, s, cfg.frontend_dim), dtype=torch.float32,
+                                          device=dev)
+            elif cfg.frontend == "vision":
+                d["patches"] = torch.empty((b, cfg.frontend_seq, cfg.frontend_dim),
+                                           dtype=torch.float32, device=dev)
+            return {"batch": d}
+        # decode: one new token against a seq_len-deep cache
+        if cfg.family == "rwkv6":
+            cache = rwkv6.init_state(cfg, b, dev)
+        else:
+            cache = _mod(cfg).init_cache(cfg, b, s, dev)
+        return {"token": torch.empty((b,), dtype=torch.int32, device=dev), "cache": cache}

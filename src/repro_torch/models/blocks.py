@@ -288,13 +288,16 @@ def _route(x: torch.Tensor, router: torch.Tensor, spec: MoESpec):
     flat_e = top_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)                      # as jnp.argsort
     se = flat_e[order]
-    stok = torch.arange(t, device=x.device).repeat_interleave(k)[order]
+    # token of each flat choice (t rows of k), written without
+    # repeat_interleave / one_hot, whose CPU kernels read the data to size
+    # or check their output: the dry run counts the same ops on fake tensors
+    stok = torch.arange(t, device=x.device)[:, None].expand(t, k).reshape(-1)[order]
     sw = top_w.reshape(-1)[order]
     starts = torch.searchsorted(se, torch.arange(e, device=x.device))
     pos = torch.arange(t * k, device=x.device) - starts[se]
 
     me = probs.mean(dim=0)
-    ce = F.one_hot(top_e[:, 0], e).to(torch.float32).mean(dim=0)
+    ce = (top_e[:, :1] == torch.arange(e, device=x.device)).to(torch.float32).mean(dim=0)
     lb = e * torch.sum(me * ce)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return Routing(top_e, se, stok, sw, pos), {"moe_lb": lb, "moe_z": z * spec.router_z_coef}

@@ -69,7 +69,7 @@ def make_dr_transform(model, mesh, *, batch_size: Optional[int] = None,
             shape[rows_dim] *= n_dp
         return DTensor.from_local(y, mesh, shard_rules.placements(out_spec, mesh),
                                   run_check=False, shape=torch.Size(shape),
-                                  stride=torch.empty(shape, device="meta").stride())
+                                  stride=shard_rules.contiguous_stride(shape))
 
     return step
 

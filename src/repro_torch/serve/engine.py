@@ -832,13 +832,15 @@ class DRService:
         return self.cache.get_or_build(key, build)
 
     def _tuned_transform(self, model: Any, state: PyTree, bucket: int, dtype):
-        """Sweep the tile knobs for this (bucket, device) and return the
+        """Race the tile templates for this (bucket, device) and return the
         winning bucket program.  The returned `TunedProgram` carries the
-        winning `TileConfig` alongside the program, and it is THE value
-        cached under the transform key — a promote (same config hash) hits
-        the cache and never re-tunes, an eviction drops the program and its
-        tiles in one step, and a post-eviction rebuild runs the sweep
-        again."""
+        winning `TileConfig` and every candidate's time alongside the
+        program, and it is THE value cached under the transform key — a
+        promote (same config hash) hits the cache and never re-tunes, an
+        eviction drops the program and its tiles in one step, and a
+        post-eviction rebuild runs the race again.  The race times each
+        candidate's captured program on the card's clock; the service's
+        clock says whether time passes (`autotune.tune`)."""
         exe = model.execution
         # the leading matmul's dims bound the effective tile shapes; the
         # policy's own tiles race first so a hand-tiled Execution wins ties
@@ -855,7 +857,7 @@ class DRService:
             return self._program(model.with_execution(exe2).transform,
                                  (state,), x0)
 
-        prog = autotune.tune(cands, build_candidate, (state, x0))
+        prog = autotune.tune(cands, build_candidate, (state, x0), timer=self.clock.now)
         with self._metrics_lock:
             self.autotunes += 1
         return prog

@@ -108,15 +108,30 @@ def _laid_out(t: torch.Tensor, spec, mesh, rows_dim: int):
     return DTensor.from_local(loc if loc is t else loc.contiguous(), mesh,
                               shard_rules.placements(spec, mesh), run_check=False,
                               shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=shard_rules.contiguous_stride(shape))
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether `a` and `b` start at one place of one storage, read without
+    `data_ptr`, which the dry run's fake tensors do not have."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
+
+
+class _Shape:
+    """A leaf with a shape and nothing else, for the rules that read shapes."""
+
+    def __init__(self, shape):
+        self.shape = torch.Size(shape)
+        self.ndim = len(self.shape)
 
 
 def _global_specs(local_cache: Any, mesh, split: bool):
     """`cache_specs` of the global cache whose DP block `local_cache` is."""
     n = shard_rules.axis_size(mesh, shard_rules.batch_axes(mesh)) if split else 1
     like = tree_mod.tree_map(
-        lambda t: torch.empty((t.shape[0], t.shape[1] * n) + tuple(t.shape[2:]), device="meta")
-        if t.ndim >= 2 else torch.empty(t.shape, device="meta"), local_cache)
+        lambda t: _Shape((t.shape[0], t.shape[1] * n) + tuple(t.shape[2:]))
+        if t.ndim >= 2 else _Shape(t.shape), local_cache)
     return shard_rules.cache_specs(like, mesh)
 
 
@@ -160,7 +175,7 @@ def _meshed_decode(cfg: ArchConfig, mesh, execution: Execution):
                 rest = tuple(None if ax is not None and set(shard_rules.as_axes(ax)) <= set(keep)
                              else ax for ax in shard_rules.spec_of(old))
                 loc, mine = old.to_local(), shard_rules.local_slice(val, rest, mesh)
-                if mine.data_ptr() != loc.data_ptr():
+                if not _same_memory(mine, loc):
                     loc.copy_(mine)
                 out.append(old)
             else:

@@ -32,7 +32,7 @@ from repro.serve import durability as jdurability
 from repro_torch import bridge
 from repro_torch import dr as tdr
 from repro_torch.dist import compress
-from repro_torch.kernels import autotune
+from repro_torch.kernels import autotune, resource_model
 from repro_torch.serve import (BoundedCompileCache, BucketPolicy, DeadlineScheduler, DRService,
                                ModelRegistry, MonotonicClock, QueueFull, SchedulerClosed,
                                VirtualClock)
@@ -504,10 +504,21 @@ class TestTrainWhileServe:
 class TestAutotune:
     @pytest.mark.parametrize("rows,p,m", [(8, 16, 32), (1024, 256, 1024), (3, 7, 5)])
     def test_sweep_collapses_to_the_policy_tiles(self, rows, p, m):
+        """A dense problem (R under 65 536 entries: the dense body has one
+        tiling) collapses to the policy's own tiles; a sparse one races the
+        tile templates, the policy's first."""
         first = autotune.TileConfig(64, 256, 128)
-        assert autotune.candidates(rows, p, m, first=first) == (first,)
-        assert autotune.candidates(rows, p, m) == (autotune.KERNEL_CHOICE,)
-        assert first.effective(rows, p, m) == autotune.KERNEL_CHOICE
+        cands = autotune.candidates(rows, p, m, first=first)
+        assert cands[0] == first
+        if p * m < resource_model.DENSE_MAX_R:
+            assert cands == (first,)
+            assert autotune.candidates(rows, p, m) == (autotune.TileConfig(32, 16, 32),)
+            assert first.effective(rows, p, m) == autotune.TileConfig(
+                *resource_model.DENSE_TILES, resource_model.WORD)
+        else:
+            effs = [c.effective(rows, p, m) for c in cands]
+            assert len(effs) == len(set(effs)) == 6
+            assert first.effective(rows, p, m) == autotune.TileConfig(64, 64, 32)
 
     def test_single_candidate_skips_timing(self):
         built, calls = [], []
@@ -516,14 +527,17 @@ class TestAutotune:
             built.append(tiles)
             return lambda *a: calls.append(a)
 
-        prog = autotune.tune([autotune.TileConfig()], build, (None, torch.zeros(2)))
+        prog = autotune.tune([autotune.TileConfig()], build, (None, torch.zeros(2)),
+                             timer=None)
         assert built == [autotune.TileConfig()] and calls == [] and prog.device == "cpu"
         assert prog.tiles == autotune.TileConfig()
 
     def test_a_timed_race_is_refused(self):
+        """...without a timer: the service's clock decides whether a race of
+        several candidates sees time pass."""
         cands = [autotune.TileConfig(64, 128, 128), autotune.TileConfig(256, 128, 128)]
-        with pytest.raises(NotImplementedError, match="A4a"):
-            autotune.tune(cands, lambda t: (lambda x: x), (torch.ones(2),))
+        with pytest.raises(ValueError, match="needs a timer"):
+            autotune.tune(cands, lambda t: (lambda x: x), (torch.ones(2),), timer=None)
 
     def test_register_caches_one_tuned_program_per_bucket(self):
         tm = _tmodel()

@@ -4457,7 +4457,6 @@ def phase_mesh(dev, card_line):
     torch.cuda.empty_cache()
 
     # ---- one train step, meshed against unmeshed --------------------------
-    torch.cuda.reset_peak_memory_stats(dev)
     tcfg = ts.TrainConfig(arch=dataclasses.replace(cfg, n_layers=TRAIN_LM["layers"]))
     data = synthetic.TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_LM["seq"],
                                        global_batch=TRAIN_LM["batch"], seed=0)
@@ -4465,11 +4464,14 @@ def phase_mesh(dev, card_line):
 
     def one_step(msh):
         """The first step's metrics and updated params' leaf norms; the
-        second step's host-paced ms (the first pays the allocator)."""
+        second step's host-paced ms (the first pays the allocator); the
+        peak GiB allocated over both steps, the state included."""
         state = ts.init_state(torch.Generator(device=dev).manual_seed(11), tcfg, execution=kexe)
         if msh is not None:
             state = ts.lay_out_state(state, msh)
         step = ts.make_train_step(tcfg, execution=kexe, mesh=msh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         state, metrics = step(state, tbs[0])
         norms = {k: float(torch.linalg.vector_norm(sharding.full(v).to(torch.float32)))
                  for k, v in tree_mod.flatten_with_path(state.params)}
@@ -4478,14 +4480,13 @@ def phase_mesh(dev, card_line):
         state, _ = step(state, tbs[1])
         torch.cuda.synchronize()
         res = ({k: float(v) for k, v in metrics.items()}, norms,
-               (time.perf_counter() - t0) * 1e3)
+               (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated(dev) / 2**30)
         del state, step
         torch.cuda.empty_cache()
         return res
 
-    m_u, n_u, ms_u = one_step(None)
-    m_m, n_m, ms_m = path("train", lambda: one_step(mesh))
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    m_u, n_u, ms_u, peak_u = one_step(None)
+    m_m, n_m, ms_m, peak = path("train", lambda: one_step(mesh))
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
     loss_rel, gn_rel = rel(m_m["loss"], m_u["loss"]), rel(m_m["grad_norm"], m_u["grad_norm"])
     leaf_rel = max(rel(n_m[k], n_u[k]) for k in n_u)
@@ -4500,9 +4501,11 @@ def phase_mesh(dev, card_line):
           f"{TRAIN_LM['batch']} x {TRAIN_LM['seq']}): loss {m_m['loss']:.6f} meshed / "
           f"{m_u['loss']:.6f} unmeshed (relative {loss_rel:.3e}), grad norm relative "
           f"{gn_rel:.3e}, updated params' leaf norms relative {leaf_rel:.3e}; second step "
-          f"{ms_m:.1f} ms meshed / {ms_u:.1f} ms unmeshed host-paced; peak {peak:.1f} GiB")
+          f"{ms_m:.1f} ms meshed / {ms_u:.1f} ms unmeshed host-paced; peak {peak:.3f} GiB "
+          f"meshed / {peak_u:.3f} GiB unmeshed (the meshed step computes on its shards: on one "
+          f"rank every gather is a view); bit-identical: {bool(loss_rel == gn_rel == leaf_rel == 0)}")
     out["train"] = {"loss_rel": loss_rel, "grad_norm_rel": gn_rel, "leaf_norm_rel": leaf_rel,
-                    "peak_gib": peak}
+                    "peak_gib": peak, "peak_gib_unmeshed": peak_u}
 
     # ---- the RP-compressed data-parallel step -------------------------------
     dcfg = registry.get(MESH_DP["arch"])
@@ -4664,7 +4667,10 @@ def phase_dryrun(dev, card_line):
     t_prod = time.perf_counter() - t0
     shown = {k: v for k, v in prod.items() if k != "collective_calls"}
     print(f"[dryrun] ({card_line}) production mesh, {LM_ARCH} train_4k (dry run, priced with "
-          f"H100 data-sheet figures; built in {t_prod:.1f} s): {json.dumps(shown)}")
+          f"H100 data-sheet figures; built in {t_prod:.1f} s): per-rank peak "
+          f"{prod['peak_bytes_per_device'] / 1e9:.2f} GB over a stored state of "
+          f"{prod['state_bytes_per_device'] / 1e9:.2f} GB (each layer gathered inside its "
+          f"checkpointed body, gradients reduce-scattered); {json.dumps(shown)}")
     return {"predicted_peak_bytes": count.peak_bytes, "measured_peak_bytes": measured,
             "peak_rel_diff": rel, "flops": count.flops, "model_flops": pred["model_flops"],
             "bytes": count.bytes, "build_s": t_pred, "step_s": t_step, "loss": loss,

@@ -22,20 +22,28 @@ elsewhere), each rank slicing its own shard with no communication;
 `full` / `to_numpy` gather them back.  A spec of `()` leaves the tensor
 as it is: replicated by construction (the DR state, the host counters).
 
-Compute never sees a DTensor: every meshed entry point hands the model
-code and the kernels local tensors (`full`, `dp_rows`), and the
-collectives below move what crosses ranks.  `use_mesh` is the counterpart
-of the reference's `with mesh:` — the ambient mesh `moe_layer` reads to
-choose expert parallelism.  The reference's `constrain` (a layout hint
-inside its model code) has no counterpart: on local tensors it pins
-nothing.
+Compute never sees a DTensor, and computes on the shards a rank stores.
+`compute_params` hands the model code a rank's local params: every stacked
+`layers` leaf as a `LayerShard`, which a layer body gathers for that layer
+alone (`LayerShard.whole`), and every other leaf gathered once per step;
+both gathers are `GatherParam`, whose backward is the true adjoint of the
+step's loss (a reduce-scatter over the DP axes, this rank's block over
+`model`), so gradients come out of the backward as local shards and
+`global_norm` sums their squares over the axes each is split on.  A K/V
+cache keeps its sequence dim split over `model` (`kv_seq_shard`: decode
+scores a rank's own slots and merges over `model` through the
+log-sum-exp).  `use_mesh` is the counterpart of the reference's `with
+mesh:` — the ambient mesh the serving steps read for a K/V cache's
+slot split (the rest of the model code reads the mesh from its shards).  The
+reference's `constrain` (a layout hint inside its model code) has no
+counterpart: on local tensors it pins nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Dict, Iterator, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -170,6 +178,16 @@ def splits_rows(rows: int, mesh) -> bool:
     return bool(dax) and n > 1 and rows % n == 0
 
 
+def is_kv_leaf(path: str, leaf) -> bool:
+    """Whether a cache leaf is an attention K / V cache (layers, batch, slots, heads, dh)."""
+    return (path.endswith("['k']") or path.endswith("['v']")) and leaf.ndim >= 4
+
+
+def kv_splits(slots: int, mesh) -> bool:
+    """Whether a K/V cache of `slots` slots keeps them split over "model"."""
+    return "model" in axis_names(mesh) and _divisible(slots, mesh, "model")
+
+
 def cache_specs(cache: Any, mesh) -> Specs:
     """KV / recurrence-cache layout (layers, batch, seq?, ...): dim 1
     (batch) over the DP axes; for attention K/V caches dim 2 (sequence)
@@ -183,9 +201,7 @@ def cache_specs(cache: Any, mesh) -> Specs:
         spec: list = [None] * leaf.ndim
         if dax and _divisible(leaf.shape[1], mesh, dax):
             spec[1] = dax
-        is_kv = name.endswith("['k']") or name.endswith("['v']")
-        if (is_kv and leaf.ndim >= 4 and "model" in axis_names(mesh)
-                and _divisible(leaf.shape[2], mesh, "model")):
+        if is_kv_leaf(name, leaf) and kv_splits(leaf.shape[2], mesh):
             spec[2] = "model"
         out[name] = tuple(spec)
     return out
@@ -199,13 +215,12 @@ _AMBIENT = threading.local()
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, *, rows_split: bool = True) -> Iterator[Any]:
+def use_mesh(mesh, *, kv_split: bool = False) -> Iterator[Any]:
     """Make `mesh` the ambient mesh of this thread (the reference's
-    `with mesh:`).  `rows_split`: whether the rows this rank computes on are
-    its DP shard of the batch (False when the DP axes do not divide it and
-    every rank holds the whole batch)."""
+    `with mesh:`).  `kv_split`: whether the K/V cache the serving step makes
+    or holds keeps its slots split over "model" (`kv_seq_shard`)."""
     prev = getattr(_AMBIENT, "ctx", None)
-    _AMBIENT.ctx = (mesh, rows_split)
+    _AMBIENT.ctx = (mesh, kv_split)
     try:
         yield mesh
     finally:
@@ -218,9 +233,15 @@ def ambient_mesh():
     return None if ctx is None else ctx[0]
 
 
-def rows_split() -> bool:
+def kv_seq_shard() -> Tuple[Any, int, int]:
+    """(mesh, this rank's block, block count) of the K/V cache's slot dim
+    in the enclosing `use_mesh` block: split over "model" when the block
+    says so, else (mesh, 0, 1); (None, 0, 1) outside a mesh."""
     ctx = getattr(_AMBIENT, "ctx", None)
-    return bool(ctx is not None and ctx[1])
+    if ctx is None or not ctx[1]:
+        return (None if ctx is None else ctx[0]), 0, 1
+    mesh = ctx[0]
+    return mesh, mesh.get_local_rank("model"), axis_size(mesh, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -340,10 +361,6 @@ def full(x: Any) -> Any:
     return x.to_local() if _trivial(x) else x.full_tensor()
 
 
-def full_tree(tree: Any) -> Any:
-    return tree_mod.tree_map(full, tree)
-
-
 def to_numpy(tree: Any) -> Any:
     """A laid-out tree gathered back to numpy leaves (bf16 widened to f32)."""
     from repro_torch.bridge import to_array
@@ -368,20 +385,6 @@ def dp_rows(x: Any, mesh, split: bool) -> torch.Tensor:
                        mesh)
 
 
-def gathered_except(x, keep: Sequence[str]) -> torch.Tensor:
-    """A DTensor's local tensor with every mesh dim outside `keep` gathered
-    (the DP shard of a cache leaf with its sequence dim whole)."""
-    from torch.distributed.tensor import Replicate
-
-    mesh = x.device_mesh
-    names = axis_names(mesh)
-    new = [p if (names[i] in keep or mesh.size(i) == 1) else Replicate()
-           for i, p in enumerate(x.placements)]
-    if all(a == b for a, b in zip(new, x.placements)):
-        return x.to_local()
-    return x.redistribute(mesh, new).to_local()
-
-
 # ---------------------------------------------------------------------------
 # collectives on local tensors
 # ---------------------------------------------------------------------------
@@ -404,6 +407,12 @@ def all_reduce_sum_(t: torch.Tensor, mesh, axes: AxisName) -> torch.Tensor:
     return t
 
 
+def all_reduce_max_(t: torch.Tensor, mesh, axes: AxisName) -> torch.Tensor:
+    for _, g, _ in _groups(mesh, axes):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
+    return t
+
+
 def all_reduce_mean_(t: torch.Tensor, mesh, axes: AxisName) -> torch.Tensor:
     """In place: the mean of `t` over the ranks of `axes` (sum, then divide:
     gloo has no AVG)."""
@@ -423,6 +432,22 @@ def all_gather_cat(t: torch.Tensor, mesh, axes: AxisName, dim: int) -> torch.Ten
         parts = [torch.empty_like(t) for _ in range(size)]
         dist.all_gather(parts, t.contiguous(), group=g)
         t = torch.cat(parts, dim=dim)
+    return t
+
+
+# torch 2.13 calls it `reduce_scatter_single` (`reduce_scatter_tensor` a
+# deprecated alias that warns); torch 2.11 has only `reduce_scatter_tensor`
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def reduce_scatter_sum(t: torch.Tensor, mesh, axes: AxisName, dim: int) -> torch.Tensor:
+    """The sum of `t` over the ranks of `axes`, this rank's block of it
+    along `dim` (the first axis major, as `local_slice` blocks)."""
+    for _, g, size in _groups(mesh, axes):
+        front = t.movedim(dim, 0).contiguous()
+        out = front.new_empty((front.shape[0] // size,) + tuple(front.shape[1:]))
+        _REDUCE_SCATTER(out, front, op=dist.ReduceOp.SUM, group=g)
+        t = out.movedim(0, dim)
     return t
 
 
@@ -560,3 +585,176 @@ def _all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=mesh.get_group(axis))
     return out
+
+
+# ---------------------------------------------------------------------------
+# compute on shards: the params a step reads, and their gradients
+# ---------------------------------------------------------------------------
+
+def split_axes(spec: Spec, mesh) -> Tuple[str, ...]:
+    """The axes of `mesh` with more than one rank that `spec` splits a
+    tensor over, in the mesh's order."""
+    if mesh is None:
+        return ()
+    named = {a for ax in spec for a in as_axes(ax)}
+    sizes = _sizes(mesh)
+    return tuple(a for a in axis_names(mesh) if a in named and sizes[a] > 1)
+
+
+def _syncs(spec: Spec, mesh, rows_split: bool) -> bool:
+    """Whether a leaf under `spec` needs a gather, or its gradient a sum
+    over the DP axes (each rank with its own rows and loss)."""
+    if mesh is None:
+        return False
+    return bool(split_axes(spec, mesh)) or (
+        rows_split and axis_size(mesh, batch_axes(mesh)) > 1)
+
+
+class GatherParam(torch.autograd.Function):
+    """A param's local shard → the whole param, gathered over every axis its
+    spec names.  The backward is the adjoint of the step's loss: the DP
+    axes' ranks each hold their own rows and loss when `rows_split`, and the
+    step takes the mean of their losses, so there the gradient is summed
+    over the DP axes and divided by their size — a reduce-scatter along the
+    dim a DP axis splits, an all-reduce over a DP axis that splits nothing;
+    the ranks of `model`, and of the DP axes when the rows are not split,
+    repeat one loss, so there the gradient is this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, spec, rows_split):
+        ctx.args = (mesh, spec, rows_split)
+        out = x
+        for dim, ax in enumerate(spec):
+            if ax is not None:
+                out = all_gather_cat(out, mesh, ax, dim)
+        return out if out is not x else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, spec, split = ctx.args
+        dax = as_axes(batch_axes(mesh))
+        split = split and axis_size(mesh, dax) > 1
+        for dim, ax in enumerate(spec):
+            if ax is not None and not (split and set(as_axes(ax)) <= set(dax)):
+                g = block(g, mesh, ax, dim)
+        if split:
+            spread = set()
+            for dim, ax in enumerate(spec):
+                if ax is not None and set(as_axes(ax)) <= set(dax):
+                    g = reduce_scatter_sum(g, mesh, ax, dim)
+                    spread |= set(as_axes(ax))
+            rest = tuple(a for a in dax if a not in spread)
+            if rest:
+                g = all_reduce_sum_(g.contiguous().clone(), mesh, rest)
+            g = g / axis_size(mesh, dax)
+        return g.contiguous(), None, None, None
+
+
+def gather_param(local: torch.Tensor, spec: Spec, mesh, rows_split: bool) -> torch.Tensor:
+    """The whole param of a rank's `local` shard under `spec` (`GatherParam`),
+    or `local` itself where nothing is gathered or summed."""
+    if not _syncs(spec, mesh, rows_split):
+        return local
+    return GatherParam.apply(local, mesh, tuple(spec), rows_split)
+
+
+class LayerShard:
+    """A rank's local shard of a stacked `[L, ...]` layer leaf (or of one
+    layer's slice of it), gathered only where a layer body reads it.
+    `unstacked` / `layer_params` hand these out layer by layer; `whole()`
+    gathers one layer's leaf inside the body (under `blocks.remat` the
+    backward's recompute gathers it again, so no whole layer lives from
+    forward to backward).  `to(dtype)` defers a cast to after the gather,
+    so the gradient is reduced in the leaf's own dtype; `dtype` / `ndim`
+    are the gathered tensor's, so the cast rules read it as a tensor."""
+
+    __slots__ = ("local", "spec", "mesh", "rows_split", "cast")
+
+    def __init__(self, local: torch.Tensor, spec: Spec, mesh, rows_split: bool, cast=None):
+        self.local, self.spec, self.mesh = local, tuple(spec), mesh
+        self.rows_split, self.cast = rows_split, cast
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.cast or self.local.dtype
+
+    @property
+    def ndim(self) -> int:
+        return self.local.ndim
+
+    @property
+    def requires_grad(self) -> bool:
+        return self.local.requires_grad
+
+    def _like(self, local, spec, cast=None):
+        return LayerShard(local, spec, self.mesh, self.rows_split, cast)
+
+    def to(self, dtype: torch.dtype) -> "LayerShard":
+        return self._like(self.local, self.spec, None if dtype == self.local.dtype else dtype)
+
+    def unbind(self, dim: int = 0) -> List["LayerShard"]:
+        """One shard per entry of the leading dim (one `unbind`: the
+        backward stacks their gradients once)."""
+        if dim != 0:
+            raise ValueError("a LayerShard unbinds its leading dim only")
+        return [self._like(t, self.spec[1:], self.cast) for t in self.local.unbind(0)]
+
+    def __getitem__(self, i: int) -> "LayerShard":
+        return self._like(self.local[i], self.spec[1:], self.cast)
+
+    def whole(self, spec: Optional[Spec] = None) -> torch.Tensor:
+        """The gathered tensor (over `spec`'s axes if given: a spec of the
+        same dims naming fewer axes), cast where `to` asked."""
+        out = gather_param(self.local, self.spec if spec is None else spec, self.mesh,
+                           self.rows_split)
+        return out if self.cast is None else out.to(self.cast)
+
+
+def compute_params(params: Any, specs: Specs, mesh, rows_split: bool) -> Any:
+    """The params a meshed step's model code reads, from a rank's local
+    shards `params` (nested dicts) laid out by `specs` ({path: spec}): each
+    stacked `layers` leaf a `LayerShard`, every other leaf (embedding,
+    head, norms, a shared block, front-end projections) gathered whole
+    (`gather_param`), once a step.  `params` as it is without a mesh."""
+    if mesh is None:
+        return params
+
+    def walk(tree, path):
+        out = {}
+        for k, v in tree.items():
+            p = f"{path}[{k!r}]"
+            if isinstance(v, dict):
+                out[k] = walk(v, p)
+            else:
+                spec = specs.get(p) or (None,) * v.ndim
+                out[k] = (LayerShard(v, spec, mesh, rows_split) if p.startswith("['layers']")
+                          else gather_param(v, spec, mesh, rows_split))
+        return out
+
+    return walk(params, "")
+
+
+def local_specs(tree: Any) -> Tuple[Any, Specs]:
+    """(the tree with each DTensor leaf's local shard, {path: spec} of its
+    DTensor leaves)."""
+    specs = {p: spec_of(l) for p, l in tree_mod.flatten_with_path(tree) if is_dtensor(l)}
+    return tree_mod.tree_map(local, tree), specs
+
+
+def global_norm(grads: Any, specs: Specs, mesh) -> torch.Tensor:
+    """The global L2 norm of a tree of local gradient shards laid out by
+    `specs`: each leaf's sum of squares, summed over exactly the axes it is
+    split on (never over one it is replicated on), then over the leaves.
+    Without a mesh, or where nothing is split, the arithmetic and order of
+    `optimizer.global_norm`."""
+    partial: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for path, g in tree_mod.flatten_with_path(grads):
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        axes = split_axes(specs.get(path, ()), mesh)
+        partial[axes] = sq if axes not in partial else partial[axes] + sq
+    total = None
+    for axes, sq in partial.items():
+        if axes:
+            sq = all_reduce_sum_(sq, mesh, axes)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)

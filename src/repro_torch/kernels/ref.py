@@ -187,13 +187,15 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             qb, dob = qh[:, :, :, q0:q1], doh[:, :, :, q0:q1]
             kb, vb = kh[:, :, k0:k1], vh[:, :, k0:k1]
             s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kb) * scale
-            p = torch.where(mask, torch.exp(s - lse_h[..., q0:q1, None]), 0.0)
+            p = torch.where(mask, s.sub_(lse_h[..., q0:q1, None]).exp_(), 0.0)
+            del s                 # each tile dies as soon as it is read
             dp = torch.einsum("bhgqd,bhkd->bhgqk", dob, vb)
-            ds = p * (dp - delta[..., q0:q1, None])
+            ds = dp.sub_(delta[..., q0:q1, None]).mul_(p)         # p (dp − delta), in dp
             dq[:, :, :, q0:q1] += torch.einsum("bhgqk,bhkd->bhgqd", rounded(ds, k.dtype),
                                                kb) * scale
             dv[:, :, k0:k1] += torch.einsum("bhgqk,bhgqd->bhkd", rounded(p, dout.dtype), dob)
             dk[:, :, k0:k1] += torch.einsum("bhgqk,bhgqd->bhkd", rounded(ds, q.dtype),
                                             qb) * scale
+            del p, ds
     dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh).to(q.dtype)
     return dq, dk.permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype)

@@ -21,9 +21,14 @@ What a cell records, for rank 0:
   * state bytes: the arithmetic of `param_specs`, `cache_specs` and
     `state_specs` over the leaves (what a rank stores between steps);
   * peak bytes: `MemTracker` around the step, over the rank's stored
-    shards and everything the step allocates.  The port's step gathers
-    whole params before it computes (`train_step.py`: `full_tree`), so this
-    is the port's real peak, not the peak sharded compute would have;
+    shards and everything the step allocates, and what they are at the
+    peak by `MemTracker`'s kinds (activations kept for the backward,
+    temporaries, ...).  The port's steps compute on
+    shards (`dist.sharding.compute_params`): a layer's params are gathered
+    inside its checkpointed body, the gradients reduce-scattered in the
+    backward, the K/V cache's slots kept split over `model`; so the peak
+    holds the stored state, the remat boundaries and one layer's gathered
+    params and recompute, not the whole params or a whole gradient;
     `fits` says whether it stays within the H100's 80 GB;
   * FLOPs: `FlopCounterMode`'s count of the step's aten ops (forward,
     backward, optimizer) plus what the kernels' fake branches report;
@@ -235,6 +240,7 @@ class StepCount:
     peak_bytes: float
     collectives: List[roofline.Collective]
     kernels: Dict[str, Any]
+    peak_by_kind: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 def count_step(fn, external: List[torch.Tensor], mesh) -> StepCount:
@@ -250,12 +256,20 @@ def count_step(fn, external: List[torch.Tensor], mesh) -> StepCount:
     flop = FlopCounterMode(display=False)
     with fake_kernels.recording() as work, mt, flop, counter.mode:
         fn()
-    peak = sum(snap["Total"] for snap in mt.get_tracker_snapshot("peak").values())
+    snaps = mt.get_tracker_snapshot("peak").values()
+    by_kind: Dict[str, float] = {}
+    for snap in snaps:
+        for kind, n in snap.items():
+            if kind != "Total" and n:
+                name = getattr(kind, "value", str(kind))
+                by_kind[name] = by_kind.get(name, 0.0) + float(n)
     return StepCount(flops=flop.get_total_flops() + work.total_flops,
-                     bytes=counter.bytes + work.total_bytes, peak_bytes=float(peak),
+                     bytes=counter.bytes + work.total_bytes,
+                     peak_bytes=float(sum(snap["Total"] for snap in snaps)),
                      collectives=counter.collectives,
                      kernels={"calls": dict(work.calls), "flops": dict(work.flops),
-                              "bytes": dict(work.bytes)})
+                              "bytes": dict(work.bytes)},
+                     peak_by_kind=by_kind)
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +463,7 @@ def run_cell(arch_id: str, shape_name: str, mesh_name: str, *, verbose: bool = T
         "status": "ok", "build_s": t_build,
         "state_bytes_per_device": res["state_bytes"],
         "peak_bytes_per_device": count.peak_bytes,
+        "peak_by_kind_per_device": count.peak_by_kind,
         "fits": count.peak_bytes <= HBM_PER_CHIP,
         "over_bytes": max(0.0, count.peak_bytes - HBM_PER_CHIP),
         "params": res["params"], "active_params": res["active_params"],

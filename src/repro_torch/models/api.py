@@ -107,6 +107,12 @@ def decode_step(params, token, cache, cfg: ArchConfig, *,
                                  **_kv_rp_kw(cfg, kv_rp_r))
 
 
+def cache_slots(cfg: ArchConfig, cache_size: int) -> Optional[int]:
+    """The slots of a config's K/V cache at `cache_size` (None for `rwkv6`,
+    whose state keeps no K/V cache)."""
+    return None if cfg.family == "rwkv6" else transformer.cache_slots(cfg, cache_size)
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_size: int, *,
                execution: Execution = Execution()) -> Dict[str, torch.Tensor]:
     """Zero cache, the structural twin of `prefill`'s (for `rwkv6` the

@@ -15,7 +15,8 @@ also returns each row's log-sum-exp, and the backward
 chunk, in plain PyTorch, as the reference's backward is XLA outside any
 Pallas kernel.  `chunked_softmax_xent` is the training loss, one
 checkpointed chunk of logits at a time.  The MoE layer is the reference's
-capacity dispatch; under a mesh (`dist.sharding.use_mesh`) it goes
+capacity dispatch; given a rank's shards of the expert stacks
+(`dist.sharding.LayerShard`, as the meshed steps hand them) it goes
 expert-parallel over `model` through two all-to-alls, as the reference's
 `shard_map` branch does.
 """
@@ -40,11 +41,21 @@ from repro_torch.models.config import MoESpec
 # norms / activations
 # ---------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.to(torch.float32)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * w.to(torch.float32)
     return out.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm in f32, rounded to x's dtype.  Under autograd it keeps only
+    its inputs for the backward (a checkpoint, which recomputes the rest):
+    the two f32 copies of x it would keep cost more memory than their
+    recompute costs time."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return checkpoint(_rms_norm, x, w, eps, use_reentrant=False, preserve_rng_state=False)
+    return _rms_norm(x, w, eps)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -162,21 +173,39 @@ def decode_attention(
     *,
     window: Optional[int] = None,
     scale_dh: Optional[int] = None,
+    seq_shard=(None, 0, 1),
 ) -> torch.Tensor:
-    """Single-token attention over a (ring-buffered) KV cache, in f32."""
+    """Single-token attention over a (ring-buffered) KV cache, in f32.
+
+    `seq_shard` = (mesh, r, n) with n > 1: the cache holds block r of the
+    n blocks of its slots (the slot dim split over "model",
+    `dist.sharding.kv_seq_shard`).  Each rank then scores its own slots,
+    masked at their global indices r·S + j, forms an f32 partial (max,
+    sum, out) and the ranks merge them over "model" through the
+    log-sum-exp; no rank holds the whole cache."""
     b, s, hkv, dh = k_cache.shape
     hq = q.shape[2]
     g = hq // hkv
+    mesh, r, n = seq_shard
     scale = 1.0 / math.sqrt(scale_dh or dh)
     qg = q.reshape(b, hkv, g, dh).to(torch.float32)
-    pos = torch.arange(s, device=q.device)
+    pos = torch.arange(s, device=q.device) + r * s
     valid = pos < cache_len
     if window is not None:
         valid &= pos >= cache_len - window
     s_ = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.to(torch.float32)) * scale
     s_ = torch.where(valid, s_, NEG_INF)
-    p = torch.softmax(s_, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(torch.float32))
+    v32 = v_cache.to(torch.float32)
+    if n == 1:
+        out = torch.einsum("bhgk,bkhd->bhgd", torch.softmax(s_, dim=-1), v32)
+    else:
+        m = s_.amax(dim=-1, keepdim=True)                          # (B, Hkv, g, 1)
+        p = torch.where(valid, torch.exp(s_ - m), 0.0)
+        part = torch.cat([p.sum(dim=-1, keepdim=True),
+                          torch.einsum("bhgk,bkhd->bhgd", p, v32)], dim=-1)
+        top = shard_rules.all_reduce_max_(m.clone(), mesh, "model")
+        part = shard_rules.all_reduce_sum_(part * torch.exp(m - top), mesh, "model")
+        out = part[..., 1:] / part[..., :1]
     return out.reshape(b, 1, hq, v_cache.shape[-1]).to(q.dtype)
 
 
@@ -185,7 +214,7 @@ def decode_attention(
 # ---------------------------------------------------------------------------
 
 def _needs_grad(tree) -> bool:
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, shard_rules.LayerShard)):
         return tree.requires_grad
     if isinstance(tree, dict):
         return any(_needs_grad(t) for t in tree.values())
@@ -303,8 +332,31 @@ def _route(x: torch.Tensor, router: torch.Tensor, spec: MoESpec):
     return Routing(top_e, se, stok, sw, pos), {"moe_lb": lb, "moe_z": z * spec.router_z_coef}
 
 
-def _moe_compute(params: Dict[str, torch.Tensor], x: torch.Tensor, spec: MoESpec,
-                 act: str, c: int):
+EXPERT_KEYS = ("w_gate", "w_in", "w_out")
+
+
+def _experts_ffn(params: Dict[str, Any], xe: torch.Tensor, act: str) -> torch.Tensor:
+    """The expert FFN on xe (E, c, d) -> (E, c, d).  Over whole (E, d, f)
+    stacks one batched product each; over a layer's local shards that the
+    mesh splits (`LayerShard`, where expert parallelism does not apply)
+    expert by expert, each expert's weights gathered alone, so no rank
+    holds every expert of the layer at once."""
+    w = params["w_in"]
+    if not isinstance(w, shard_rules.LayerShard) or not shard_rules.split_axes(w.spec, w.mesh):
+        p = {k: (params[k].whole() if isinstance(params[k], shard_rules.LayerShard)
+                 else params[k]) for k in EXPERT_KEYS}
+        h = act_fn(act)(torch.einsum("ecd,edf->ecf", xe, p["w_gate"])) \
+            * torch.einsum("ecd,edf->ecf", xe, p["w_in"])
+        return torch.einsum("ecf,efd->ecd", h, p["w_out"])
+    per = {k: params[k].unbind(0) for k in EXPERT_KEYS}
+    out = []
+    for j in range(xe.shape[0]):
+        h = act_fn(act)(xe[j] @ per["w_gate"][j].whole()) * (xe[j] @ per["w_in"][j].whole())
+        out.append(h @ per["w_out"][j].whole())
+    return torch.stack(out)
+
+
+def _moe_compute(params: Dict[str, Any], x: torch.Tensor, spec: MoESpec, act: str, c: int):
     """Dispatch / compute / combine over every expert, x (T, d) -> y (T, d).
 
     A choice past its expert's capacity `c` drops: its row goes to a sink
@@ -321,11 +373,7 @@ def _moe_compute(params: Dict[str, torch.Tensor], x: torch.Tensor, spec: MoESpec
     xe = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device)
     xe[dest] = x[r.stok]
     xe = xe[: e * c].reshape(e, c, d)
-
-    h = act_fn(act)(torch.einsum("ecd,edf->ecf", xe, params["w_gate"])) \
-        * torch.einsum("ecd,edf->ecf", xe, params["w_in"])
-    ye = torch.einsum("ecf,efd->ecd", h, params["w_out"]).reshape(e * c, d)
-
+    ye = _experts_ffn(params, xe, act).reshape(e * c, d)
     return _combine(ye, r, keep, dest, t, k, x.dtype), aux
 
 
@@ -365,39 +413,39 @@ def _moe_a2a_block(params: Dict[str, torch.Tensor], x_my: torch.Tensor, spec: Mo
     # the result came from rank i
     recv = shard_rules.AllToAll.apply(send, mesh, "model")
     recv = recv.transpose(0, 1).reshape(e_loc, n_model * c, d)
-    h = act_fn(act)(torch.einsum("ecd,edf->ecf", recv, params["w_gate"])) \
-        * torch.einsum("ecd,edf->ecf", recv, params["w_in"])
-    ye = torch.einsum("ecf,efd->ecd", h, params["w_out"])           # (E_loc, n_model·c, d)
+    ye = _experts_ffn(params, recv, act)                            # (E_loc, n_model·c, d)
     back = ye.reshape(e_loc, n_model, c, d).transpose(0, 1).contiguous()
     ye_my = shard_rules.AllToAll.apply(back, mesh, "model").reshape(e * c, d)
     return _combine(ye_my, r, keep, dest, t_my, k, x_my.dtype), aux
 
 
-def moe_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, spec: MoESpec, act: str):
+def moe_layer(params: Dict[str, Any], x: torch.Tensor, spec: MoESpec, act: str):
     """x (B, S, d) -> (y (B, S, d), aux dict), dropped-on-overflow capacity.
 
-    Outside a mesh: the reference's single-device path over the B·S tokens.
-    Inside `use_mesh`, x holds this rank's rows (its DP shard when the batch
-    splits) and every rank of `model` holds the same x.  Expert parallelism
+    With whole expert stacks: the reference's single-device path over the
+    B·S tokens.  With expert stacks given as a rank's local shards
+    (`LayerShard`, as the meshed steps hand them), the layer runs on their
+    mesh: x holds this rank's rows (its DP shard when the batch splits) and
+    every rank of `model` holds the same x.  Expert parallelism
     runs under the reference's conditions (more than one `model` rank, E
     and S divisible by it, the batch split over the DP axes or no DP
     axis): this rank takes its S/n_model slice of the stream and its
-    E/n_model experts, exchanges tokens with the expert owners
-    (`_moe_a2a_block`), and the slices are gathered back; the aux terms are
-    the mean over every rank (the reference's pmean).  Otherwise, when the
-    batch splits over the DP axes, the tokens are gathered and dispatched
-    over the whole batch, with the capacity of the whole batch, as the
-    reference's unsplit program computes them, and each rank keeps its
-    rows; the gather's backward is a reduce-scatter, so a train step's
+    E/n_model experts (`_local_experts`), exchanges tokens with the expert
+    owners (`_moe_a2a_block`), and the slices are gathered back; the aux
+    terms are the mean over every rank (the reference's pmean).  Otherwise,
+    when the batch splits over the DP axes, the tokens are gathered and
+    dispatched over the whole batch, with the capacity of the whole batch,
+    as the reference's unsplit program computes them, and each rank keeps
+    its rows; the gather's backward is a reduce-scatter, so a train step's
     gradients, averaged over the DP axes, are the whole batch's."""
     b, s, d = x.shape
-    mesh = shard_rules.ambient_mesh()
-    if mesh is not None:
+    w = params["w_in"]
+    if isinstance(w, shard_rules.LayerShard):
+        mesh, split = w.mesh, w.rows_split
         e = spec.n_experts
         n_model = shard_rules.axis_size(mesh, "model")
         dax = shard_rules.batch_axes(mesh)
         n_data = shard_rules.axis_size(mesh, dax)
-        split = shard_rules.rows_split()
         if n_model > 1 and e % n_model == 0 and s % n_model == 0 and (split or n_data == 1):
             return _moe_expert_parallel(params, x, spec, act, mesh, dax, n_model)
         if split and n_data > 1:
@@ -409,13 +457,33 @@ def moe_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, spec: MoESpec, a
     return y.reshape(b, s, d), aux
 
 
+def _local_experts(w: shard_rules.LayerShard, mesh, n_model: int) -> torch.Tensor:
+    """This rank's E/n_model experts, whole in their feature dims, of a
+    rank's stored shard of a layer's expert stack ((E, d, f) with the
+    feature dims split over the DP axes and "model"): gathered over the DP
+    axes, then one all-to-all over "model" that moves the split from the
+    feature dim to E (the reshard the reference's `P("model")` in_specs ask
+    for; the backward is the inverse all-to-all, then the gather's
+    adjoint)."""
+    fd = next((dim for dim, ax in enumerate(w.spec) if ax == "model"), None)
+    t = w.whole(tuple(None if ax == "model" else ax for ax in w.spec))
+    if fd is None:                                    # the features are not split over model
+        return shard_rules.SplitRepl.apply(t, mesh, "model", 0)
+    t = shard_rules.AllToAll.apply(t.contiguous(), mesh, "model")
+    e_loc = t.shape[0] // n_model
+    t = t.reshape((n_model, e_loc) + tuple(t.shape[1:])).movedim(0, fd)
+    shape = list(t.shape)
+    shape[fd:fd + 2] = [shape[fd] * shape[fd + 1]]
+    return t.reshape(shape)
+
+
 def _moe_expert_parallel(params, x, spec: MoESpec, act: str, mesh, dax, n_model: int):
     b, s, d = x.shape
     split, gather = shard_rules.SplitRepl.apply, shard_rules.GatherRepl.apply
     x_my = split(x, mesh, "model", 1)                              # (b, s/n, d)
     p = {"router": shard_rules.SumGrad.apply(params["router"], mesh, "model")}
-    for name in ("w_gate", "w_in", "w_out"):
-        p[name] = split(params[name], mesh, "model", 0)           # this rank's experts
+    for name in EXPERT_KEYS:
+        p[name] = _local_experts(params[name], mesh, n_model)     # this rank's experts
     y_my, aux = _moe_a2a_block(p, x_my.reshape(-1, d), spec, act, mesh, n_model)
     y = gather(y_my.reshape(b, s // n_model, d), mesh, "model", 1)
     every = ("model",) + shard_rules.as_axes(dax)
@@ -448,19 +516,31 @@ def cast_stacked(lp: Dict[str, torch.Tensor], cdt: torch.dtype) -> Dict[str, tor
     return {k: (t.to(cdt) if t.dtype == torch.float32 else t) for k, t in lp.items()}
 
 
-def layer_params(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
-    """Layer i's leaves of the stacked `[L, ...]` layout."""
+def layer_params(params: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer i's leaves of the stacked `[L, ...]` layout (on a mesh, layer
+    i's local shards, `dist.sharding.LayerShard`: `gather_layer` makes them
+    whole)."""
     return {k: t[i] for k, t in params["layers"].items()}
 
 
-def unstacked(params: Dict[str, Any]) -> List[Dict[str, torch.Tensor]]:
+def unstacked(params: Dict[str, Any]) -> List[Dict[str, Any]]:
     """Every layer's leaves of the stacked layout, as views from one
     `unbind` per leaf: the backward then stacks each leaf's layer
     gradients once, where indexing layer by layer would add a full-size
-    gradient per layer."""
+    gradient per layer.  On a mesh, each layer's local shards."""
     per_leaf = {k: t.unbind(0) for k, t in params["layers"].items()}
     n = len(next(iter(per_leaf.values())))
     return [{k: ts[i] for k, ts in per_leaf.items()} for i in range(n)]
+
+
+def gather_layer(lp: Dict[str, Any], keep=()) -> Dict[str, Any]:
+    """A layer's leaves, each local shard gathered whole
+    (`LayerShard.whole`) but those named in `keep` (the MoE expert stacks,
+    which `moe_layer` gathers its own way); plain tensors as they are.
+    Called inside the layer's body, so under `remat` the backward's
+    recompute gathers again."""
+    return {k: (v.whole() if isinstance(v, shard_rules.LayerShard) and k not in keep else v)
+            for k, v in lp.items()}
 
 
 def embed(params: Dict[str, Any], tokens: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:

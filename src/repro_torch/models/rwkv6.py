@@ -10,7 +10,8 @@ token-shift inputs of each layer and the position, no KV cache.
 Parameters are a plain dict with the reference's keys and its stacked
 `[L, ...]` layout (`bridge.params_from_reference` maps the JAX pytree leaf
 by leaf); the layer stack is a Python loop in place of `lax.scan`, and the
-reference's mesh pins are dropped (the model code runs on local tensors).  The WKV
+reference's mesh pins are dropped (the model code runs on local tensors; on
+a mesh each layer body gathers its own leaves, `blocks.gather_layer`).  The WKV
 recurrence is a step loop in plain PyTorch, as the reference's is a
 `lax.scan` outside any Pallas kernel: r, k, v, w and g are computed for the
 whole sequence first, and only the state update and the read-out run per
@@ -211,7 +212,8 @@ def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfi
     pos = 0 if fresh else int(state["pos"])
 
     def body(x, lp, wkv0, sh_t0, sh_c0):
-        return _block(blocks.cast_stacked(lp, cdt), x, cfg, nh, wkv0, sh_t0, sh_c0)
+        return _block(blocks.cast_stacked(blocks.gather_layer(lp), cdt), x, cfg, nh, wkv0,
+                      sh_t0, sh_c0)
 
     outs = []
     for i, lp in enumerate(blocks.unstacked(params)):

@@ -13,7 +13,9 @@ Parameters are a plain dict with the reference's keys and its stacked
 `[L, ...]` layout; the layer stack is a Python loop in place of
 `lax.scan` (each layer's leaves cast to the compute dtype as it runs, so
 no second whole-model copy exists), and the reference's mesh pins are
-dropped.  The shared block's prefill attention goes through the flash
+dropped: on a mesh each layer gathers its own leaves from the rank's
+shards (`blocks.gather_layer`) and the shared block's K/V cache keeps its
+slots split over "model" as the transformer's does.  The shared block's prefill attention goes through the flash
 kernel when the `Execution` says `backend="kernel"`; its decode attention
 and both SSD forms are plain PyTorch, as the reference's are jnp outside
 any Pallas kernel.
@@ -39,7 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.execution import Execution
+from repro_torch.dist import sharding as shard_rules
 from repro_torch.models import blocks
+from repro_torch.models.transformer import cache_slots, prompt_slots
 from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
@@ -318,7 +322,7 @@ def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfi
     shared = blocks.cast(params["shared"], cdt)
 
     def body(x, x0, lp, use_attn):
-        y, _, _ = mamba_block(blocks.cast_stacked(lp, cdt), x, cfg,
+        y, _, _ = mamba_block(blocks.cast_stacked(blocks.gather_layer(lp), cdt), x, cfg,
                               _zero_ssm_state(cfg, b, x.device), None)
         x = x + y
         if use_attn:
@@ -355,17 +359,16 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, cache_size: int,
-               device: torch.device) -> Dict[str, torch.Tensor]:
+               device: torch.device, *, seq_shards: int = 1) -> Dict[str, torch.Tensor]:
     """Zero cache: {"ssm": (L, B, nh, dh, ds) f32, "conv": (L, B, K − 1,
     d_inner + 2·ds), "k", "v": (slots, B, keep, Hkv, Dh) in the compute
     dtype, "len", "pos": int32 scalars on the host}; one k / v slot per
     application of the shared block, `keep` bounded by the window under
-    SWA."""
+    SWA; with `seq_shards` = n, one rank's block of keep / n slots."""
     d = cfg.d_model
     spec = cfg.ssm
     cdt = blocks.torch_dtype(cfg.compute_dtype)
-    win = cfg.sliding_window
-    keep = min(cache_size, win) if win else cache_size
+    keep = cache_slots(cfg, cache_size) // seq_shards
     kv = (n_shared_slots(cfg), batch, keep, cfg.n_kv_heads, cfg.dh)
     conv_ch = spec.d_inner(d) + 2 * spec.d_state
     return {
@@ -393,19 +396,22 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     positions = torch.arange(s, device=x.device)[None, :]
     shared = blocks.cast(params["shared"], cdt)
     every = cfg.hybrid.attn_every
-    cache = init_cache(cfg, b, cache_size, dev)
-    n = min(s, cache["k"].shape[2])
+    _, r, n_kv = shard_rules.kv_seq_shard()
+    cache = init_cache(cfg, b, cache_size, dev, seq_shards=n_kv)
+    n = min(s, cache["k"].shape[2] * n_kv)
+    lo, cnt = prompt_slots(n, cache["k"].shape[2], r)
     x0 = x
     for i in range(cfg.n_layers):
-        lp = blocks.cast(blocks.layer_params(params, i), cdt)
+        lp = blocks.cast(blocks.gather_layer(blocks.layer_params(params, i)), cdt)
         y, ssm_st, conv_st = mamba_block(lp, x, cfg, _zero_ssm_state(cfg, b, x.device), None)
         x = x + y
         cache["ssm"][i] = ssm_st
         cache["conv"][i] = conv_st
         if i % every == 0:
             x, (k, vv) = _shared_attn_train(shared, x, x0, cfg, positions, execution.backend)
-            cache["k"][i // every, :, :n] = k[:, s - n:]
-            cache["v"][i // every, :, :n] = vv[:, s - n:]
+            if cnt:
+                cache["k"][i // every, :, :cnt] = k[:, s - n + lo:s - n + lo + cnt]
+                cache["v"][i // every, :, :cnt] = vv[:, s - n + lo:s - n + lo + cnt]
     x = blocks.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"].to(cdt)).to(torch.float32)
     cache["len"] = torch.tensor(n, dtype=torch.int32)
@@ -428,14 +434,17 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
     b = x.shape[0]
     shared = blocks.cast(params["shared"], cdt)
     every = cfg.hybrid.attn_every
-    s_max = cache["k"].shape[2]
+    shard = shard_rules.kv_seq_shard()
+    s_loc = cache["k"].shape[2]
+    s_max = s_loc * shard[2]
     pos, n = int(cache["pos"]), int(cache["len"])
     slot = n if n < s_max else pos % s_max
+    owner, j = divmod(slot, s_loc)
     new_len = min(n + 1, s_max)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     x0 = x
     for i in range(cfg.n_layers):
-        lp = blocks.cast(blocks.layer_params(params, i), cdt)
+        lp = blocks.cast(blocks.gather_layer(blocks.layer_params(params, i)), cdt)
         y, ssm_st, conv_st = mamba_block(lp, x, cfg, cache["ssm"][i], cache["conv"][i])
         cache["ssm"][i] = ssm_st
         cache["conv"][i] = conv_st
@@ -443,9 +452,11 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
         if i % every == 0:
             q, k, vv = _shared_qkv(shared, x, x0, cfg, positions)
             k_c, v_c = cache["k"][i // every], cache["v"][i // every]
-            k_c[:, slot] = k[:, 0].to(k_c.dtype)
-            v_c[:, slot] = vv[:, 0].to(v_c.dtype)
-            attn = blocks.decode_attention(q, k_c, v_c, new_len, window=cfg.sliding_window)
+            if owner == shard[1]:
+                k_c[:, j] = k[:, 0].to(k_c.dtype)
+                v_c[:, j] = vv[:, 0].to(v_c.dtype)
+            attn = blocks.decode_attention(q, k_c, v_c, new_len, window=cfg.sliding_window,
+                                           seq_shard=shard)
             x = x + attn.reshape(b, 1, -1) @ shared["wo"]
             x = x + _shared_mlp(shared, x, x0, cfg)
     x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -17,7 +17,13 @@ front-ends (`embed_inputs`; with a DR front-end the caller reduces the raw
 features first, `train.train_step._apply_dr_frontend`) and the
 RP-compressed KV cache (`kv_rp`).  The mesh constraint of the reference's
 layer body has no counterpart: the port's meshed steps hand the model code
-local tensors, on which a layout hint pins nothing.
+local tensors, on which a layout hint pins nothing.  On a mesh each layer
+body gathers its own leaves from the rank's shards (`blocks.gather_layer`;
+the MoE expert stacks are gathered by `blocks.moe_layer`), and the serving
+steps keep the K/V cache's slots split over "model"
+(`dist.sharding.kv_seq_shard`): prefill writes each rank's slot range,
+decode writes the new key on the rank that owns its slot and attends over
+the rank's own slots (`blocks.decode_attention`).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 
 from repro_torch.core import random_projection as rp_mod
 from repro_torch.core.execution import Execution
+from repro_torch.dist import sharding as shard_rules
 from repro_torch.models import blocks
 from repro_torch.models.config import ArchConfig
 
@@ -116,6 +123,12 @@ def _attn_proj(lp, x, cfg: ArchConfig, positions):
     return q, k, vv
 
 
+def _gathered(lp: Params, cfg: ArchConfig) -> Params:
+    """A layer's leaves gathered from a rank's shards, the MoE expert
+    stacks left to `blocks.moe_layer`."""
+    return blocks.gather_layer(lp, keep=blocks.EXPERT_KEYS if cfg.moe is not None else ())
+
+
 def _ffn(lp: Params, h: torch.Tensor, cfg: ArchConfig):
     """The layer's MLP or MoE on normed h -> (y, aux)."""
     if cfg.moe is not None:
@@ -189,7 +202,8 @@ def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfi
     positions = torch.arange(s, device=x.device)[None, :]
 
     def body(x, lp):
-        x, aux, _ = _layer(blocks.cast_stacked(lp, cdt), x, cfg, positions, execution.backend)
+        x, aux, _ = _layer(blocks.cast_stacked(_gathered(lp, cfg), cdt), x, cfg, positions,
+                           execution.backend)
         return x, aux["moe_lb"], aux["moe_z"]
 
     lb = lz = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -266,14 +280,20 @@ def _sketch_k(k: torch.Tensor, r: Optional[torch.Tensor]) -> torch.Tensor:
     return (k.to(torch.float32) @ r).to(k.dtype)   # (..., H, dh_r)
 
 
+def cache_slots(cfg: ArchConfig, cache_size: int) -> int:
+    """The K/V cache's slots: `cache_size`, bounded by the window under SWA."""
+    win = cfg.sliding_window
+    return min(cache_size, win) if win else cache_size
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_size: int,
-               device: torch.device) -> Dict[str, torch.Tensor]:
+               device: torch.device, *, seq_shards: int = 1) -> Dict[str, torch.Tensor]:
     """Zero cache: {"k": (L, B, keep, Hkv, Dh_k), "v": (L, B, keep, Hkv,
     Dh) in the compute dtype, "len", "pos": int32 scalars on the host},
     where the window bounds `keep` under SWA and Dh_k = Dh // kv_rp with
-    the RP-sketched keys."""
-    win = cfg.sliding_window
-    keep = min(cache_size, win) if win else cache_size
+    the RP-sketched keys; with `seq_shards` = n, one rank's block of keep /
+    n slots."""
+    keep = cache_slots(cfg, cache_size) // seq_shards
     dh_k = cfg.dh // cfg.kv_rp if cfg.kv_rp else cfg.dh
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     shape = (cfg.n_layers, batch, keep, cfg.n_kv_heads)
@@ -281,6 +301,13 @@ def init_cache(cfg: ArchConfig, batch: int, cache_size: int,
             "v": torch.zeros(shape + (cfg.dh,), dtype=cdt, device=device),
             "len": torch.tensor(0, dtype=torch.int32),
             "pos": torch.tensor(0, dtype=torch.int32)}
+
+
+def prompt_slots(n: int, slots: int, r: int) -> Tuple[int, int]:
+    """(first kept prompt key, count) that block r of `slots` slots holds
+    when the n kept keys of a prompt fill global slots 0..n-1."""
+    lo = r * slots
+    return lo, max(0, min(n, lo + slots) - lo)
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
@@ -292,20 +319,25 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     of the prompt sit at slots 0..keep-1 (ring start at 0 = the oldest kept
     position); with `kv_rp` the cache holds the sketched keys (`kv_rp_r`,
     else `kv_rp_matrix`), while the prompt's own attention uses the exact
-    ones."""
+    ones.  Where the serving step splits the slots over "model"
+    (`dist.sharding.kv_seq_shard`), the cache is this rank's block of them
+    and holds the kept keys that fall in it."""
     execution.torch_device()
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     x, _ = embed_inputs(params, batch, cfg, cdt)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     rp_r = _kv_rp(cfg, kv_rp_r, x.device)
-    cache = init_cache(cfg, b, cache_size, x.device)
-    n = min(s, cache["k"].shape[2])
+    _, r, n_kv = shard_rules.kv_seq_shard()
+    cache = init_cache(cfg, b, cache_size, x.device, seq_shards=n_kv)
+    n = min(s, cache["k"].shape[2] * n_kv)
+    lo, cnt = prompt_slots(n, cache["k"].shape[2], r)
     for i in range(cfg.n_layers):
-        lp = blocks.cast(blocks.layer_params(params, i), cdt)
+        lp = blocks.cast(_gathered(blocks.layer_params(params, i), cfg), cdt)
         x, _, (k, vv) = _layer(lp, x, cfg, positions, execution.backend)
-        cache["k"][i, :, :n] = _sketch_k(k[:, s - n:], rp_r)
-        cache["v"][i, :, :n] = vv[:, s - n:]
+        if cnt:
+            cache["k"][i, :, :cnt] = _sketch_k(k[:, s - n + lo:s - n + lo + cnt], rp_r)
+            cache["v"][i, :, :cnt] = vv[:, s - n + lo:s - n + lo + cnt]
     x = blocks.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = (x @ _head(params, cfg).to(cdt)).to(torch.float32)
     cache["len"] = torch.tensor(n, dtype=torch.int32)
@@ -324,27 +356,34 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
     the returned dict holds those tensors and the advanced `len` / `pos`.
     The slot is `len` while the cache fills, then `pos % S` (the
     reference's ring).  With `kv_rp`, q and the new key are sketched by the
-    same R as `prefill`'s, and the scores keep the 1/sqrt(dh) scale."""
+    same R as `prefill`'s, and the scores keep the 1/sqrt(dh) scale.  A
+    cache split over "model" is this rank's block of the slots: the rank
+    that owns the slot writes it, and attention merges every rank's own
+    slots (`blocks.decode_attention`)."""
     execution.torch_device()
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     x = blocks.embed(params, token[:, None], cdt)                      # (B, 1, d)
     b = x.shape[0]
     k_c, v_c = cache["k"], cache["v"]
-    s_max = k_c.shape[2]
+    shard = shard_rules.kv_seq_shard()
+    s_loc = k_c.shape[2]
+    s_max = s_loc * shard[2]
     pos, n = int(cache["pos"]), int(cache["len"])
     slot = n if n < s_max else pos % s_max
+    owner, j = divmod(slot, s_loc)
     new_len = min(n + 1, s_max)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     rp_r = _kv_rp(cfg, kv_rp_r, x.device)
     for i in range(cfg.n_layers):
-        lp = blocks.cast(blocks.layer_params(params, i), cdt)
+        lp = blocks.cast(_gathered(blocks.layer_params(params, i), cfg), cdt)
         h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, vv = _attn_proj(lp, h, cfg, positions)
         q, k = _sketch_k(q, rp_r), _sketch_k(k, rp_r)
-        k_c[i, :, slot] = k[:, 0].to(k_c.dtype)
-        v_c[i, :, slot] = vv[:, 0].to(v_c.dtype)
-        attn = blocks.decode_attention(q, k_c[i], v_c[i], new_len,
-                                       window=cfg.sliding_window, scale_dh=cfg.dh)
+        if owner == shard[1]:
+            k_c[i, :, j] = k[:, 0].to(k_c.dtype)
+            v_c[i, :, j] = vv[:, 0].to(v_c.dtype)
+        attn = blocks.decode_attention(q, k_c[i], v_c[i], new_len, window=cfg.sliding_window,
+                                       scale_dh=cfg.dh, seq_shard=shard)
         x = x + attn.reshape(b, 1, -1) @ lp["wo"]
         y, _ = _ffn(lp, blocks.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
         x = x + y

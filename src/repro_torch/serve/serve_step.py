@@ -15,13 +15,16 @@ it.
 On a mesh (`repro_torch.launch.mesh`) params are laid out by
 `param_specs`, the batch by `train_batch_specs` and the cache by
 `cache_specs` (`repro_torch.dist.sharding.lay_out`; a batch or token may
-also be the whole tensor every rank holds).  Each rank gathers the params,
-runs the unmeshed model on its DP rows — attention's kernel on local
-tensors — under `use_mesh`, so a MoE layer goes expert-parallel over
-`model`, and hands back logits sharded over the DP axes and the cache in
-its layout (the K/V sequence dim split over `model`).  Decode gathers each
-cache leaf's `model` split, steps, and writes this rank's slice back in
-place.
+also be the whole tensor every rank holds).  Each rank computes on the
+shards it stores: the model code runs on its DP rows, under `use_mesh`
+for the K/V cache's slot split, with the params of `dist.sharding.compute_params` (each layer gathered
+inside its loop, the rest once a step; a MoE layer goes expert-parallel
+over `model` on the stored expert shards) and — attention's kernel on
+local tensors — hands back logits sharded over the DP axes and the cache
+in its layout.  The K/V cache's slots stay split over `model`: prefill
+writes each rank's slot range, decode writes the new key on the rank that
+owns its slot and merges the ranks' attention through the log-sum-exp,
+updating the cache's local shards in place.
 """
 
 from __future__ import annotations
@@ -95,20 +98,13 @@ def make_decode(cfg: ArchConfig, mesh, params_like: Any, cache_like: Any, *,
 # the meshed steps
 # ---------------------------------------------------------------------------
 
-def _laid_out(t: torch.Tensor, spec, mesh, rows_dim: int):
-    """A DTensor laid out by `spec` from `t`, which holds this rank's DP
-    block of `rows_dim` and the whole of every other dim."""
+def _laid_out(t: torch.Tensor, spec, mesh):
+    """A DTensor laid out by `spec` from `t`, this rank's shard of it."""
     from torch.distributed.tensor import DTensor
 
-    rest = tuple(None if i == rows_dim else ax for i, ax in enumerate(spec))
-    loc = shard_rules.local_slice(t, rest, mesh)
-    shape = list(t.shape)
-    if spec[rows_dim] is not None:
-        shape[rows_dim] *= shard_rules.axis_size(mesh, spec[rows_dim])
-    return DTensor.from_local(loc if loc is t else loc.contiguous(), mesh,
-                              shard_rules.placements(spec, mesh), run_check=False,
-                              shape=torch.Size(shape),
-                              stride=shard_rules.contiguous_stride(shape))
+    shape = [n * shard_rules.axis_size(mesh, ax) for n, ax in zip(t.shape, spec)]
+    return DTensor.from_local(t, mesh, shard_rules.placements(spec, mesh), run_check=False,
+                              shape=torch.Size(shape), stride=shard_rules.contiguous_stride(shape))
 
 
 def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -126,62 +122,76 @@ class _Shape:
         self.ndim = len(self.shape)
 
 
-def _global_specs(local_cache: Any, mesh, split: bool):
-    """`cache_specs` of the global cache whose DP block `local_cache` is."""
-    n = shard_rules.axis_size(mesh, shard_rules.batch_axes(mesh)) if split else 1
-    like = tree_mod.tree_map(
-        lambda t: _Shape((t.shape[0], t.shape[1] * n) + tuple(t.shape[2:]))
-        if t.ndim >= 2 else _Shape(t.shape), local_cache)
-    return shard_rules.cache_specs(like, mesh)
+def _global_specs(local_cache: Any, mesh, split: bool, kv_split: bool):
+    """`cache_specs` of the global cache whose shard `local_cache` is: its
+    DP block of the batch when `split`, its block of the K/V slots over
+    "model" when `kv_split`."""
+    n_dp = shard_rules.axis_size(mesh, shard_rules.batch_axes(mesh)) if split else 1
+    n_kv = shard_rules.axis_size(mesh, "model") if kv_split else 1
+
+    def whole(path, t):
+        if t.ndim < 2:
+            return _Shape(t.shape)
+        shape = [t.shape[0], t.shape[1] * n_dp] + list(t.shape[2:])
+        if shard_rules.is_kv_leaf(path, t):
+            shape[2] *= n_kv
+        return _Shape(shape)
+
+    flat = tree_mod.flatten_with_path(local_cache)
+    return shard_rules.cache_specs(tree_mod.unflatten(local_cache, (whole(p, t) for p, t in flat)),
+                                   mesh)
+
+
+def _on_shards(params, mesh, split: bool):
+    local, specs = shard_rules.local_specs(params)
+    return shard_rules.compute_params(local, specs, mesh, split)
 
 
 def _meshed_prefill(cfg: ArchConfig, mesh, cache_size: int, execution: Execution):
     dev = execution.torch_device()
+    slots = api.cache_slots(cfg, cache_size)
+    kv_split = slots is not None and shard_rules.kv_splits(slots, mesh)
 
     def fn(params, batch):
         split = shard_rules.splits_rows(_tree_sig(batch)[0][1][0], mesh)
         local_batch = {k: shard_rules.dp_rows(v, mesh, split).to(dev) for k, v in batch.items()}
-        with shard_rules.use_mesh(mesh, rows_split=split):
-            logits, cache = api.prefill(shard_rules.full_tree(params), local_batch, cfg,
+        with shard_rules.use_mesh(mesh, kv_split=kv_split):
+            logits, cache = api.prefill(_on_shards(params, mesh, split), local_batch, cfg,
                                         cache_size, execution=execution)
-        specs = _global_specs(cache, mesh, split)
+        specs = _global_specs(cache, mesh, split, kv_split)
         cache = tree_mod.unflatten(cache, (
-            _laid_out(t, specs[p], mesh, 1) if t.ndim >= 2 else t
+            _laid_out(t, specs[p], mesh) if t.ndim >= 2 else t
             for p, t in tree_mod.flatten_with_path(cache)))
         lspec = ((shard_rules.batch_axes(mesh) if split else None), None)
-        return _laid_out(logits, lspec, mesh, 0), cache
+        return _laid_out(logits, lspec, mesh), cache
 
     return fn
 
 
 def _meshed_decode(cfg: ArchConfig, mesh, execution: Execution):
     dev = execution.torch_device()
-    keep = shard_rules.as_axes(shard_rules.batch_axes(mesh))
 
     def fn(params, token, kv_cache):
         flat = tree_mod.flatten_with_path(kv_cache)
         split = shard_rules.splits_rows(int(token.shape[0]), mesh)
-        local_cache = tree_mod.unflatten(kv_cache, (
-            shard_rules.gathered_except(t, keep) if shard_rules.is_dtensor(t) else t
-            for _, t in flat))
-        with shard_rules.use_mesh(mesh, rows_split=split):
-            logits, new = api.decode_step(shard_rules.full_tree(params),
+        kv_split = any(shard_rules.is_dtensor(t) and shard_rules.is_kv_leaf(p, t)
+                       and "model" in shard_rules.as_axes(shard_rules.spec_of(t)[2])
+                       for p, t in flat)
+        local_cache = tree_mod.unflatten(kv_cache, (shard_rules.local(t) for _, t in flat))
+        with shard_rules.use_mesh(mesh, kv_split=kv_split):
+            logits, new = api.decode_step(_on_shards(params, mesh, split),
                                           shard_rules.dp_rows(token, mesh, split).to(dev),
-                                          local_cache, cfg,
-                                          execution=execution)
+                                          local_cache, cfg, execution=execution)
         out = []
         for (_, old), (_, val) in zip(flat, tree_mod.flatten_with_path(new)):
             if shard_rules.is_dtensor(old):
-                rest = tuple(None if ax is not None and set(shard_rules.as_axes(ax)) <= set(keep)
-                             else ax for ax in shard_rules.spec_of(old))
-                loc, mine = old.to_local(), shard_rules.local_slice(val, rest, mesh)
-                if not _same_memory(mine, loc):
-                    loc.copy_(mine)
+                loc = old.to_local()
+                if not _same_memory(val, loc):
+                    loc.copy_(val)
                 out.append(old)
             else:
                 out.append(val)
         lspec = ((shard_rules.batch_axes(mesh) if split else None), None)
-        return _laid_out(logits, lspec, mesh, 0), tree_mod.unflatten(kv_cache, out)
+        return _laid_out(logits, lspec, mesh), tree_mod.unflatten(kv_cache, out)
 
     return fn
-

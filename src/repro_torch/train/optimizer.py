@@ -53,19 +53,20 @@ def tree_leaves(tree: Tree) -> List[Any]:
     return [tree]
 
 
+def _fill(t: Tree, it) -> Tree:
+    if isinstance(t, dict):
+        return {k: _fill(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_fill(u, it) for u in t)
+    return next(it)
+
+
 def tree_unflatten(like: Tree, leaves) -> Tree:
     """`like`'s nesting filled from the iterable `leaves`, in `tree_leaves`
-    order."""
-    it = iter(leaves)
-
-    def go(t):
-        if isinstance(t, dict):
-            return {k: go(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(go(u) for u in t)
-        return next(it)
-
-    return go(like)
+    order.  The recursion is a module function: a nested function that
+    calls itself is a reference cycle, which would keep `leaves` (a step's
+    whole gradient) alive until Python's cyclic collector runs."""
+    return _fill(like, iter(leaves))
 
 
 def tree_map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
@@ -106,8 +107,11 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32))) for l in leaves))
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Tree, max_norm: float, *, norm: Optional[torch.Tensor] = None
+                        ) -> Tuple[Tree, torch.Tensor]:
+    """`grads` scaled to a global norm of at most `max_norm`, and the norm
+    (`norm` if given: a norm over shards that `global_norm` cannot see)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 

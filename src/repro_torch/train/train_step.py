@@ -18,16 +18,19 @@ On a mesh (`make_train_step(..., mesh=)`) the state is stored as
 `state_specs` lays it out — params and AdamW m / v sharded by
 `param_specs`, as DTensors (`dist.sharding.lay_out`); the DR unit and the
 counters replicated — and the batch shards over the DP axes.  The step
-itself computes on whole copies: each rank gathers every param, runs the DR
-front-end on the whole (micro-)batch as the reference's unsplit program
-does, takes the loss and its gradients on its own rows (under `use_mesh`:
-a MoE layer goes expert-parallel), averages the whole gradients over the
-DP axes, clips them by their global norm, keeps its shard of each and runs
-AdamW on its shards only.  So the sharded storage saves memory between
-steps, not during one: per-layer gathers and reduce-scattered gradients
-are still to come (ROADMAP).  The DR unit's update sees the whole batch on
-every rank, so it stays replicated.  Without a mesh the same body runs as
-a world of one rank.
+computes on the shards it stores (`dist.sharding.compute_params`): each
+layer body gathers that layer's params inside its checkpointed body, so
+the backward gathers them again and no whole layer lives from forward to
+backward; the embedding, head, norms, a shared block and the front-end
+projections are gathered once a step; the gathers' backward reduce-scatters
+each gradient to this rank's shard and averages it over the DP axes, so no
+rank holds a whole gradient.  Micro-batch sums, the global norm (each
+leaf's squares summed over the axes it is split on), clipping and AdamW
+all run on the shards.  The DR front-end runs on the whole (micro-)batch
+as the reference's unsplit program does, and its unit stays replicated;
+the loss runs on this rank's rows (a MoE layer goes expert-parallel on
+the stored expert shards, on the mesh they carry).  Without a mesh the same
+body runs as a world of one rank.
 
 `make_dp_compressed_step` is the reference's pure-DP variant: params
 replicated, each rank's gradients synced through `compress.compress_sync`
@@ -42,7 +45,6 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch import tree as tree_mod
 from repro_torch.core import dr_unit
 from repro_torch.core.execution import Execution
 from repro_torch.dist import compress as compress_mod
@@ -200,43 +202,36 @@ def make_train_step(cfg: TrainConfig, *, execution: Execution = Execution(), mes
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         batch = {name: torch.as_tensor(shard_rules.full(t)).to(dev) for name, t in batch.items()
                  if name != "step"}
-        params = shard_rules.full_tree(state.params)
+        params, specs = shard_rules.local_specs(state.params)
         gsum, lsum, aux, split = None, 0.0, {}, False
         for micro in _micro_batches(batch, k):
             # the front-end's normalisation reads the whole (micro-)batch
             micro = _apply_dr_frontend(state.dr, dcfg, micro, execution=execution)
             split = shard_rules.splits_rows(next(iter(micro.values())).shape[0], mesh)
-            with shard_rules.use_mesh(mesh, rows_split=split):
-                loss, aux, g = value_and_grad(loss_fn, params, None,
-                                              _local_batch(micro, mesh, split))
+            on_shards = lambda p, _dr, b: loss_fn(  # noqa: E731
+                shard_rules.compute_params(p, specs, mesh, split), None, b)
+            loss, aux, g = value_and_grad(on_shards, params, None,
+                                          _local_batch(micro, mesh, split))
             gsum = g if gsum is None else opt_mod.tree_map(torch.add, gsum, g)
             lsum = lsum + loss
-        del params
+            del g
         with torch.no_grad():
             grads = gsum if k == 1 else opt_mod.tree_map(lambda t: t / k, gsum)
             del gsum
             loss, aux = (lsum, aux) if k == 1 else (lsum / k, {})
             if split:
-                for t in opt_mod.tree_leaves(grads) + [loss] + list(aux.values()):
+                for t in [loss] + list(aux.values()):
                     shard_rules.all_reduce_mean_(t, mesh, dax)
+            gnorm = shard_rules.global_norm(grads, specs, mesh)
             if cfg.opt.grad_clip is not None:
-                grads, gnorm = opt_mod.clip_by_global_norm(grads, cfg.opt.grad_clip)
-            else:
-                gnorm = opt_mod.global_norm(grads)
-            if mesh is not None:
-                # each rank updates its own shard of params and AdamW m / v
-                specs = shard_rules.param_specs(state.params, mesh)
-                paths = [p for p, _ in tree_mod.flatten_with_path(state.params)]
-                grads = opt_mod.tree_unflatten(state.params, (
-                    shard_rules.local_slice(g, specs[p], mesh)
-                    for p, g in zip(paths, opt_mod.tree_leaves(grads))))
-            loc = lambda tree: opt_mod.tree_map(shard_rules.local, tree)
+                grads, _ = opt_mod.clip_by_global_norm(grads, cfg.opt.grad_clip, norm=gnorm)
+            loc = lambda tree: opt_mod.tree_map(shard_rules.local, tree)  # noqa: E731
             params, opt_state, metrics = opt_mod.apply_updates(
-                loc(state.params), grads, state.opt._replace(m=loc(state.opt.m),
-                                                            v=loc(state.opt.v)), no_clip)
+                params, grads, state.opt._replace(m=loc(state.opt.m), v=loc(state.opt.v)),
+                no_clip)
             del grads
             metrics["grad_norm"] = gnorm
-            relay = lambda new, like: opt_mod.tree_map(_relaid, new, like)
+            relay = lambda new, like: opt_mod.tree_map(_relaid, new, like)  # noqa: E731
             params = relay(params, state.params)
             opt_state = opt_state._replace(m=relay(opt_state.m, state.opt.m),
                                            v=relay(opt_state.v, state.opt.v))

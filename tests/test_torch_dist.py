@@ -1,6 +1,7 @@
 """The port's distribution layer on 8 gloo ranks against the JAX package's
-8-device runs: expert-parallel MoE (`blocks.moe_layer` under a (2 data,
-4 model) mesh, two all-to-alls over `model`) and `compress.compress_sync`
+8-device runs: expert-parallel MoE (`blocks.moe_layer` on a rank's stored
+shards of the expert stacks over a (2 data, 4 model) mesh, two all-to-alls
+over `model`) and `compress.compress_sync`
 (the RP-sketched gradient sync over (8 data,)).
 
 The reference runs its own tests' programs (tests/test_dist.py:60-104 and
@@ -129,6 +130,12 @@ def test_moe_expert_parallel_matches_the_reference(ranks, reference):
         np.testing.assert_allclose(got, m["y_sh"][di:di + 1], rtol=2e-4, atol=2e-5)
         for name, want in m["aux_sh"].items():
             np.testing.assert_allclose(r["moe"]["aux"][name], want, rtol=2e-4, atol=2e-5)
+
+
+def test_moe_expert_parallel_allocates_no_whole_expert_stack(ranks):
+    """Each rank runs the layer on its stored shards of the expert stacks:
+    no op makes a tensor of a whole (E, d, f) or (E, f, d) stack."""
+    assert [r["moe"]["whole_stacks"] for r in ranks] == [[]] * len(ranks)
 
 
 def test_moe_expert_parallel_matches_the_single_device_layer(ranks, reference):

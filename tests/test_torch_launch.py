@@ -155,6 +155,7 @@ def test_fake_dry_run_equals_the_real_step(arch, shape):
     assert g.flops == w.flops and g.flops > 0
     assert g.bytes == w.bytes and g.bytes > 0
     assert g.peak_bytes == w.peak_bytes and g.peak_bytes > 0
+    assert g.peak_by_kind == w.peak_by_kind and sum(g.peak_by_kind.values()) == g.peak_bytes
     assert g.kernels == w.kernels == {"calls": {}, "flops": {}, "bytes": {}}
     assert got["state_bytes"] == want["state_bytes"]
     assert not dist.is_initialized()
@@ -214,6 +215,26 @@ def test_meshed_dry_run_state_bytes_equal_the_reference_arithmetic(arch, shape_i
             assert got["count"].peak_bytes >= got["state_bytes"]
     assert not dist.is_initialized()
     assert statuses == {c: j_api.cell_supported(jc, c)[0] for c in statuses}
+
+
+def test_a_meshed_train_step_peaks_below_the_whole_params():
+    """The step computes on shards: on a fake 8-rank (4 data, 2 model) world,
+    smollm SMOKE at 32 layers (params 8× its activations) peaks per rank
+    below the bytes of its whole params, which a step that gathered every
+    param (and all-reduced whole gradients) would hold at least twice;
+    every leaf splits 8 ways, so the rank stores params, m and v in under
+    half of them."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    cfg = dataclasses.replace(t_registry.get_smoke("smollm_135m"), n_layers=32)
+    whole = 4.0 * t_api.exact_param_counts(cfg)[0]           # f32 params
+    with dryrun.fake_world(8):
+        mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+        got = dryrun.build_and_count(cfg, "train_4k", mesh, batch=8, seq=16, device=CPU)
+    peak = got["count"].peak_bytes
+    assert got["state_bytes"] < 0.5 * whole
+    assert got["state_bytes"] < peak < whole, (got["state_bytes"], peak, whole)
+    assert not dist.is_initialized()
 
 
 def test_run_cell_statuses_follow_cell_supported(monkeypatch, tmp_path):

@@ -1,7 +1,11 @@
 """The port's mesh path against the JAX package: the sharding rules, the
 program keys, and — on gloo ranks spawned on the CPU — the meshed train
-step, the RP-compressed DP step, `dr_transform`, `DRService(mesh=)`,
-meshed prefill + decode, the elastic restore and the trainer's resume.
+step (with grad-accumulation, with rows the DP axes do not divide, and the
+MoE step expert-parallel on the stored expert shards), the RP-compressed
+DP step, `dr_transform`, `DRService(mesh=)`, meshed prefill + decode over
+a K/V cache split over `model` (the sliding-window ring, `kv_rp`), the
+allocation guard over every meshed step, the elastic restore and the
+trainer's resume.
 
 Specs are compared exactly, as axis-name tuples, on five meshes; the
 reference's rules read only `axis_names` and `devices.shape`, so a
@@ -10,7 +14,8 @@ are `tests/torch_mesh_ranks.py` scenarios: one spawn of 4 ranks on (2
 data, 2 model) and one of 8 on (4 data, 2 model), each rank one thread, no
 JAX inside a rank.  The reference's numbers are computed here: its DR
 endpoint and its compressed DP step on 8 / 4 host devices in one JAX
-subprocess, and — because every meshed LM path of the reference fails with
+subprocess, its expert-parallel MoE train step under `with mesh:` on (2,
+2) host devices, and — because its meshed LM steps fail with
 this JAX (`ShardingTypeError` at the embedding gather;
 tests/test_fault_tolerance.py::TestResume,
 tests/test_scheduler.py::TestStepTraffic::test_lm_prefill_decode_through_queue)
@@ -41,6 +46,7 @@ from repro.dr import DRModel as JModel
 from repro.dr import EASIStage as JEASI
 from repro.dr import RPStage as JRP
 from repro.models import api as j_api
+from repro.models import transformer as j_transformer
 from repro.models.config import DRFrontendSpec as JSpec
 from repro.train import optimizer as j_opt
 from repro.train import train_step as j_ts
@@ -147,8 +153,8 @@ def test_constrain_and_rules_at_their_edges():
     assert t_sharding.param_spec("['layers']['wq']", (30, 577, 9 * 64), mesh) == \
         tuple(j_sharding.param_spec("['layers']['wq']", (30, 577, 9 * 64), mesh))
     assert t_sharding.param_spec("['layers']['w_in']", (32, 16, 4096, 6400), mesh)[0] is None
-    with t_sharding.use_mesh("m", rows_split=False):
-        assert t_sharding.ambient_mesh() == "m" and not t_sharding.rows_split()
+    with t_sharding.use_mesh("m"):
+        assert t_sharding.ambient_mesh() == "m" and t_sharding.kv_seq_shard() == ("m", 0, 1)
     assert t_sharding.ambient_mesh() is None
 
 
@@ -237,6 +243,33 @@ out["dp"] = {"metrics": metrics, "r": rs,
                         for kp, l in jax.tree_util.tree_flatten_with_path(st.params)[0]},
              "ef": [{jax.tree_util.keystr(kp): np.asarray(l)
                      for kp, l in jax.tree_util.tree_flatten_with_path(ef)[0]}]}
+# the expert-parallel MoE step: the loss under `with mesh:` on (2, 2), so
+# moe_layer takes its shard_map branch (inputs whole: the meshed
+# make_train_step fails with this JAX at the embedding gather)
+emesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+out["ep"] = {}
+for name, case in args["ep"].items():
+    jc = dataclasses.replace(registry.get_smoke(case["arch"]), compute_dtype="float32")
+    cfg = ts.TrainConfig(arch=jc, opt=opt.AdamWConfig(**case["opt"]))
+    loss_fn = ts.make_loss(cfg, None)
+
+    @jax.jit
+    def ep_step(state, batch):
+        (loss, aux), grads = jax.value_and_grad(loss_fn, has_aux=True)(state.params, state.dr,
+                                                                        batch)
+        params, opt_state, metrics = opt.apply_updates(state.params, grads, state.opt, cfg.opt)
+        return ts.TrainState(params, opt_state, state.dr, state.step + 1), \
+            {"loss": loss, **metrics, **aux}
+
+    st = ts.init_state(jax.random.PRNGKey(0), cfg)
+    metrics = []
+    with emesh:
+        for b in case["batches"]:
+            st, m = ep_step(st, {k: jnp.asarray(v) for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+    out["ep"][name] = {"metrics": metrics,
+                       "leaves": {jax.tree_util.keystr(kp): np.asarray(l)
+                                  for kp, l in jax.tree_util.tree_flatten_with_path(st)[0]}}
 pickle.dump(out, open(sys.argv[2], "wb"))
 print("REF_OK")
 """
@@ -264,12 +297,17 @@ def _dp_batches(jc):
 
 @pytest.fixture(scope="module")
 def reference_runs(tmp_path_factory):
-    """The reference's DR endpoint on a (4, 2) mesh of 8 host devices and
-    its compressed DP step on 4, in one subprocess."""
+    """The reference's DR endpoint on a (4, 2) mesh of 8 host devices, its
+    compressed DP step on 4 and its expert-parallel MoE train steps on (2,
+    2), in one subprocess."""
     d = tmp_path_factory.mktemp("mesh_ref")
     jc, _ = _smollm_f32()
+    ep = {name: {"arch": spec["arch"], "opt": TRAIN_OPT,
+                 "batches": [{k: v.numpy() for k, v in b.items()}
+                             for b in _train_case(spec)[3]]}
+          for name, spec in EP_TRAIN_CASES.items()}
     args = {"dr_key": DR_KEY, "dr_x": _dr_inputs(), "opt": DP_OPT, "compress": DP_COMPRESS,
-            "dp_batches": _dp_batches(jc)}
+            "dp_batches": _dp_batches(jc), "ep": ep}
     with open(d / "args.pkl", "wb") as f:
         pickle.dump(args, f)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -286,7 +324,16 @@ TRAIN_CASES = {
     "smollm": dict(arch="smollm_135m", accum=1, batch=4),
     "smollm-accum2": dict(arch="smollm_135m", accum=2, batch=8),
     "hubert-dr": dict(arch="hubert_xlarge", accum=1, batch=4, dr=True),
+    # 3 rows: the DP axes divide them on neither mesh, so every rank holds
+    # the whole batch (`rows_split` false) and the gradients are not summed
+    "smollm-rows3": dict(arch="smollm_135m", accum=1, batch=3),
 }
+# On (2 data, 2 model), where the MoE layer is expert-parallel on the
+# stored expert shards; held to the reference's own expert-parallel step.
+EP_TRAIN_CASES = {
+    "phi-moe-ep": dict(arch="phi35_moe", accum=1, batch=8),
+}
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=4)
 # Run on (4 data, 1 model), where expert parallelism does not apply: the MoE
 # layer must drop tokens by the whole batch's capacity.  At capacity factor 1
 # (128 tokens over 4 experts, top-2) experts overflow both a rank's capacity
@@ -304,9 +351,10 @@ def _train_case(spec):
     if "capacity" in spec:
         jc, tc = (dataclasses.replace(c, moe=dataclasses.replace(
             c.moe, capacity_factor=spec["capacity"])) for c in (jc, tc))
-    opt = dict(lr=1e-3, warmup_steps=1, total_steps=4)
-    jcfg = j_ts.TrainConfig(arch=jc, opt=j_opt.AdamWConfig(**opt), grad_accum=spec["accum"])
-    tcfg = t_ts.TrainConfig(arch=tc, opt=t_opt.AdamWConfig(**opt), grad_accum=spec["accum"])
+    jcfg = j_ts.TrainConfig(arch=jc, opt=j_opt.AdamWConfig(**TRAIN_OPT),
+                            grad_accum=spec["accum"])
+    tcfg = t_ts.TrainConfig(arch=tc, opt=t_opt.AdamWConfig(**TRAIN_OPT),
+                            grad_accum=spec["accum"])
     j_state = j_ts.init_state(jax.random.PRNGKey(0), jcfg)
     data = t_synthetic.TokenStreamConfig(vocab_size=jc.vocab_size, seq_len=16,
                                          global_batch=spec["batch"], seed=3)
@@ -381,8 +429,14 @@ def run_2x2(tmp_path_factory, train_refs, reference_runs):
     trainer_cfg = t_trainer.TrainerConfig(
         train=t_ts.TrainConfig(arch=tc, opt=t_opt.AdamWConfig(lr=1e-3), seed=0), total_steps=6,
         ckpt_dir=str(d / "unused"), ckpt_every=3, log_every=100)
+    ep = {}
+    for name, spec in EP_TRAIN_CASES.items():
+        _, tcfg, j_state, batches = _train_case(spec)
+        ep[name] = {"tcfg": tcfg, "batches": batches,
+                    "state": bridge.train_state_from_reference(np_tree(j_state), device="cpu")}
     inputs = {
         "train": {n: train_refs[n][0] for n in TRAIN_CASES},
+        "train_ep": ep,
         "train_data_mesh": {n: train_refs[n][0] for n in DATA_MESH_TRAIN_CASES},
         "dp": {"tcfg": dp_cfg, "state": t_state, "r": reference_runs["dp"]["r"],
                "batches": [{k: torch.from_numpy(v) for k, v in b.items()}
@@ -393,6 +447,15 @@ def run_2x2(tmp_path_factory, train_refs, reference_runs):
                                                           global_batch=4)},
     }
     return spawn("mesh_2x2", 4, d / "ranks", inputs, timeout=300), inputs
+
+
+# h2o's 20-token prompt wraps its 16-slot sliding-window ring; yi keeps
+# 18 slots, 9 a rank, and its keys RP-sketched on the reference's R;
+# zamba's shared block keeps its K/V slots split the same way; rwkv6 keeps
+# no K/V cache (its layers are gathered from the shards all the same)
+SERVE_CASES = {"h2o": ("h2o_danube3_4b", {}), "phi-moe": ("phi35_moe", {}),
+               "yi-kvrp": ("yi_6b", {"kv_rp": 2}), "zamba": ("zamba2_7b", {}),
+               "rwkv6": ("rwkv6_1b6", {})}
 
 
 @pytest.fixture(scope="module")
@@ -406,8 +469,8 @@ def run_4x2(tmp_path_factory, train_refs, run_2x2):
     rows = {n: torch.from_numpy(rng.standard_normal((n, 32)).astype(np.float32))
             for n in (3, 17, 63)}
     serve = {}
-    for name, arch in (("h2o", "h2o_danube3_4b"), ("phi-moe", "phi35_moe")):
-        jc, tc = configs(arch, "float32")
+    for name, (arch, changes) in SERVE_CASES.items():
+        jc, tc = configs(arch, "float32", **changes)
         inputs, forced, cache_size = request(jc, batch=4)
         params = j_api.init_params(jax.random.PRNGKey(3), jc)
         serve[name] = {"cfg": tc, "params": bridge.params_from_reference(np_tree(params),
@@ -415,6 +478,9 @@ def run_4x2(tmp_path_factory, train_refs, run_2x2):
                        "batch": {k: torch.from_numpy(v) for k, v in inputs.items()},
                        "forced": [torch.from_numpy(forced[:, i]) for i in range(forced.shape[1])],
                        "cache_size": cache_size, "ref": (jc, params, inputs, forced)}
+        if jc.kv_rp:
+            serve[name]["kv_rp_r"] = bridge.to_tensor(
+                np.asarray(j_transformer._kv_rp_matrix(jc)), device="cpu")
     _, tc = _smollm_f32()
     target = t_ts.init_state(torch.Generator().manual_seed(9), t_ts.TrainConfig(arch=tc),
                              execution=CPU)
@@ -447,6 +513,18 @@ def test_meshed_train_step_matches_the_reference(case, mesh, run_2x2, run_4x2, t
     leaf of the state (params, AdamW m / v, the DR unit's B) within 5e-4
     in relative norm; integers exactly."""
     _check_train(case, (run_2x2 if mesh == "2x2" else run_4x2)[0], train_refs[case][1])
+
+
+@pytest.mark.parametrize("case", list(EP_TRAIN_CASES))
+def test_expert_parallel_train_step_matches_the_reference(case, run_2x2, reference_runs):
+    """Two steps of phi3.5-moe SMOKE through `make_train_step(mesh=)` on (2
+    data, 2 model), each layer's experts taken from the stored shards
+    (gathered over `data`, then one all-to-all over `model` from the
+    feature split to the expert split), against two of the reference's
+    expert-parallel steps (its `shard_map` branch under `with mesh:` on
+    (2, 2) host devices; each slice's capacity and the aux terms' pmean are
+    the reference's), held as above."""
+    _check_train(case, run_2x2[0], reference_runs["ep"][case])
 
 
 @pytest.mark.parametrize("case", list(DATA_MESH_TRAIN_CASES))
@@ -546,11 +624,14 @@ def test_dr_service_answers_ragged_rows_on_a_mesh(run_4x2):
                                        tm.transform(t_dr, x).numpy(), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["h2o", "phi-moe"])
+@pytest.mark.parametrize("name", list(SERVE_CASES))
 def test_meshed_prefill_decode_matches_the_reference(name, run_4x2):
-    """h2o and phi3.5-moe SMOKE (f32) on (4, 2) — batch over data, the KV
-    cache's sequence over model, phi's experts over model through the
-    all-to-alls — prefill + 6 teacher-forced decode steps against the
+    """h2o, phi3.5-moe, yi with `kv_rp` = 2, zamba2 and rwkv6 SMOKE (f32) on
+    (4, 2) — batch
+    over data, the K/V cache's slots over model (prefill writes each rank's
+    slot range, decode writes on the slot's owner and merges the ranks'
+    attention through the log-sum-exp), phi's experts over model through
+    the all-to-alls — prefill + 6 teacher-forced decode steps against the
     reference's unmeshed `api` steps (its meshed ones fail with this JAX):
     logits at 1e-4 every step, every cache leaf at the end."""
     jc, params, inputs, forced = run_4x2[2][name]
@@ -567,11 +648,30 @@ def test_meshed_prefill_decode_matches_the_reference(name, run_4x2):
         assert len(got["logits"]) == len(want)
         for i, (g, w) in enumerate(zip(got["logits"], want)):
             np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=f"step {i}")
-        assert got["specs"]["k"] == (None, "data", "model", None, None)
+        if jc.family != "rwkv6":          # rwkv6's decode state holds no K/V cache
+            assert got["specs"]["k"] == (None, "data", "model", None, None)
     for path, w in ((jax.tree_util.keystr(kp), np.asarray(l)) for kp, l in
                     jax.tree_util.tree_flatten_with_path(cache)[0]):
         g = run_4x2[0][0][f"serve/{name}"]["cache"][path]
         np.testing.assert_allclose(g, w.astype(g.dtype), rtol=1e-4, atol=1e-4, err_msg=path)
+
+
+def test_meshed_steps_allocate_no_whole_layer_expert_stack_or_cache(run_2x2, run_4x2):
+    """The allocation guard: on every rank of (2, 2), (4, 1) and (4, 2), no
+    tensor that a meshed train step (two steps, forward, backward and the
+    recompute), prefill or decode step makes has the shape of a whole
+    stacked `layers` matrix the mesh splits, of a layer's whole (E, d, f)
+    expert stack, or of a K/V cache leaf whole in its slots."""
+    checked = set()
+    for res in (run_2x2[0], run_4x2[0]):
+        for r in res:
+            for key, val in r.items():
+                if key.startswith(("train/", "serve/")):
+                    assert val["violations"] == [], (key, val["violations"][:5])
+                    assert val["allocations"] > 0 and val["forbidden"] > 0, key
+                    checked.add(key)
+    assert {f"train/{c}" for c in {**TRAIN_CASES, **EP_TRAIN_CASES, **DATA_MESH_TRAIN_CASES}} \
+        | {f"serve/{c}" for c in SERVE_CASES} <= checked
 
 
 def test_elastic_restore_across_rank_counts(run_2x2, run_4x2):
@@ -612,7 +712,19 @@ def test_trainer_resumes_on_a_mesh(run_2x2):
 # the examples' twins, on a one-rank gloo mesh
 # ---------------------------------------------------------------------------
 
-def test_serve_lm_experiment_on_the_cpu(capsys):
+@pytest.fixture
+def own_group():
+    """Ends the process group the test's `make_smoke_mesh()` started, so a
+    later test in this process (the dry run's fake group) finds none."""
+    import torch.distributed as dist
+
+    was_up = dist.is_initialized()
+    yield
+    if dist.is_initialized() and not was_up:
+        dist.destroy_process_group()
+
+
+def test_serve_lm_experiment_on_the_cpu(capsys, own_group):
     """The twin of examples/serve_lm.py: DR traffic and LM steps through
     one scheduler, the LM on `make_smoke_mesh()`, fleet-wide promotes and a
     failover."""
@@ -624,7 +736,7 @@ def test_serve_lm_experiment_on_the_cpu(capsys):
     assert "mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
 
 
-def test_lm_dr_frontend_experiment_on_the_cpu(capsys):
+def test_lm_dr_frontend_experiment_on_the_cpu(capsys, own_group):
     """The twin of examples/lm_dr_frontend.py: hubert SMOKE trained on
     `make_smoke_mesh()`, with and without the RP→EASI front-end."""
     from repro_torch.experiments import lm_dr_frontend

@@ -450,6 +450,30 @@ def test_train_step_refuses_what_needs_a_mesh():
             execution=CPU)
 
 
+@pytest.mark.parametrize("where", ["optimizer", "tree"])
+def test_unflatten_keeps_no_leaf_alive(where):
+    """The tree that `unflatten` fills holds the only references to its
+    leaves: dropped, they are freed at once, with Python's cyclic collector
+    off (a train step's unclipped gradients pass through it)."""
+    import gc
+    import weakref
+
+    from repro_torch import tree as t_tree
+
+    fill = t_opt.tree_unflatten if where == "optimizer" else t_tree.unflatten
+    like = {"a": torch.zeros(2), "b": [torch.zeros(3), {"c": torch.zeros(1)}]}
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        out = fill(like, tuple(torch.ones(n) for n in (2, 3, 1)))
+        refs = [weakref.ref(t) for t in (out["a"], out["b"][0], out["b"][1]["c"])]
+        del out
+        assert [r() for r in refs] == [None, None, None]
+    finally:
+        if was:
+            gc.enable()
+
+
 def test_training_entry_points_without_a_card_raise(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable here")

@@ -99,20 +99,93 @@ def _local_shapes(tree, mesh):
     return out
 
 
+class Allocations:
+    """A dispatch mode that records the shape of every tensor an op makes
+    that is not a view of its inputs (factories, copies, collectives'
+    buffers), forward, backward and the backward's recompute alike."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        self.shapes = []
+        seen = self.shapes
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                from torch.distributed.tensor import DTensor
+
+                if any(t is DTensor for t in types):
+                    return NotImplemented
+                out = func(*args, **(kwargs or {}))
+                if not func.is_view:
+                    for t in (out if isinstance(out, (list, tuple)) else [out]):
+                        if isinstance(t, torch.Tensor):
+                            seen.append(tuple(t.shape))
+                return out
+
+        self.mode = _Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def _whole_shapes(params, mesh, cfg, cache=None):
+    """{shape: what} a rank must never allocate in a meshed step: each
+    stacked `layers` matrix leaf that the mesh splits, whole; each layer's
+    whole (E, d, f) expert stack; each K/V cache leaf whole in its slots
+    (whole, or this rank's DP rows of it).  Global shapes from the whole
+    `params` / `cache` every rank was given."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.dist import sharding
+
+    out = {}
+    specs = sharding.param_specs(params, mesh)
+    for path, leaf in tree_mod.flatten_with_path(params):
+        if not path.startswith("['layers']") or not sharding.split_axes(specs[path], mesh):
+            continue
+        if leaf.ndim >= 3:
+            out[tuple(leaf.shape)] = f"whole stacked {path}"
+        if cfg.moe is not None and leaf.ndim == 4:
+            out[tuple(leaf.shape[1:])] = f"a layer's whole expert stack {path}"
+    if cache is not None:
+        cspecs = sharding.cache_specs(cache, mesh)
+        for path, leaf in tree_mod.flatten_with_path(cache):
+            if sharding.is_kv_leaf(path, leaf) and "model" in sharding.split_axes(cspecs[path],
+                                                                                  mesh):
+                out[tuple(leaf.shape)] = f"whole K/V cache {path}"
+                rows = list(leaf.shape)
+                rows[1] //= sharding.axis_size(mesh, cspecs[path][1])
+                out[tuple(rows)] = f"K/V cache {path}, this rank's rows with every slot"
+    return out
+
+
+def _violations(alloc, forbidden):
+    return sorted({f"{shape}: {forbidden[shape]}" for shape in alloc.shapes
+                   if shape in forbidden})
+
+
 def _train_cases(rank, inputs, mesh, out, key="train"):
     from repro_torch.train import train_step as ts
 
     for name, case in inputs.get(key, {}).items():
         state = ts.lay_out_state(case["state"], mesh)
         step = ts.make_train_step(case["tcfg"], execution=_cpu(), mesh=mesh)
+        forbidden = _whole_shapes(case["state"].params, mesh, case["tcfg"].arch)
         metrics = []
-        for batch in case["batches"]:
-            state, m = step(state, batch)
-            metrics.append({k: float(v) for k, v in m.items()})
+        with Allocations() as alloc:
+            for batch in case["batches"]:
+                state, m = step(state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
         shapes = _local_shapes(state, mesh)
         leaves = _gathered(state)
         out[f"train/{name}"] = {"metrics": metrics, "shapes": shapes,
-                                "leaves": leaves if rank == 0 else None}
+                                "leaves": leaves if rank == 0 else None,
+                                "allocations": len(alloc.shapes), "forbidden": len(forbidden),
+                                "violations": _violations(alloc, forbidden)}
 
 
 # ---------------------------------------------------------------------------
@@ -120,7 +193,8 @@ def _train_cases(rank, inputs, mesh, out, key="train"):
 # ---------------------------------------------------------------------------
 
 def scenario_mesh_2x2(rank, world, inputs, d):
-    """(2 data, 2 model): the meshed train steps; on (4 data, 1 model) the
+    """(2 data, 2 model): the meshed train steps (the MoE one expert-parallel),
+    each under the allocation guard; on (4 data, 1 model) the
     MoE train step without expert parallelism and the RP-compressed DP step;
     a sharded checkpoint saved over 4 ranks, and the trainer's resume on the
     mesh."""
@@ -133,6 +207,7 @@ def scenario_mesh_2x2(rank, world, inputs, d):
     out = {}
     mesh = _mesh((2, 2))
     _train_cases(rank, inputs, mesh, out)
+    _train_cases(rank, inputs, mesh, out, key="train_ep")
 
     dmesh = _mesh((4, 1))
     _train_cases(rank, inputs, dmesh, out, key="train_data_mesh")
@@ -180,8 +255,11 @@ def scenario_mesh_2x2(rank, world, inputs, d):
 def scenario_mesh_4x2(rank, world, inputs, d):
     """(4 data, 2 model): `dr_transform` at an odd and an even batch,
     `DRService(mesh=)` over ragged rows, the meshed train steps, meshed
-    prefill + decode, and the elastic restore of the 4-rank checkpoint."""
+    prefill + decode over a K/V cache split over `model` (a `kv_rp` case on
+    the reference's R, put in place of the port's), each under the
+    allocation guard, and the elastic restore of the 4-rank checkpoint."""
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import transformer
     from repro_torch.dist import sharding
     from repro_torch.serve import BucketPolicy, DRService, dr_serve, serve_step
     from repro_torch.train import train_step as ts
@@ -205,20 +283,31 @@ def scenario_mesh_4x2(rank, world, inputs, d):
 
     for name, case in inputs["serve"].items():
         cfg, params = case["cfg"], case["params"]
+        own_r = transformer.kv_rp_matrix
+        if "kv_rp_r" in case:
+            transformer.kv_rp_matrix = lambda c, device: case["kv_rp_r"].to(device)
         laid = sharding.lay_out(params, sharding.param_specs(params, mesh), mesh)
         exe = _cpu()
         pre = serve_step.make_prefill(cfg, mesh, laid, case["batch"], case["cache_size"],
                                       execution=exe)
-        logits, cache = pre(laid, case["batch"])
+        with Allocations() as alloc:
+            logits, cache = pre(laid, case["batch"])
         steps = [sharding.full(logits).numpy()]
         placements = {k: sharding.spec_of(v) for k, v in cache.items()
                       if sharding.is_dtensor(v)}
         dec = serve_step.make_decode(cfg, mesh, laid, cache, execution=exe)
-        for tok in case["forced"]:
-            logits, cache = dec(laid, tok, cache)
-            steps.append(sharding.full(logits).numpy())
+        with alloc:
+            for tok in case["forced"]:
+                logits, cache = dec(laid, tok, cache)
+                steps.append(sharding.full(logits).numpy())
+        transformer.kv_rp_matrix = own_r
+        whole_cache = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                       for k, v in cache.items() if isinstance(v, torch.Tensor) and v.ndim}
+        forbidden = _whole_shapes(params, mesh, cfg, whole_cache)
         out[f"serve/{name}"] = {"logits": steps, "cache": _gathered(cache),
-                                "specs": placements, "shapes": _local_shapes(cache, mesh)}
+                                "specs": placements, "shapes": _local_shapes(cache, mesh),
+                                "allocations": len(alloc.shapes), "forbidden": len(forbidden),
+                                "violations": _violations(alloc, forbidden)}
 
     ck = inputs["elastic"]
     target = ts.lay_out_state(ck["target"], mesh)
@@ -229,8 +318,10 @@ def scenario_mesh_4x2(rank, world, inputs, d):
 
 
 def scenario_dist_8(rank, world, inputs, d):
-    """8 ranks: expert-parallel MoE on (2 data, 4 model), its gradients,
-    and `compress_sync` over (8 data,)."""
+    """8 ranks: expert-parallel MoE on (2 data, 4 model) over the rank's
+    stored shards of a one-layer stack (`param_specs`' layout, as the
+    meshed steps hand them to `moe_layer`), its gradients, and
+    `compress_sync` over (8 data,)."""
     from repro_torch.dist import compress, sharding
     from repro_torch.models import blocks
 
@@ -238,20 +329,39 @@ def scenario_dist_8(rank, world, inputs, d):
     moe = inputs["moe"]
     mesh = _mesh((2, 4))
     params, x, spec = moe["params"], moe["x"], moe["spec"]
+    stacked = {"layers": {k: v[None] for k, v in params.items()}}
+    specs = sharding.param_specs(stacked, mesh)
+    path = {k: f"['layers'][{k!r}]" for k in params}
+
+    def layer(local):
+        cp = sharding.compute_params({"layers": local}, specs, mesh, True)
+        return blocks.gather_layer(blocks.layer_params(cp, 0), keep=blocks.EXPERT_KEYS)
+
     di = mesh.get_local_rank("data")
     rows = x.shape[0] // 2
     x_loc = x[di * rows:(di + 1) * rows]
-    with sharding.use_mesh(mesh, rows_split=True):
-        y, aux = blocks.moe_layer(params, x_loc, spec, "silu")
-    out["moe"] = {"y": y.numpy(), "aux": {k: float(v) for k, v in aux.items()}, "data": di}
-    # gradients: sum over the DP ranks of <y, w> on each rank's rows
-    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    local = {k: sharding.local_slice(v, specs[path[k]], mesh).clone()
+             for k, v in stacked["layers"].items()}
+    with Allocations() as alloc:
+        y, aux = blocks.moe_layer(layer(local), x_loc, spec, "silu")
+    out["moe"] = {"y": y.numpy(), "aux": {k: float(v) for k, v in aux.items()}, "data": di,
+                  "whole_stacks": sorted({s for s in alloc.shapes
+                                          if s in {tuple(v.shape) for v in params.values()
+                                                   if v.ndim == 3}})}
+    # gradients: of the sum over the DP ranks of <y, w> on each rank's rows;
+    # each local shard's gradient is the DP mean of that sum's, gathered
+    # whole here and scaled back to the sum
+    p = {k: v.requires_grad_(True) for k, v in local.items()}
     xl = x_loc.clone().requires_grad_(True)
-    with sharding.use_mesh(mesh, rows_split=True):
-        y, _ = blocks.moe_layer(p, xl, spec, "silu")
+    y, _ = blocks.moe_layer(layer(p), xl, spec, "silu")
     (y * moe["w"][di * rows:(di + 1) * rows]).sum().backward()
-    grads = {k: sharding.all_reduce_sum_(v.grad.clone(), mesh, "data").numpy()
-             for k, v in p.items()}
+    grads = {}
+    for k, v in p.items():
+        g = v.grad
+        for dim, ax in enumerate(specs[path[k]]):
+            if ax is not None:
+                g = sharding.all_gather_cat(g, mesh, ax, dim)
+        grads[k] = (g[0] * sharding.axis_size(mesh, "data")).numpy()
     out["moe_grad"] = {"x": xl.grad.numpy(), "params": grads}
 
     cs = inputs["compress"]

@@ -180,7 +180,9 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 mesh built on fake CUDA tensors, its predicted peak within
                 10% of max_memory_allocated over the same step run for real,
                 its counted FLOPs at least 6·N·tokens; then the production
-                (16, 16) mesh's record for h2o train_4k
+                (16, 16) mesh's records for h2o train_4k and decode_32k,
+                the layers split over `model`, with their collective wire
+                bytes by kind and axis
 
 It prints a `{"kernels": [...]}` JSON line, the card's line from nvidia-smi,
 and as its last line `{"ok": true, "device": {...}}`.  `--only fleet,fleet-tcp`
@@ -4259,8 +4261,11 @@ def phase_mesh(dev, card_line):
     `make_dp_compressed_step` (the first step's gradients synced again with
     B3 and with the plain sketch, every compressed leaf within
     MESH_SYNC_REL; the first loss equal to its state's plain loss; synced +
-    new error feedback = gradient + old error feedback per leaf).  The MoE all-to-all needs two `model` ranks:
-    one card cannot reach it (tests/test_torch_dist.py holds it)."""
+    new error feedback = gradient + old error feedback per leaf).  The MoE
+    all-to-all and the layers' split over `model` need two `model` ranks:
+    one card cannot reach them (tests/test_torch_dist.py and
+    tests/test_torch_mesh_tp.py hold them on gloo ranks; `[dryrun]` prices
+    the split at (16, 16))."""
     import dataclasses
 
     import torch
@@ -4610,13 +4615,14 @@ def phase_dryrun(dev, card_line):
     DRYRUN_TOL of max_memory_allocated over the step (reset just before, read
     just after, less what earlier phases left allocated), and the counted
     FLOPs at least the model FLOPs 6·N·tokens.  Then the production mesh's
-    record for h2o train_4k (no card memory)."""
+    records for h2o train_4k and decode_32k with their collective wire bytes
+    by kind and axis (no card memory)."""
     import gc
 
     import torch
     import torch.distributed as dist
     from repro_torch.configs import registry
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, report
     from repro_torch.launch.mesh import make_smoke_mesh
 
     layers, batch, seq = TRAIN_LM["layers"], TRAIN_LM["batch"], TRAIN_LM["seq"]
@@ -4662,19 +4668,25 @@ def phase_dryrun(dev, card_line):
         fail(f"dryrun: predicted peak {count.peak_bytes} B is {100 * rel:.2f}% from the "
              f"measured {measured} B (bound {100 * DRYRUN_TOL:.0f}%)")
 
-    t0 = time.perf_counter()
-    prod = dryrun.run_cell(LM_ARCH, "train_4k", "single", verbose=False)
-    t_prod = time.perf_counter() - t0
-    shown = {k: v for k, v in prod.items() if k != "collective_calls"}
-    print(f"[dryrun] ({card_line}) production mesh, {LM_ARCH} train_4k (dry run, priced with "
-          f"H100 data-sheet figures; built in {t_prod:.1f} s): per-rank peak "
-          f"{prod['peak_bytes_per_device'] / 1e9:.2f} GB over a stored state of "
-          f"{prod['state_bytes_per_device'] / 1e9:.2f} GB (each layer gathered inside its "
-          f"checkpointed body, gradients reduce-scattered); {json.dumps(shown)}")
+    production = {}
+    for shape in ("train_4k", "decode_32k"):
+        t0 = time.perf_counter()
+        prod = dryrun.run_cell(LM_ARCH, shape, "single", verbose=False)
+        t_prod = time.perf_counter() - t0
+        shown = {k: v for k, v in prod.items() if k != "collective_calls"}
+        shown["wire_bytes_by_axis"] = report.wire_by_axis(prod, by_kind=True)
+        production[shape] = shown
+        print(f"[dryrun] ({card_line}) production mesh, {LM_ARCH} {shape} (dry run, priced with "
+              f"H100 data-sheet figures; built in {t_prod:.1f} s): per-rank peak "
+              f"{prod['peak_bytes_per_device'] / 1e9:.2f} GB over a stored state of "
+              f"{prod['state_bytes_per_device'] / 1e9:.2f} GB (the layers split over `model`: "
+              f"the stream by sequence, the products and heads tensor-parallel); "
+              f"{json.dumps(shown)}")
     return {"predicted_peak_bytes": count.peak_bytes, "measured_peak_bytes": measured,
             "peak_rel_diff": rel, "flops": count.flops, "model_flops": pred["model_flops"],
             "bytes": count.bytes, "build_s": t_pred, "step_s": t_step, "loss": loss,
-            "production_train_4k": shown}
+            "production_train_4k": production["train_4k"],
+            "production_decode_32k": production["decode_32k"]}
 
 
 def main() -> int:

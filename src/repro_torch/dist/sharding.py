@@ -5,7 +5,8 @@ The JAX package's `dist/sharding.py` over a `torch.distributed`
 
   pod    — cross-pod data parallelism (gradient sync only)
   data   — in-pod data parallelism, sharded param storage
-  model  — expert parallelism (and the KV cache's sequence dim)
+  model  — tensor / expert / sequence parallelism (and the KV cache's
+           sequence dim)
 
 The rules are the reference's to the letter: an axis absent from the
 mesh, a dim its axis size does not divide, and a stacked `layers` leading
@@ -24,17 +25,26 @@ as it is: replicated by construction (the DR state, the host counters).
 
 Compute never sees a DTensor, and computes on the shards a rank stores.
 `compute_params` hands the model code a rank's local params: every stacked
-`layers` leaf as a `LayerShard`, which a layer body gathers for that layer
-alone (`LayerShard.whole`), and every other leaf gathered once per step;
-both gathers are `GatherParam`, whose backward is the true adjoint of the
-step's loss (a reduce-scatter over the DP axes, this rank's block over
-`model`), so gradients come out of the backward as local shards and
-`global_norm` sums their squares over the axes each is split on.  A K/V
-cache keeps its sequence dim split over `model` (`kv_seq_shard`: decode
-scores a rank's own slots and merges over `model` through the
+`layers` leaf as a `LayerShard`, which a layer body reads for that layer
+alone — whole (`LayerShard.whole`), or in the layout its tensor-parallel
+product computes in (`block`, `cols`, `rows`: the rank's `model` block
+gathered over the DP axes only, moved between dims by one all-to-all, or
+the columns of the K/V heads its query heads read) — and every other leaf
+gathered once per step.  The gathers are `GatherParam`, whose backward is
+the true adjoint of the step's loss, so gradients come out of the backward
+as local shards in `param_specs`' layout and `global_norm` sums their
+squares over the axes each is split on.  Where the residual stream is
+split over `model` by sequence (`seq_splits`; `compute_params(seq=True)`),
+each rank of `model` holds its own share of the loss: a gather of the
+stream is `GatherRows` (backward: reduce-scatter), the row-parallel
+products' partial sums meet in `ScatterSeq` (backward: gather), and a
+leaf the split compute reads whole sums its gradient over `model`.  With
+the stream whole (decode), row-parallel products meet in `ReduceModel`.
+A K/V cache keeps its sequence dim split over `model` (`kv_seq_shard`:
+decode scores a rank's own slots and merges over `model` through the
 log-sum-exp).  `use_mesh` is the counterpart of the reference's `with
-mesh:` — the ambient mesh the serving steps read for a K/V cache's
-slot split (the rest of the model code reads the mesh from its shards).  The
+mesh:` — the ambient mesh the serving steps read for a K/V cache's slot
+split (the rest of the model code reads the mesh from its shards).  The
 reference's `constrain` (a layout hint inside its model code) has no
 counterpart: on local tensors it pins nothing.
 """
@@ -43,7 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -186,6 +196,21 @@ def is_kv_leaf(path: str, leaf) -> bool:
 def kv_splits(slots: int, mesh) -> bool:
     """Whether a K/V cache of `slots` slots keeps them split over "model"."""
     return "model" in axis_names(mesh) and _divisible(slots, mesh, "model")
+
+
+def seq_splits(s: int, mesh) -> bool:
+    """Whether a residual stream of `s` positions splits over "model" by
+    sequence: the mesh has more than one `model` rank and their count
+    divides `s` (the reference's `constrain(x, "batch", "model", None)`)."""
+    n = axis_size(mesh, "model") if mesh is not None and "model" in axis_names(mesh) else 1
+    return n > 1 and s % n == 0
+
+
+def model_rank(mesh) -> Tuple[int, int]:
+    """(this rank's index, rank count) along "model" (0, 1 without it)."""
+    if mesh is None or "model" not in axis_names(mesh):
+        return 0, 1
+    return mesh.get_local_rank("model"), axis_size(mesh, "model")
 
 
 def cache_specs(cache: Any, mesh) -> Specs:
@@ -501,8 +526,9 @@ class GatherRepl(torch.autograd.Function):
 # the backward of taking a block puts the gradient back among zeros.
 
 class GatherRows(torch.autograd.Function):
-    """Split → whole over ranks with their own losses: the blocks gathered
-    along `dim` (backward: the ranks' gradients summed, this rank's block)."""
+    """Split → whole over ranks with their own losses (or shares of one):
+    the blocks gathered along `dim` (backward: the ranks' gradients summed,
+    this rank's block — a reduce-scatter)."""
 
     @staticmethod
     def forward(ctx, x, mesh, axes, dim):
@@ -512,8 +538,7 @@ class GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         mesh, axes, dim = ctx.args
-        summed = all_reduce_sum_(g.contiguous().clone(), mesh, axes)
-        return block(summed, mesh, axes, dim).contiguous(), None, None, None
+        return reduce_scatter_sum(g, mesh, axes, dim).contiguous(), None, None, None
 
 
 class BlockRows(torch.autograd.Function):
@@ -587,6 +612,117 @@ def _all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return out
 
 
+def move_split(t: torch.Tensor, mesh, axis: str, from_dim: int, to_dim: int) -> torch.Tensor:
+    """`t`, this rank's block along `from_dim` of a tensor split over
+    `axis`, resharded to this rank's block along `to_dim`, whole along
+    `from_dim`: one all-to-all (`AllToAll`, so the backward is the inverse
+    exchange)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return t
+    fd, td = from_dim % t.ndim, to_dim % t.ndim
+    shape = tuple(t.shape)
+    parts = t.reshape(shape[:td] + (n, shape[td] // n) + shape[td + 1:]).movedim(td, 0)
+    recv = AllToAll.apply(parts.contiguous(), mesh, axis).movedim(0, fd)
+    merged = list(recv.shape)
+    merged[fd:fd + 2] = [merged[fd] * merged[fd + 1]]
+    return recv.reshape(merged)
+
+
+# Compute split over "model" by sequence and by feature: each rank of
+# `model` holds its own share of the step's loss (its sequence block's
+# tokens), so a value every rank computes whole carries only its own share
+# of the gradient, and each collective's backward is its true adjoint (a
+# gather of the stream is `GatherRows` over "model").
+
+class ScatterSeq(torch.autograd.Function):
+    """Partial sums (a row-parallel product's, every position) → this
+    rank's block along `dim` of their sum over `model`: a reduce-scatter
+    (backward: the blocks' gradients gathered)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.args = (mesh, dim)
+        return reduce_scatter_sum(x, mesh, "model", dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim = ctx.args
+        return all_gather_cat(g, mesh, "model", dim), None, None
+
+
+class ReduceModel(torch.autograd.Function):
+    """Partial sums over `model` → their sum on every rank, for a stream
+    that every rank of `model` holds whole (decode; a stream its ranks
+    cannot split), after which they repeat one loss: backward the
+    identity (with `SumGrad` on the product's input, Megatron's pair)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce_sum_(x.contiguous().clone(), mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def exchange(send: Sequence[torch.Tensor], recv_shapes: Sequence[Tuple[int, ...]], mesh,
+             axis: str) -> List[torch.Tensor]:
+    """Point to point over `axis`: `send[j]` goes to rank j, and the
+    result's entry s is what rank s sent here, shaped `recv_shapes[s]`.
+    One `all_to_all_single` over flat buffers with uneven splits (a piece
+    may be empty)."""
+    if axis_size(mesh, axis) == 1:
+        return [send[0].reshape(recv_shapes[0])]
+    sizes = [int(np.prod(sh)) for sh in recv_shapes]
+    buf = torch.cat([p.reshape(-1) for p in send])
+    out = buf.new_empty((sum(sizes),))
+    dist.all_to_all_single(out, buf, sizes, [p.numel() for p in send],
+                           group=mesh.get_group(axis))
+    return [o.view(sh) for o, sh in zip(out.split(sizes), recv_shapes)]
+
+
+def _overlap(a: Tuple[int, int], b: Tuple[int, int]) -> Tuple[int, int]:
+    lo = max(a[0], b[0])
+    return lo, max(lo, min(a[1], b[1]))
+
+
+class TakeCols(torch.autograd.Function):
+    """Columns [lo, hi) = `ranges[r]` of a tensor whose last dim is split
+    over "model" in equal blocks, from this rank's block `t`; `ranges[j]`
+    is what rank j takes.  Each rank sends every peer the part of its
+    block that the peer takes (`exchange`).  Backward: each taken
+    column's gradient goes back to its owner, which sums what its peers
+    return (a column several ranks read gets each one's share)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, ranges):
+        r, n = model_rank(mesh)
+        w = t.shape[-1]
+        lead = tuple(t.shape[:-1])
+        mine = (r * w, (r + 1) * w)
+        send = [t[..., a - r * w:b - r * w] for a, b in (_overlap(mine, rg) for rg in ranges)]
+        spans = [_overlap((j * w, (j + 1) * w), ranges[r]) for j in range(n)]
+        parts = exchange(send, [lead + (b - a,) for a, b in spans], mesh, "model")
+        ctx.args = (mesh, ranges, w, lead)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, ranges, w, lead = ctx.args
+        r, n = model_rank(mesh)
+        lo = ranges[r][0]
+        spans = [_overlap((j * w, (j + 1) * w), ranges[r]) for j in range(n)]
+        back = [_overlap((r * w, (r + 1) * w), rg) for rg in ranges]
+        parts = exchange([g[..., a - lo:b - lo] for a, b in spans],
+                         [lead + (b - a,) for a, b in back], mesh, "model")
+        out = g.new_zeros(lead + (w,))
+        for (a, b), p in zip(back, parts):
+            if b > a:
+                out[..., a - r * w:b - r * w] += p
+        return out, None, None
+
+
 # ---------------------------------------------------------------------------
 # compute on shards: the params a step reads, and their gradients
 # ---------------------------------------------------------------------------
@@ -601,13 +737,15 @@ def split_axes(spec: Spec, mesh) -> Tuple[str, ...]:
     return tuple(a for a in axis_names(mesh) if a in named and sizes[a] > 1)
 
 
-def _syncs(spec: Spec, mesh, rows_split: bool) -> bool:
+def _syncs(spec: Spec, mesh, rows_split: bool, model_sum: bool = False) -> bool:
     """Whether a leaf under `spec` needs a gather, or its gradient a sum
-    over the DP axes (each rank with its own rows and loss)."""
+    over the DP axes (each rank with its own rows and loss) or over
+    "model" (each rank with its own share of the loss)."""
     if mesh is None:
         return False
     return bool(split_axes(spec, mesh)) or (
-        rows_split and axis_size(mesh, batch_axes(mesh)) > 1)
+        rows_split and axis_size(mesh, batch_axes(mesh)) > 1) or (
+        model_sum and model_rank(mesh)[1] > 1)
 
 
 class GatherParam(torch.autograd.Function):
@@ -616,13 +754,16 @@ class GatherParam(torch.autograd.Function):
     axes' ranks each hold their own rows and loss when `rows_split`, and the
     step takes the mean of their losses, so there the gradient is summed
     over the DP axes and divided by their size — a reduce-scatter along the
-    dim a DP axis splits, an all-reduce over a DP axis that splits nothing;
-    the ranks of `model`, and of the DP axes when the rows are not split,
-    repeat one loss, so there the gradient is this rank's block."""
+    dim a DP axis splits, an all-reduce over a DP axis that splits nothing.
+    Over "model" with `model_sum` (the stream split by sequence, or compute
+    that reads only its own part of the leaf) each rank holds its own share
+    of the gradient, so it is summed the same way, undivided; otherwise the
+    ranks of `model`, and of the DP axes when the rows are not split, repeat
+    one loss, so there the gradient is this rank's block."""
 
     @staticmethod
-    def forward(ctx, x, mesh, spec, rows_split):
-        ctx.args = (mesh, spec, rows_split)
+    def forward(ctx, x, mesh, spec, rows_split, model_sum=False):
+        ctx.args = (mesh, spec, rows_split, model_sum)
         out = x
         for dim, ax in enumerate(spec):
             if ax is not None:
@@ -631,48 +772,57 @@ class GatherParam(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        mesh, spec, split = ctx.args
+        mesh, spec, split, model_sum = ctx.args
         dax = as_axes(batch_axes(mesh))
         split = split and axis_size(mesh, dax) > 1
+        summed = (list(dax) if split else []) + (["model"] if model_sum else [])
         for dim, ax in enumerate(spec):
-            if ax is not None and not (split and set(as_axes(ax)) <= set(dax)):
+            if ax is not None and not set(as_axes(ax)) <= set(summed):
                 g = block(g, mesh, ax, dim)
-        if split:
+        if summed:
             spread = set()
             for dim, ax in enumerate(spec):
-                if ax is not None and set(as_axes(ax)) <= set(dax):
+                if ax is not None and set(as_axes(ax)) <= set(summed):
                     g = reduce_scatter_sum(g, mesh, ax, dim)
                     spread |= set(as_axes(ax))
-            rest = tuple(a for a in dax if a not in spread)
+            rest = tuple(a for a in summed if a not in spread)
             if rest:
                 g = all_reduce_sum_(g.contiguous().clone(), mesh, rest)
-            g = g / axis_size(mesh, dax)
-        return g.contiguous(), None, None, None
+            if split:
+                g = g / axis_size(mesh, dax)
+        return g.contiguous(), None, None, None, None
 
 
-def gather_param(local: torch.Tensor, spec: Spec, mesh, rows_split: bool) -> torch.Tensor:
+def gather_param(local: torch.Tensor, spec: Spec, mesh, rows_split: bool,
+                 model_sum: bool = False) -> torch.Tensor:
     """The whole param of a rank's `local` shard under `spec` (`GatherParam`),
     or `local` itself where nothing is gathered or summed."""
-    if not _syncs(spec, mesh, rows_split):
+    if not _syncs(spec, mesh, rows_split, model_sum):
         return local
-    return GatherParam.apply(local, mesh, tuple(spec), rows_split)
+    return GatherParam.apply(local, mesh, tuple(spec), rows_split, model_sum)
 
 
 class LayerShard:
     """A rank's local shard of a stacked `[L, ...]` layer leaf (or of one
     layer's slice of it), gathered only where a layer body reads it.
-    `unstacked` / `layer_params` hand these out layer by layer; `whole()`
-    gathers one layer's leaf inside the body (under `blocks.remat` the
-    backward's recompute gathers it again, so no whole layer lives from
-    forward to backward).  `to(dtype)` defers a cast to after the gather,
-    so the gradient is reduced in the leaf's own dtype; `dtype` / `ndim`
-    are the gathered tensor's, so the cast rules read it as a tensor."""
+    `unstacked` / `layer_params` hand these out layer by layer; a layer
+    body reads one layer's leaf inside its checkpointed body (under
+    `blocks.remat` the backward's recompute reads it again, so no gathered
+    layer lives from forward to backward): `whole()` gathers it; `block()`,
+    `cols()` and `rows()` hand it out in the layout a tensor-parallel
+    product over "model" computes in, gathered over the DP axes only.
+    `seq`: the stream is split over "model" by sequence, so a whole read
+    sums its gradient over "model".  `to(dtype)` defers a cast to after
+    the gather, so the gradient is reduced in the leaf's own dtype;
+    `dtype` / `ndim` are the gathered tensor's, so the cast rules read it
+    as a tensor."""
 
-    __slots__ = ("local", "spec", "mesh", "rows_split", "cast")
+    __slots__ = ("local", "spec", "mesh", "rows_split", "cast", "seq")
 
-    def __init__(self, local: torch.Tensor, spec: Spec, mesh, rows_split: bool, cast=None):
+    def __init__(self, local: torch.Tensor, spec: Spec, mesh, rows_split: bool, cast=None,
+                 seq: bool = False):
         self.local, self.spec, self.mesh = local, tuple(spec), mesh
-        self.rows_split, self.cast = rows_split, cast
+        self.rows_split, self.cast, self.seq = rows_split, cast, seq
 
     @property
     def dtype(self) -> torch.dtype:
@@ -687,7 +837,7 @@ class LayerShard:
         return self.local.requires_grad
 
     def _like(self, local, spec, cast=None):
-        return LayerShard(local, spec, self.mesh, self.rows_split, cast)
+        return LayerShard(local, spec, self.mesh, self.rows_split, cast, self.seq)
 
     def to(self, dtype: torch.dtype) -> "LayerShard":
         return self._like(self.local, self.spec, None if dtype == self.local.dtype else dtype)
@@ -702,20 +852,85 @@ class LayerShard:
     def __getitem__(self, i: int) -> "LayerShard":
         return self._like(self.local[i], self.spec[1:], self.cast)
 
-    def whole(self, spec: Optional[Spec] = None) -> torch.Tensor:
-        """The gathered tensor (over `spec`'s axes if given: a spec of the
-        same dims naming fewer axes), cast where `to` asked."""
-        out = gather_param(self.local, self.spec if spec is None else spec, self.mesh,
-                           self.rows_split)
-        return out if self.cast is None else out.to(self.cast)
+    def _cast(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.cast is None else t.to(self.cast)
+
+    def _gather(self, spec: Spec, model_sum: bool) -> torch.Tensor:
+        return gather_param(self.local, spec, self.mesh, self.rows_split, model_sum=model_sum)
+
+    def _dp_spec(self) -> Spec:
+        return tuple(None if ax == "model" else ax for ax in self.spec)
+
+    def whole(self) -> torch.Tensor:
+        """The gathered tensor, cast where `to` asked."""
+        return self._cast(self._gather(self.spec, self.seq))
+
+    @property
+    def model_split(self) -> bool:
+        """Whether "model" splits the stored leaf (its last dim, by the rules)."""
+        return "model" in split_axes(self.spec, self.mesh)
+
+    def block(self) -> torch.Tensor:
+        """This rank's stored block over "model", gathered over the DP axes
+        only (the whole leaf where "model" does not split it); its gradient
+        is this rank's alone."""
+        return self._cast(self._gather(self._dp_spec(), False))
+
+    def cols(self, ranges: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """Columns `ranges[r]` of the leaf's last dim, whole in the others,
+        where rank j of "model" takes `ranges[j]`: the stored block itself
+        where the ranges are the storage blocks, else the block gathered
+        over the DP axes and the columns exchanged over "model"
+        (`TakeCols`); a leaf "model" does not split is read whole and cut
+        (each rank's gradient a share, summed over "model")."""
+        r, _ = model_rank(self.mesh)
+        lo, hi = ranges[r]
+        if not self.model_split:
+            return self._cast(self._gather(self.spec, True)[..., lo:hi])
+        t = self._gather(self._dp_spec(), False)
+        w = t.shape[-1]
+        if any(tuple(rg) != (j * w, (j + 1) * w) for j, rg in enumerate(ranges)):
+            t = TakeCols.apply(t, self.mesh, tuple(tuple(rg) for rg in ranges))
+        return self._cast(t)
+
+    def rows(self) -> torch.Tensor:
+        """This rank's block of the second-to-last dim, whole in the last
+        (a row-parallel product's input split): the stored block gathered
+        over the DP axes, then one all-to-all over "model" moving the split
+        from the last dim (`move_split`); a leaf "model" does not split is
+        read whole and cut (each rank's gradient a share, summed)."""
+        if not self.model_split:
+            t = self._gather(self.spec, True)
+            return self._cast(block(t, self.mesh, "model", t.ndim - 2))
+        t = self._gather(self._dp_spec(), False)
+        return self._cast(move_split(t, self.mesh, "model", t.ndim - 1, t.ndim - 2))
 
 
-def compute_params(params: Any, specs: Specs, mesh, rows_split: bool) -> Any:
+def read_whole(x: Any) -> Any:
+    """A `LayerShard` gathered whole; anything else as it is."""
+    return x.whole() if isinstance(x, LayerShard) else x
+
+
+def whole_outside_layers(params: Dict[str, Any]) -> Dict[str, Any]:
+    """`params` with every leaf outside `layers` gathered whole
+    (`read_whole`), the layers' leaves as they are."""
+    return {k: v if k == "layers" else tree_mod.tree_map(read_whole, v)
+            for k, v in params.items()}
+
+
+def compute_params(params: Any, specs: Specs, mesh, rows_split: bool, seq: bool = False,
+                   lazy: bool = False) -> Any:
     """The params a meshed step's model code reads, from a rank's local
     shards `params` (nested dicts) laid out by `specs` ({path: spec}): each
     stacked `layers` leaf a `LayerShard`, every other leaf (embedding,
     head, norms, a shared block, front-end projections) gathered whole
-    (`gather_param`), once a step.  `params` as it is without a mesh."""
+    (`gather_param`), once a step.  `lazy` (a step with no backward: the
+    serving steps): every leaf that a gather would make whole is handed
+    out as a `LayerShard`, and the model code reads it in the layout it
+    computes in (`read_whole` where whole).  `seq`: the stream is split
+    over "model" by sequence (`seq_splits`), so each rank's gradient of a
+    whole-read leaf is its share, summed over "model".  `params` as it is
+    without a mesh."""
     if mesh is None:
         return params
 
@@ -727,8 +942,9 @@ def compute_params(params: Any, specs: Specs, mesh, rows_split: bool) -> Any:
                 out[k] = walk(v, p)
             else:
                 spec = specs.get(p) or (None,) * v.ndim
-                out[k] = (LayerShard(v, spec, mesh, rows_split) if p.startswith("['layers']")
-                          else gather_param(v, spec, mesh, rows_split))
+                out[k] = (LayerShard(v, spec, mesh, rows_split, seq=seq)
+                          if p.startswith("['layers']") or (lazy and split_axes(spec, mesh))
+                          else gather_param(v, spec, mesh, rows_split, model_sum=seq))
         return out
 
     return walk(params, "")

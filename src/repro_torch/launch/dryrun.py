@@ -1,9 +1,10 @@
 """Multi-pod dry run: build every (arch × shape × mesh) cell's real step for
-rank 0 of the production mesh, with no card and no allocation.
+the ranks of the production mesh that bound it (`priced_ranks`), with no
+card and no allocation.
 
 The port's twin of `src/repro/launch/dryrun.py`, which lowers and compiles
 the jitted program on 512 fake devices and reads XLA's analyses.  Here the
-step itself runs, as rank 0 runs it, on fake tensors:
+step itself runs, as each priced rank runs it, on fake tensors:
 
   * a fake process group of the mesh's world size (backend "fake",
     `torch.testing._internal.distributed.fake_pg.FakeStore`): collectives
@@ -16,7 +17,18 @@ step itself runs, as rank 0 runs it, on fake tensors:
     decode on params laid out by `param_specs` (and the cache by
     `cache_specs`), each with `mesh=` and the port's own rules.
 
-What a cell records, for rank 0:
+The ranks of `model` are not all alike.  Where attention splits its query
+rows over `model` in contiguous causal blocks (heads that the `model` size
+does not divide), the last rank holds the last block and does the most
+attention work; where a rank holds part of a K/V head, prefill's slot
+exchange (`transformer._kv_slots`) has the first rank holding each head
+send it, and rank 0 is one.  So a cell prices rank 0 and the last rank of
+`model` (every other coordinate 0), and takes each term from the rank
+where it is larger: FLOPs, bytes, the collectives (the rank with the
+longer T_coll) and the peak; the record keeps each rank's own terms under
+`by_rank`.  Every other rank of `model` does no more of either.
+
+What a cell records, term by term the larger of the priced ranks':
 
   * state bytes: the arithmetic of `param_specs`, `cache_specs` and
     `state_specs` over the leaves (what a rank stores between steps);
@@ -110,8 +122,8 @@ _NO_TRAFFIC = {"empty", "empty_like", "new_empty", "empty_strided", "new_empty_s
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def fake_world(world_size: int) -> Iterator[None]:
-    """A fake process group of `world_size` ranks, this process rank 0, for
+def fake_world(world_size: int, rank: int = 0) -> Iterator[None]:
+    """A fake process group of `world_size` ranks, this process `rank`, for
     the block; destroyed on the way out, also when the block raises.
     Refuses to start while another group is up."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -120,11 +132,22 @@ def fake_world(world_size: int) -> Iterator[None]:
         raise RuntimeError("the dry run starts its own fake process group; a process group "
                            f"({dist.get_backend()}, {dist.get_world_size()} ranks) is already "
                            "up")
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
     try:
         yield
     finally:
         dist.destroy_process_group()
+
+
+def priced_ranks(mesh_name: str) -> Tuple[int, ...]:
+    """The global ranks a cell prices on the named mesh: rank 0 and the
+    last of `model`, every other coordinate 0 (row-major, as
+    `init_device_mesh` numbers them); one rank where they are the same."""
+    shape, axes = MESHES[mesh_name]
+    last = 0
+    for size, ax in zip(shape, axes):
+        last = last * size + (size - 1 if ax == "model" else 0)
+    return (0, last) if last else (0,)
 
 
 def make_mesh(mesh_name: str, device):
@@ -326,7 +349,7 @@ def apply_cut(cfg, *, layers: Optional[int] = None, opt_override: Optional[Dict]
 
 @dataclasses.dataclass
 class Cell:
-    """A cell's step for rank 0, built and ready to run once."""
+    """A cell's step for the current rank, built and ready to run once."""
 
     run: Any                     # () -> the step's outputs
     held: List[torch.Tensor]     # what the rank holds before the step
@@ -341,9 +364,9 @@ class Cell:
 
 def build_cell(cfg, shape_name: str, mesh, *, batch: Optional[int] = None,
                seq: Optional[int] = None, device=None, fake: bool = True) -> Cell:
-    """The cell's real step for rank 0 on `device` (the card by default), on
-    fake tensors unless `fake` is False (then on real ones, as the tests and
-    chip_smoke.py run it to compare)."""
+    """The cell's real step for the current rank on `device` (the card by
+    default), on fake tensors unless `fake` is False (then on real ones, as
+    the tests and chip_smoke.py run it to compare)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.serve import serve_step
@@ -450,17 +473,35 @@ def run_cell(arch_id: str, shape_name: str, mesh_name: str, *, verbose: bool = T
     shape, _ = MESHES[mesh_name]
     chips = math.prod(shape)
     t0 = time.monotonic()
-    with fake_world(chips):
-        mesh = make_mesh(mesh_name, CARD)
-        res = build_and_count(cfg, shape_name, mesh, batch=batch, seq=seq)
+    counts: Dict[int, StepCount] = {}
+    for rank in priced_ranks(mesh_name):
+        with fake_world(chips, rank):
+            mesh = make_mesh(mesh_name, CARD)
+            res = build_and_count(cfg, shape_name, mesh, batch=batch, seq=seq)
+        counts[rank] = res["count"]
     t_build = time.monotonic() - t0
-    count: StepCount = res["count"]
-    report = roofline.analyze(
-        arch=arch_id, shape=shape_name, mesh_name=mesh_name, chips=chips, flops=count.flops,
-        nbytes=count.bytes, collectives=count.collectives, model_flops=res["model_flops"],
-        memory_per_device=count.peak_bytes)
+
+    def analyze(flops, nbytes, collectives, peak):
+        return roofline.analyze(
+            arch=arch_id, shape=shape_name, mesh_name=mesh_name, chips=chips, flops=flops,
+            nbytes=nbytes, collectives=collectives, model_flops=res["model_flops"],
+            memory_per_device=peak)
+
+    by_rank = {r: analyze(c.flops, c.bytes, c.collectives, c.peak_bytes)
+               for r, c in counts.items()}
+    of = {"flops": max(counts, key=lambda r: counts[r].flops),
+          "bytes": max(counts, key=lambda r: counts[r].bytes),
+          "collectives": max(counts, key=lambda r: by_rank[r].t_coll),
+          "peak": max(counts, key=lambda r: counts[r].peak_bytes)}
+    count = counts[of["peak"]]
+    coll = counts[of["collectives"]].collectives
+    report = analyze(counts[of["flops"]].flops, counts[of["bytes"]].bytes, coll,
+                     count.peak_bytes)
     out = {
-        "status": "ok", "build_s": t_build,
+        "status": "ok", "build_s": t_build, "rank_of": of,
+        "by_rank": {str(r): {"t_comp": b.t_comp, "t_mem": b.t_mem, "t_coll": b.t_coll,
+                             "peak_bytes": counts[r].peak_bytes}
+                    for r, b in by_rank.items()},
         "state_bytes_per_device": res["state_bytes"],
         "peak_bytes_per_device": count.peak_bytes,
         "peak_by_kind_per_device": count.peak_by_kind,
@@ -468,8 +509,8 @@ def run_cell(arch_id: str, shape_name: str, mesh_name: str, *, verbose: bool = T
         "over_bytes": max(0.0, count.peak_bytes - HBM_PER_CHIP),
         "params": res["params"], "active_params": res["active_params"],
         "n_layers": cfg.n_layers, "batch": res["batch"], "seq": res["seq"],
-        "kernels": count.kernels,
-        "collective_calls": [dataclasses.asdict(c) for c in count.collectives],
+        "kernels": counts[of["flops"]].kernels,
+        "collective_calls": [dataclasses.asdict(c) for c in coll],
         **report.to_json(),
     }
     if verbose:

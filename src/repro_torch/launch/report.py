@@ -1,8 +1,12 @@
 """Tables of the port's dry-run sweep (`launch/dryrun.py`), for PERF.md.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.report [--dir experiments/dryrun_torch]
-Prints markdown to stdout.  Every number is a dry-run estimate priced with
-H100 data-sheet figures (`launch/roofline.py`), not a measurement on a card.
+       [--before DIR]
+Prints markdown to stdout.  With `--before`, a second sweep's directory
+(an earlier tree's), it prints one table of each cell's peak, roofline
+terms and collective wire bytes by mesh axis, before → after.  Every number
+is a dry-run estimate priced with H100 data-sheet figures
+(`launch/roofline.py`), not a measurement on a card.
 """
 
 from __future__ import annotations
@@ -82,11 +86,55 @@ def collectives_summary(by_key, mesh: str = "single") -> str:
     return "\n".join(rows)
 
 
+def wire_by_axis(record: dict, by_kind: bool = False) -> Dict[str, float]:
+    """A cell's collective wire bytes a rank (the roofline's ring model),
+    summed by the mesh axes of each collective's group ("data", "model",
+    "pod+data", ...), or with `by_kind` by kind and axes ("all-gather over
+    model", ...)."""
+    from repro_torch.launch import roofline
+
+    out: Dict[str, float] = {}
+    for c in record.get("collective_calls", []):
+        key = "+".join(c["axes"])
+        if by_kind:
+            key = f"{c['kind']} over {key}"
+        out[key] = out.get(key, 0.0) + roofline._wire_bytes(c["kind"], c["bytes"],
+                                                            len(c["ranks"]))
+    return out
+
+
+def compare_table(before, after, mesh: str = "single") -> str:
+    """Cells run ok in both sweeps: peak GB, T_comp / T_mem / T_coll s and
+    wire GB over "data" / "model", each before → after."""
+    rows = ["| arch | shape | peak GB | T_comp s | T_mem s | T_coll s | "
+            "wire GB data / model |",
+            "|---|---|---|---|---|---|---|"]
+    for key, r in sorted(after.items()):
+        b = before.get(key)
+        if key[2] != mesh or r["status"] != "ok" or b is None or b["status"] != "ok":
+            continue
+        wb, wa = wire_by_axis(b), wire_by_axis(r)
+        terms = " | ".join(f"{b[t]:.3f} → {r[t]:.3f}" for t in ("t_comp", "t_mem", "t_coll"))
+        rows.append(
+            f"| {key[0]} | {key[1]} | {fmt_bytes(b['peak_bytes_per_device'])} → "
+            f"{fmt_bytes(r['peak_bytes_per_device'])} | {terms} | "
+            f"{fmt_bytes(wb.get('data', 0.0))} / {fmt_bytes(wb.get('model', 0.0))} → "
+            f"{fmt_bytes(wa.get('data', 0.0))} / {fmt_bytes(wa.get('model', 0.0))} |")
+    return "\n".join(rows)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.report")
     ap.add_argument("--dir", default=DEFAULT_DIR)
+    ap.add_argument("--before", default=None,
+                    help="an earlier sweep's directory: print before → after")
     args = ap.parse_args(argv)
     by_key = load(args.dir)
+    if args.before:
+        print("### Before → after (single-pod 16×16; dry run, priced with H100 data-sheet "
+              "figures)\n")
+        print(compare_table(load(args.before), by_key))
+        return 0
     n_ok = sum(1 for r in by_key.values() if r["status"] == "ok")
     n_skip = sum(1 for r in by_key.values() if r["status"] == "skipped")
     n_err = sum(1 for r in by_key.values() if r["status"] == "error")

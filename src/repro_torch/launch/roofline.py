@@ -22,7 +22,7 @@ H100 Tensor Core GPU data sheet (SXM column, dense rates) unless said:
     T_mem  = bytes / HBM_BW
     T_coll = Σ wire_bytes(op) / link_bw(op's group)
 
-SEMANTICS: every count is PER RANK: the dry run builds rank 0's step on its
+SEMANTICS: every count is PER RANK: the dry run builds one rank's step on its
 local shards, so the terms are per-device times directly.  Collective wire
 bytes use the reference's ring model (`_wire_bytes`, kept here as a copy),
 a per-participating-device quantity:

@@ -67,6 +67,16 @@ def loss_fn(params, batch, cfg: ArchConfig, *, remat: bool = True,
     return _mod(cfg).loss_fn(params, batch, cfg, remat=remat, execution=execution)
 
 
+def splits_stream(cfg: ArchConfig, batch: Dict[str, Any], mesh) -> bool:
+    """Whether a train or prefill batch's residual stream splits over
+    "model" by sequence on `mesh` (`dist.sharding.seq_splits`): the
+    transformer family only; the recurrent families keep it whole."""
+    from repro_torch.dist import sharding
+
+    return cfg.family == "transformer" and sharding.seq_splits(
+        transformer.stream_len(cfg, batch), mesh)
+
+
 def exact_param_counts(cfg: ArchConfig) -> Tuple[int, int]:
     """(total, active) parameter counts from the port's own init, run on
     fake (meta-backed) tensors, so no memory is allocated at any size.
@@ -95,16 +105,26 @@ def exact_param_counts(cfg: ArchConfig) -> Tuple[int, int]:
     return int(total), int(active)
 
 
+def _serving_params(params, cfg: ArchConfig):
+    """A serving step's params: a meshed step hands the leaves outside the
+    layers out on their shards (`dist.sharding.compute_params(lazy=True)`);
+    the transformer reads each where it computes, the recurrent families
+    read them whole."""
+    from repro_torch.dist import sharding
+
+    return params if cfg.family == "transformer" else sharding.whole_outside_layers(params)
+
+
 def prefill(params, batch, cfg: ArchConfig, cache_size: int, *,
             execution: Execution = Execution(), kv_rp_r: Optional[torch.Tensor] = None):
-    return _mod(cfg).prefill(params, batch, cfg, cache_size, execution=execution,
-                             **_kv_rp_kw(cfg, kv_rp_r))
+    return _mod(cfg).prefill(_serving_params(params, cfg), batch, cfg, cache_size,
+                             execution=execution, **_kv_rp_kw(cfg, kv_rp_r))
 
 
 def decode_step(params, token, cache, cfg: ArchConfig, *,
                 execution: Execution = Execution(), kv_rp_r: Optional[torch.Tensor] = None):
-    return _mod(cfg).decode_step(params, token, cache, cfg, execution=execution,
-                                 **_kv_rp_kw(cfg, kv_rp_r))
+    return _mod(cfg).decode_step(_serving_params(params, cfg), token, cache, cfg,
+                                 execution=execution, **_kv_rp_kw(cfg, kv_rp_r))
 
 
 def cache_slots(cfg: ArchConfig, cache_size: int) -> Optional[int]:

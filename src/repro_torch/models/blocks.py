@@ -14,17 +14,21 @@ also returns each row's log-sum-exp, and the backward
 (`kernels.ref.flash_attention_bwd_ref`) recomputes p from it chunk by
 chunk, in plain PyTorch, as the reference's backward is XLA outside any
 Pallas kernel.  `chunked_softmax_xent` is the training loss, one
-checkpointed chunk of logits at a time.  The MoE layer is the reference's
+checkpointed chunk of logits at a time (`chunked_xent_sums` its sum and
+count, for a rank's sequence block).  The MoE layer is the reference's
 capacity dispatch; given a rank's shards of the expert stacks
 (`dist.sharding.LayerShard`, as the meshed steps hand them) it goes
 expert-parallel over `model` through two all-to-alls, as the reference's
-`shard_map` branch does.
+`shard_map` branch does — on the token-split stream directly where the
+stream is split over `model` by sequence — and where expert parallelism
+does not apply each rank computes its stored feature columns of every
+expert.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -244,19 +248,18 @@ def _xent_chunk(xc: torch.Tensor, head: torch.Tensor, tc: torch.Tensor):
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
 
-def chunked_softmax_xent(
+def chunked_xent_sums(
     x: torch.Tensor,            # (B, T, d) final hidden states (already normed)
     head: torch.Tensor,         # (d, V)
     targets: torch.Tensor,      # (B, T) integer; -1 = ignore
     *,
     chunk: int = 512,
-) -> torch.Tensor:
-    """Mean token NLL over the targets that are not −1, computed per
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Σ token NLL, count) over the targets that are not −1, computed per
     sequence chunk under checkpoint (`remat`) so that only one (B, chunk, V)
     logits tile is ever alive, forward and backward.  T is padded to a
-    multiple of the chunk with target −1; the mean divides by max(count,
-    1).  The head is cast to x's dtype inside each chunk, as the
-    reference's checkpointed body does."""
+    multiple of the chunk with target −1.  The head is cast to x's dtype
+    inside each chunk, as the reference's checkpointed body does."""
     b, t, _ = x.shape
     c = min(chunk, t)
     t_pad = -(-t // c) * c
@@ -269,6 +272,19 @@ def chunked_softmax_xent(
     for i in range(0, t_pad, c):
         s, n = remat(_xent_chunk, x[:, i:i + c], head, targets[:, i:i + c])
         total, count = total + s, count + n
+    return total, count
+
+
+def chunked_softmax_xent(
+    x: torch.Tensor,            # (B, T, d) final hidden states (already normed)
+    head: torch.Tensor,         # (d, V)
+    targets: torch.Tensor,      # (B, T) integer; -1 = ignore
+    *,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Mean token NLL over the targets that are not −1 (`chunked_xent_sums`);
+    the mean divides by max(count, 1)."""
+    total, count = chunked_xent_sums(x, head, targets, chunk=chunk)
     return total / torch.clamp(count, min=1.0)
 
 
@@ -337,9 +353,11 @@ EXPERT_KEYS = ("w_gate", "w_in", "w_out")
 
 def _experts_ffn(params: Dict[str, Any], xe: torch.Tensor, act: str) -> torch.Tensor:
     """The expert FFN on xe (E, c, d) -> (E, c, d).  Over whole (E, d, f)
-    stacks one batched product each; over a layer's local shards that the
-    mesh splits (`LayerShard`, where expert parallelism does not apply)
-    expert by expert, each expert's weights gathered alone, so no rank
+    stacks one batched product each.  Over a layer's local shards that the
+    mesh splits (`LayerShard`, where expert parallelism does not apply):
+    with several `model` ranks splitting the feature dims, each rank
+    computes its stored columns of every expert (`_experts_on_columns`);
+    else expert by expert, each expert's weights gathered alone, so no rank
     holds every expert of the layer at once."""
     w = params["w_in"]
     if not isinstance(w, shard_rules.LayerShard) or not shard_rules.split_axes(w.spec, w.mesh):
@@ -348,12 +366,40 @@ def _experts_ffn(params: Dict[str, Any], xe: torch.Tensor, act: str) -> torch.Te
         h = act_fn(act)(torch.einsum("ecd,edf->ecf", xe, p["w_gate"])) \
             * torch.einsum("ecd,edf->ecf", xe, p["w_in"])
         return torch.einsum("ecf,efd->ecd", h, p["w_out"])
+    if w.model_split and params["w_out"].model_split:
+        return _experts_on_columns(params, xe, act, w.mesh, w.seq)
     per = {k: params[k].unbind(0) for k in EXPERT_KEYS}
     out = []
     for j in range(xe.shape[0]):
         h = act_fn(act)(xe[j] @ per["w_gate"][j].whole()) * (xe[j] @ per["w_in"][j].whole())
         out.append(h @ per["w_out"][j].whole())
     return torch.stack(out)
+
+
+def _experts_on_columns(params: Dict[str, Any], xe: torch.Tensor, act: str, mesh,
+                        seq: bool) -> torch.Tensor:
+    """Every expert's FFN tensor-parallel over "model" on the stored column
+    blocks (gathered over the DP axes only): this rank's f / n columns of
+    the gate and input products, the hidden state gathered along f, its
+    d / n columns of the output, gathered along d.  The gathered hidden
+    state meets this rank's own d-block of `w_out`, so each rank's gradient
+    of it is a part of the whole: its gather's backward sums them over
+    `model` and keeps this rank's f-block (`GatherRows`, a reduce-scatter)
+    in either case.  xe is the same on every rank of `model`: the whole
+    stream (its ranks repeating one loss: the output gather's backward this
+    rank's d-block, the input's gradient summed) or the tokens a split
+    stream gathered (each rank's share of the loss: the output gather's
+    backward a reduce-scatter too)."""
+    rows = lambda t: shard_rules.GatherRows.apply(t, mesh, "model", 2)  # noqa: E731
+    if seq:
+        out = rows
+    else:
+        xe = shard_rules.SumGrad.apply(xe, mesh, "model")
+        out = lambda t: shard_rules.GatherRepl.apply(t, mesh, "model", 2)  # noqa: E731
+    p = {k: params[k].block() for k in EXPERT_KEYS}
+    h = act_fn(act)(torch.einsum("ecd,edf->ecf", xe, p["w_gate"])) \
+        * torch.einsum("ecd,edf->ecf", xe, p["w_in"])
+    return out(torch.einsum("ecf,efd->ecd", rows(h), p["w_out"]))
 
 
 def _moe_compute(params: Dict[str, Any], x: torch.Tensor, spec: MoESpec, act: str, c: int):
@@ -425,19 +471,23 @@ def moe_layer(params: Dict[str, Any], x: torch.Tensor, spec: MoESpec, act: str):
     With whole expert stacks: the reference's single-device path over the
     B·S tokens.  With expert stacks given as a rank's local shards
     (`LayerShard`, as the meshed steps hand them), the layer runs on their
-    mesh: x holds this rank's rows (its DP shard when the batch splits) and
-    every rank of `model` holds the same x.  Expert parallelism
-    runs under the reference's conditions (more than one `model` rank, E
-    and S divisible by it, the batch split over the DP axes or no DP
-    axis): this rank takes its S/n_model slice of the stream and its
-    E/n_model experts (`_local_experts`), exchanges tokens with the expert
-    owners (`_moe_a2a_block`), and the slices are gathered back; the aux
-    terms are the mean over every rank (the reference's pmean).  Otherwise,
-    when the batch splits over the DP axes, the tokens are gathered and
-    dispatched over the whole batch, with the capacity of the whole batch,
-    as the reference's unsplit program computes them, and each rank keeps
-    its rows; the gather's backward is a reduce-scatter, so a train step's
-    gradients, averaged over the DP axes, are the whole batch's."""
+    mesh and x holds this rank's rows (its DP shard when the batch
+    splits): this rank's sequence block of them where the stream is split
+    over `model` (`LayerShard.seq`), else every position, the same on
+    every rank of `model`.  Expert parallelism runs under the reference's
+    conditions (more than one `model` rank, E and S divisible by it, the
+    batch split over the DP axes or no DP axis): this rank takes its
+    E/n_model experts (`_local_experts`), exchanges its S/n_model tokens
+    with the expert owners (`_moe_a2a_block`) — the token-split stream
+    directly, or its slice of the whole stream, gathered back after — and
+    the aux terms are the mean over every rank (the reference's pmean).
+    Otherwise, when the batch splits over the DP axes, the tokens are
+    gathered and dispatched over the whole batch, with the capacity of the
+    whole batch, as the reference's unsplit program computes them, and each
+    rank keeps its rows (a split stream is gathered over `model` first and
+    each rank keeps its block); the gathers' backward is a reduce-scatter,
+    so a train step's gradients, averaged over the DP axes, are the whole
+    batch's."""
     b, s, d = x.shape
     w = params["w_in"]
     if isinstance(w, shard_rules.LayerShard):
@@ -446,13 +496,29 @@ def moe_layer(params: Dict[str, Any], x: torch.Tensor, spec: MoESpec, act: str):
         n_model = shard_rules.axis_size(mesh, "model")
         dax = shard_rules.batch_axes(mesh)
         n_data = shard_rules.axis_size(mesh, dax)
-        if n_model > 1 and e % n_model == 0 and s % n_model == 0 and (split or n_data == 1):
+        ep = n_model > 1 and e % n_model == 0 and (split or n_data == 1)
+        if w.seq:
+            if ep:
+                return _moe_expert_parallel(params, x, spec, act, mesh, dax, n_model, seq=True)
+            xg = shard_rules.GatherRows.apply(x, mesh, "model", 1)
+            y, aux = _moe_rows(params, xg, spec, act, mesh, split, dax, n_data)
+            return shard_rules.BlockRows.apply(y, mesh, "model", 1), aux
+        if ep and s % n_model == 0:
             return _moe_expert_parallel(params, x, spec, act, mesh, dax, n_model)
-        if split and n_data > 1:
-            xg = shard_rules.GatherRows.apply(x, mesh, dax, 0)
-            y, aux = _moe_compute(params, xg.reshape(-1, d), spec, act,
-                                  moe_capacity(xg.shape[0] * s, spec))
-            return shard_rules.BlockRows.apply(y.reshape(xg.shape), mesh, dax, 0), aux
+        return _moe_rows(params, x, spec, act, mesh, split, dax, n_data)
+    y, aux = _moe_compute(params, x.reshape(b * s, d), spec, act, moe_capacity(b * s, spec))
+    return y.reshape(b, s, d), aux
+
+
+def _moe_rows(params, x, spec: MoESpec, act: str, mesh, split: bool, dax, n_data: int):
+    """The dispatch over every token of the batch: gathered over the DP
+    axes where the rows split (each rank keeps its rows), else on x."""
+    b, s, d = x.shape
+    if split and n_data > 1:
+        xg = shard_rules.GatherRows.apply(x, mesh, dax, 0)
+        y, aux = _moe_compute(params, xg.reshape(-1, d), spec, act,
+                              moe_capacity(xg.shape[0] * s, spec))
+        return shard_rules.BlockRows.apply(y.reshape(xg.shape), mesh, dax, 0), aux
     y, aux = _moe_compute(params, x.reshape(b * s, d), spec, act, moe_capacity(b * s, spec))
     return y.reshape(b, s, d), aux
 
@@ -466,28 +532,34 @@ def _local_experts(w: shard_rules.LayerShard, mesh, n_model: int) -> torch.Tenso
     for; the backward is the inverse all-to-all, then the gather's
     adjoint)."""
     fd = next((dim for dim, ax in enumerate(w.spec) if ax == "model"), None)
-    t = w.whole(tuple(None if ax == "model" else ax for ax in w.spec))
+    t = w.block()
     if fd is None:                                    # the features are not split over model
         return shard_rules.SplitRepl.apply(t, mesh, "model", 0)
-    t = shard_rules.AllToAll.apply(t.contiguous(), mesh, "model")
-    e_loc = t.shape[0] // n_model
-    t = t.reshape((n_model, e_loc) + tuple(t.shape[1:])).movedim(0, fd)
-    shape = list(t.shape)
-    shape[fd:fd + 2] = [shape[fd] * shape[fd + 1]]
-    return t.reshape(shape)
+    return shard_rules.move_split(t, mesh, "model", fd, 0)
 
 
-def _moe_expert_parallel(params, x, spec: MoESpec, act: str, mesh, dax, n_model: int):
-    b, s, d = x.shape
+def _moe_expert_parallel(params, x, spec: MoESpec, act: str, mesh, dax, n_model: int,
+                         seq: bool = False):
+    """Expert parallelism over "model".  `seq`: x is already this rank's
+    token block of a stream split by sequence, whose ranks each hold their
+    own share of the loss (the router's whole read sums its gradient over
+    "model"); else x is the whole stream, which every rank repeats, and this
+    rank takes its slice of it and gathers the slices back."""
+    b, _, d = x.shape
     split, gather = shard_rules.SplitRepl.apply, shard_rules.GatherRepl.apply
-    x_my = split(x, mesh, "model", 1)                              # (b, s/n, d)
-    p = {"router": shard_rules.SumGrad.apply(params["router"], mesh, "model")}
+    if seq:
+        x_my, p = x, {"router": params["router"]}
+    else:
+        x_my = split(x, mesh, "model", 1)                          # (b, s/n, d)
+        p = {"router": shard_rules.SumGrad.apply(params["router"], mesh, "model")}
     for name in EXPERT_KEYS:
         p[name] = _local_experts(params[name], mesh, n_model)     # this rank's experts
     y_my, aux = _moe_a2a_block(p, x_my.reshape(-1, d), spec, act, mesh, n_model)
-    y = gather(y_my.reshape(b, s // n_model, d), mesh, "model", 1)
+    y_my = y_my.reshape(x_my.shape)
+    y = y_my if seq else gather(y_my, mesh, "model", 1)
     every = ("model",) + shard_rules.as_axes(dax)
-    return y, {k: shard_rules.MeanRepl.apply(v, mesh, every, "model") for k, v in aux.items()}
+    shared = () if seq else "model"
+    return y, {k: shard_rules.MeanRepl.apply(v, mesh, every, shared) for k, v in aux.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -538,7 +610,9 @@ def gather_layer(lp: Dict[str, Any], keep=()) -> Dict[str, Any]:
     (`LayerShard.whole`) but those named in `keep` (the MoE expert stacks,
     which `moe_layer` gathers its own way); plain tensors as they are.
     Called inside the layer's body, so under `remat` the backward's
-    recompute gathers again."""
+    recompute gathers again.  A transformer split over several `model`
+    ranks reads its leaves in their compute layouts instead
+    (`transformer._layer_tp`)."""
     return {k: (v.whole() if isinstance(v, shard_rules.LayerShard) and k not in keep else v)
             for k, v in lp.items()}
 
@@ -546,7 +620,7 @@ def gather_layer(lp: Dict[str, Any], keep=()) -> Dict[str, Any]:
 def embed(params: Dict[str, Any], tokens: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """The token embeddings (..., d) of integer `tokens` in the compute dtype,
     on the embedding table's device."""
-    table = params["embed"]
+    table = shard_rules.read_whole(params["embed"])
     return table[tokens.to(device=table.device, dtype=torch.long)].to(cdt)
 
 

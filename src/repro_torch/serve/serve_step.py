@@ -12,19 +12,22 @@ itself; only the DR engine's bucket programs are captured as CUDA graphs
 Decode updates the cache it is given in place, as the reference donates
 it.
 
-On a mesh (`repro_torch.launch.mesh`) params are laid out by
-`param_specs`, the batch by `train_batch_specs` and the cache by
-`cache_specs` (`repro_torch.dist.sharding.lay_out`; a batch or token may
-also be the whole tensor every rank holds).  Each rank computes on the
-shards it stores: the model code runs on its DP rows, under `use_mesh`
-for the K/V cache's slot split, with the params of `dist.sharding.compute_params` (each layer gathered
-inside its loop, the rest once a step; a MoE layer goes expert-parallel
-over `model` on the stored expert shards) and — attention's kernel on
-local tensors — hands back logits sharded over the DP axes and the cache
-in its layout.  The K/V cache's slots stay split over `model`: prefill
-writes each rank's slot range, decode writes the new key on the rank that
-owns its slot and merges the ranks' attention through the log-sum-exp,
-updating the cache's local shards in place.
+On a mesh (`repro_torch.launch.mesh`) params are laid out by `param_specs`,
+the batch by `train_batch_specs` and the cache by `cache_specs`
+(`repro_torch.dist.sharding.lay_out`; a batch or token may also be the whole
+tensor every rank holds).  Each rank computes on the shards it stores: the
+model code runs on its DP rows, under `use_mesh` for the K/V cache's slot
+split, with the params of `dist.sharding.compute_params` (each layer read
+inside its loop, the rest once a step; with several `model` ranks a
+transformer's layers split over them — prefill's stream by sequence where
+their count divides it, `api.splits_stream`, the dense products and heads
+tensor-parallel — and a MoE layer goes expert-parallel over `model` on the
+stored expert shards) and — attention's kernel on local tensors — hands back
+logits sharded over the DP axes and the cache in its layout.  The K/V
+cache's slots stay split over `model`: prefill writes each rank's slot
+range, decode writes the new key on the rank that owns its slot and merges
+the ranks' attention through the log-sum-exp, updating the cache's local
+shards in place.
 """
 
 from __future__ import annotations
@@ -142,9 +145,9 @@ def _global_specs(local_cache: Any, mesh, split: bool, kv_split: bool):
                                    mesh)
 
 
-def _on_shards(params, mesh, split: bool):
+def _on_shards(params, mesh, split: bool, seq: bool = False):
     local, specs = shard_rules.local_specs(params)
-    return shard_rules.compute_params(local, specs, mesh, split)
+    return shard_rules.compute_params(local, specs, mesh, split, seq, lazy=True)
 
 
 def _meshed_prefill(cfg: ArchConfig, mesh, cache_size: int, execution: Execution):
@@ -155,9 +158,10 @@ def _meshed_prefill(cfg: ArchConfig, mesh, cache_size: int, execution: Execution
     def fn(params, batch):
         split = shard_rules.splits_rows(_tree_sig(batch)[0][1][0], mesh)
         local_batch = {k: shard_rules.dp_rows(v, mesh, split).to(dev) for k, v in batch.items()}
+        seq = api.splits_stream(cfg, local_batch, mesh)
         with shard_rules.use_mesh(mesh, kv_split=kv_split):
-            logits, cache = api.prefill(_on_shards(params, mesh, split), local_batch, cfg,
-                                        cache_size, execution=execution)
+            logits, cache = api.prefill(_on_shards(params, mesh, split, seq), local_batch,
+                                        cfg, cache_size, execution=execution)
         specs = _global_specs(cache, mesh, split, kv_split)
         cache = tree_mod.unflatten(cache, (
             _laid_out(t, specs[p], mesh) if t.ndim >= 2 else t

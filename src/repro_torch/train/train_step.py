@@ -29,8 +29,14 @@ leaf's squares summed over the axes it is split on), clipping and AdamW
 all run on the shards.  The DR front-end runs on the whole (micro-)batch
 as the reference's unsplit program does, and its unit stays replicated;
 the loss runs on this rank's rows (a MoE layer goes expert-parallel on
-the stored expert shards, on the mesh they carry).  Without a mesh the same
-body runs as a world of one rank.
+the stored expert shards, on the mesh they carry).  With several `model`
+ranks a transformer's layers split over them (`models.transformer`): its
+stream by sequence where their count divides it (`api.splits_stream`),
+each rank then holding its share of the loss, which the step sums over
+`model` before the DP mean; the dense products and attention heads
+tensor-parallel.  The gradients come out in `param_specs`' layout all the
+same, so AdamW m / v, clipping and the global norm are unchanged.  Without
+a mesh the same body runs as a world of one rank.
 
 `make_dp_compressed_step` is the reference's pure-DP variant: params
 replicated, each rank's gradients synced through `compress.compress_sync`
@@ -203,13 +209,14 @@ def make_train_step(cfg: TrainConfig, *, execution: Execution = Execution(), mes
         batch = {name: torch.as_tensor(shard_rules.full(t)).to(dev) for name, t in batch.items()
                  if name != "step"}
         params, specs = shard_rules.local_specs(state.params)
-        gsum, lsum, aux, split = None, 0.0, {}, False
+        gsum, lsum, aux, split, seq = None, 0.0, {}, False, False
         for micro in _micro_batches(batch, k):
             # the front-end's normalisation reads the whole (micro-)batch
             micro = _apply_dr_frontend(state.dr, dcfg, micro, execution=execution)
             split = shard_rules.splits_rows(next(iter(micro.values())).shape[0], mesh)
+            seq = api.splits_stream(cfg.arch, micro, mesh)
             on_shards = lambda p, _dr, b: loss_fn(  # noqa: E731
-                shard_rules.compute_params(p, specs, mesh, split), None, b)
+                shard_rules.compute_params(p, specs, mesh, split, seq), None, b)
             loss, aux, g = value_and_grad(on_shards, params, None,
                                           _local_batch(micro, mesh, split))
             gsum = g if gsum is None else opt_mod.tree_map(torch.add, gsum, g)
@@ -219,6 +226,8 @@ def make_train_step(cfg: TrainConfig, *, execution: Execution = Execution(), mes
             grads = gsum if k == 1 else opt_mod.tree_map(lambda t: t / k, gsum)
             del gsum
             loss, aux = (lsum, aux) if k == 1 else (lsum / k, {})
+            if seq:        # each rank of `model` holds its share of the loss
+                shard_rules.all_reduce_sum_(loss, mesh, "model")
             if split:
                 for t in [loss] + list(aux.values()):
                     shard_rules.all_reduce_mean_(t, mesh, dax)

@@ -237,6 +237,69 @@ def test_a_meshed_train_step_peaks_below_the_whole_params():
     assert not dist.is_initialized()
 
 
+def test_a_split_step_counts_its_model_collectives():
+    """On a fake (2 data, 4 model) world, h2o SMOKE split over `model`: the
+    train step's counter records, over `model`, the stream's sequence
+    gathers (two a layer, in the forward and again in the recompute) and
+    their reduce-scatters, and the all-to-all moving `wo` / `w_out` to
+    their row split; decode records gathers over `model` and no all-to-all
+    (each product on the stored columns), and its per-rank FLOPs for 4
+    rows are no more than a (8 data, 1 model) rank's for 1, which computes
+    every product whole (without the split they would be 4×)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    cfg = t_registry.get_smoke("h2o_danube3_4b")
+    b, s = 8, 16
+    with dryrun.fake_world(8):
+        mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+        train = dryrun.build_and_count(cfg, "train_4k", mesh, batch=b, seq=s, device=CPU)
+        dec = dryrun.build_and_count(cfg, "decode_32k", mesh, batch=b, seq=s, device=CPU)
+        flat = init_device_mesh("cpu", (8, 1), mesh_dim_names=("data", "model"))
+        dec_flat = dryrun.build_and_count(cfg, "decode_32k", flat, batch=b, seq=s, device=CPU)
+    assert not dist.is_initialized()
+
+    def over_model(count, kind):
+        return [c for c in count.collectives if c.axes == ("model",) and c.kind == kind]
+
+    stream = (b // 2) * s * cfg.d_model * 2                   # bf16 (B_local, S, d)
+    gathers = [c for c in over_model(train["count"], "all-gather") if c.bytes == stream]
+    scatters = [c for c in over_model(train["count"], "reduce-scatter") if c.bytes == stream]
+    assert len(gathers) >= 4 * cfg.n_layers and len(scatters) >= 4 * cfg.n_layers
+    assert over_model(train["count"], "all-to-all")
+    assert over_model(dec["count"], "all-gather") and not over_model(dec["count"], "all-to-all")
+    assert dec["count"].flops <= dec_flat["count"].flops
+
+
+def test_a_cell_prices_rank_0_and_the_last_model_rank(monkeypatch):
+    """`priced_ranks`: rank 0 and the last rank of `model`, every other
+    coordinate 0.  Where attention splits its query rows over `model`
+    (internvl2 SMOKE: 2 heads on 4 or 16 ranks) the last rank holds the
+    last causal block and counts the most attention work of all, and a
+    cell's record takes each term from the rank where it is larger."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    assert dryrun.priced_ranks("single") == (0, 15) and dryrun.priced_ranks("multi") == (0, 15)
+    assert dryrun.priced_ranks("one") == (0,)
+    cfg = t_registry.get_smoke("internvl2_1b")
+    flash = {}
+    for rank in range(4):
+        with dryrun.fake_world(4, rank):
+            assert dist.get_rank() == rank
+            mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+            res = dryrun.build_and_count(cfg, "prefill_32k", mesh, batch=2, seq=64,
+                                         device=dryrun.CARD)
+        flash[rank] = res["count"].kernels["flops"]["flash_attention"]
+    assert max(flash, key=flash.get) == 3 and flash[3] > flash[0], flash
+    monkeypatch.setattr(dryrun.registry, "get", lambda arch_id: cfg)
+    rec = dryrun.run_cell("internvl2_1b", "prefill_32k", "single", verbose=False, batch=16,
+                          seq=56)
+    assert set(rec["by_rank"]) == {"0", "15"} and rec["rank_of"]["flops"] == 15
+    for term in ("t_comp", "t_mem", "t_coll"):
+        assert rec[term] == pytest.approx(max(b[term] for b in rec["by_rank"].values()))
+    assert rec["peak_bytes_per_device"] == max(b["peak_bytes"] for b in rec["by_rank"].values())
+    assert not dist.is_initialized()
+
+
 def test_run_cell_statuses_follow_cell_supported(monkeypatch, tmp_path):
     cfg = t_registry.get_smoke("hubert_xlarge")
     monkeypatch.setattr(dryrun.registry, "get", lambda arch_id: cfg)
@@ -434,3 +497,28 @@ def test_report_formats_a_known_json(tmp_path, capsys):
     assert [r[0] for r in rows] == ["roofline/yi_6b/train_4k"]
     assert rows[0][1] == pytest.approx(5.9701492537e6)
     assert "peakGB=90.00" in rows[0][2]
+
+
+def test_wire_bytes_by_axis_and_by_kind():
+    """`report.wire_by_axis`: the ring model's wire bytes a rank, summed by
+    the axes of each collective's group, or by kind and axes."""
+    assert report.wire_by_axis(KNOWN) == pytest.approx({"data": 1.875e9, "model": 1.875e9})
+    assert report.wire_by_axis(KNOWN, by_kind=True) == pytest.approx(
+        {"all-reduce over data": 1.875e9, "all-gather over model": 1.875e9})
+
+
+def test_report_compares_two_sweeps_with_wire_bytes_by_axis(tmp_path, capsys):
+    """`report --before`: each cell ok in both sweeps, peak, the roofline
+    terms and the ring model's wire bytes a rank by mesh axis (an all-reduce
+    of 1 GB over 16 ranks moves 1.875 GB, an all-gather of 2 GB 1.875)."""
+    before, after = tmp_path / "before", tmp_path / "after"
+    before.mkdir()
+    after.mkdir()
+    rescore.rescore_file(str(_write_known(before)))
+    rescore.rescore_file(str(_write_known(after, memory_per_device=4.5e10,
+                                          peak_bytes_per_device=4.5e10,
+                                          collective_calls=KNOWN["collective_calls"][1:])))
+    assert report.main(["--dir", str(after), "--before", str(before)]) == 0
+    out = capsys.readouterr().out
+    assert "| yi_6b | train_4k | 90.00 → 45.00 |" in out
+    assert "| 1.88 / 1.88 → 0.00 / 1.88 |" in out

@@ -290,7 +290,7 @@ def scenario_mesh_4x2(rank, world, inputs, d):
         exe = _cpu()
         pre = serve_step.make_prefill(cfg, mesh, laid, case["batch"], case["cache_size"],
                                       execution=exe)
-        with Allocations() as alloc:
+        with Allocations() as alloc, ModelGathers() as gathers:
             logits, cache = pre(laid, case["batch"])
         steps = [sharding.full(logits).numpy()]
         placements = {k: sharding.spec_of(v) for k, v in cache.items()
@@ -378,8 +378,211 @@ def scenario_dist_8(rank, world, inputs, d):
     return out
 
 
+def _split_forbidden(params, mesh, cfg, cache=None):
+    """({shape: what} a rank must never allocate, [what the guard cannot
+    hold]): `_whole_shapes` (with the K/V cache's entries where `cache` is
+    given), plus one layer's whole matrix of each leaf that a transformer's
+    layers split over `model` read only in part: `wq` / `wo` where the
+    query heads split, `wk` / `wv` where no rank reads every K/V head, the
+    dense MLP's matrices where d_ff splits.  A shape that a step makes by
+    design — a leaf's local shard or its block gathered over the DP axes,
+    any piece of a leaf outside the layers — cannot be guarded by shape:
+    an entry with such a shape goes to the second list, as (shape, what).
+    That happens where the query heads a rank of `model` holds are as many
+    as the K/V heads (hq / n == hkv): the block of `wq` it stores is then
+    `wk`'s and `wv`'s whole shape.  A whole leaf that "model" splits can
+    only be made by a gather over "model" (`ModelGathers` records them),
+    so such an entry is held there instead."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.dist import sharding
+    from repro_torch.models import transformer
+
+    out = _whole_shapes(params, mesh, cfg, cache)
+    _, n = sharding.model_rank(mesh)
+    if n > 1 and cfg.family == "transformer":
+        layers = params["layers"]
+        names = []
+        if cfg.n_heads % n == 0:
+            names += ["wq", "wo"]
+            if all(c - a < cfg.n_kv_heads for _, (a, c) in transformer._head_ranges(cfg, n)):
+                names += ["wk", "wv"]
+        if cfg.moe is None and cfg.d_ff % n == 0:
+            names += [k for k in ("w_in", "w_gate", "w_out") if k in layers]
+        for k in names:
+            out[tuple(layers[k].shape[1:])] = f"one layer's whole ['layers'][{k!r}]"
+    specs = sharding.param_specs(params, mesh)
+    by_design = set()
+    for path, leaf in tree_mod.flatten_with_path(params):
+        spec = specs[path]
+        layer = path.startswith("['layers']")
+        # the local shard and its block gathered over the DP axes; outside
+        # the layers every stage of the gather too
+        kept = [spec, tuple(ax if ax == "model" else None for ax in spec)]
+        if not layer:
+            kept += [tuple(None if ax == "model" else ax for ax in spec), (None,) * leaf.ndim]
+        for keep in kept:
+            shape = tuple(d // sharding.axis_size(mesh, ax) for d, ax in zip(leaf.shape, keep))
+            by_design.add(shape[1:] if layer else shape)
+            by_design.add(shape)
+    return ({shape: what for shape, what in out.items() if shape not in by_design},
+            sorted((shape, what) for shape, what in out.items() if shape in by_design))
+
+
+class ModelGathers:
+    """Records the shape of every tensor gathered over "model": the
+    results of `sharding.all_gather_cat` over an axis set that holds it and
+    of `sharding.TakeCols` (columns exchanged over "model")."""
+
+    def __enter__(self):
+        from repro_torch.dist import sharding
+
+        self.shapes = set()
+        self._orig = (sharding.all_gather_cat, sharding.TakeCols.forward)
+        gather, take = self._orig
+
+        def all_gather_cat(t, mesh, axes, dim):
+            out = gather(t, mesh, axes, dim)
+            if "model" in sharding.as_axes(axes):
+                self.shapes.add(tuple(out.shape))
+            return out
+
+        def take_cols(ctx, t, mesh, ranges):
+            out = take(ctx, t, mesh, ranges)
+            self.shapes.add(tuple(out.shape))
+            return out
+
+        sharding.all_gather_cat = all_gather_cat
+        sharding.TakeCols.forward = staticmethod(take_cols)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.dist import sharding
+
+        sharding.all_gather_cat = self._orig[0]
+        sharding.TakeCols.forward = staticmethod(self._orig[1])
+
+
+def _gathered_whole(gathers, unguarded):
+    """The entries the allocation guard cannot hold whose whole shape a
+    gather over "model" made."""
+    return [f"{shape}: {what}" for shape, what in unguarded if shape in gathers.shapes]
+
+
+class LayerInputs:
+    """Records the residual stream each layer body starts from under
+    `blocks.remat` (what the checkpoint keeps between layers), and the
+    shapes of every tensor autograd saves outside the checkpointed bodies."""
+
+    def __init__(self):
+        self.remat, self.saved = [], []
+
+    def __enter__(self):
+        from repro_torch.models import blocks
+
+        self._orig = blocks.remat
+
+        def remat(fn, *args):
+            if fn.__name__ == "body" and torch.is_grad_enabled():
+                self.remat.append(tuple(args[0].shape))
+            return self._orig(fn, *args)
+
+        blocks.remat = remat
+        self._hooks = torch.autograd.graph.saved_tensors_hooks(
+            lambda t: (self.saved.append(tuple(t.shape)), t)[1], lambda t: t)
+        self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+
+        self._hooks.__exit__(*exc)
+        blocks.remat = self._orig
+
+
+def scenario_mesh_tp(rank, world, inputs, d):
+    """A transformer's layers split over `model` on the mesh `inputs`
+    names: the train steps under the allocation guard and `LayerInputs`,
+    prefill + decode of the serving cases, and on (1, 4) one layer's matmul
+    FLOPs on this rank against the unmeshed layer's (`FlopCounterMode`)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.dist import sharding
+    from repro_torch.models import transformer
+    from repro_torch.serve import serve_step
+    from repro_torch.train import train_step as ts
+
+    out = {}
+    shape, names = inputs["mesh"]
+    mesh = _mesh(shape, names)
+    r, n = sharding.model_rank(mesh)
+    n_dp = sharding.axis_size(mesh, sharding.batch_axes(mesh))
+    for name, case in inputs["train"].items():
+        tcfg = case["tcfg"]
+        state = ts.lay_out_state(case["state"], mesh)
+        step = ts.make_train_step(tcfg, execution=_cpu(), mesh=mesh)
+        forbidden, unguarded = _split_forbidden(case["state"].params, mesh, tcfg.arch)
+        metrics = []
+        with Allocations() as alloc, LayerInputs() as seen, ModelGathers() as gathers:
+            for batch in case["batches"]:
+                state, m = step(state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+        rows = case["batches"][0]["tokens"].shape[0]
+        s = transformer.stream_len(tcfg.arch, case["batches"][0])
+        b_loc = rows // n_dp if sharding.splits_rows(rows, mesh) else rows
+        split = sharding.seq_splits(s, mesh)
+        leaves = _gathered(state)                     # collective: every rank
+        whole = (b_loc, s, tcfg.arch.d_model)
+        out[f"train/{name}"] = {
+            "metrics": metrics, "leaves": leaves if rank == 0 else None,
+            "shapes": _local_shapes(state, mesh), "allocations": len(alloc.shapes),
+            "forbidden": len(forbidden), "unguarded": len(unguarded),
+            "violations": _violations(alloc, forbidden) + _gathered_whole(gathers, unguarded),
+            "remat": sorted(set(seen.remat)),
+            "remat_want": (b_loc, s // n, tcfg.arch.d_model) if split else whole,
+            "saved_whole": sum(sh == whole for sh in seen.saved) if split else None}
+
+    for name, case in inputs["serve"].items():
+        cfg, params = case["cfg"], case["params"]
+        own_r = transformer.kv_rp_matrix
+        if "kv_rp_r" in case:
+            transformer.kv_rp_matrix = lambda c, device: case["kv_rp_r"].to(device)
+        laid = sharding.lay_out(params, sharding.param_specs(params, mesh), mesh)
+        pre = serve_step.make_prefill(cfg, mesh, laid, case["batch"], case["cache_size"],
+                                      execution=_cpu())
+        with Allocations() as alloc, ModelGathers() as gathers:
+            logits, cache = pre(laid, case["batch"])
+            steps = [sharding.full(logits).numpy()]
+            dec = serve_step.make_decode(cfg, mesh, laid, cache, execution=_cpu())
+            for tok in case["forced"]:
+                logits, cache = dec(laid, tok, cache)
+                steps.append(sharding.full(logits).numpy())
+        transformer.kv_rp_matrix = own_r
+        whole_cache = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                       for k, v in cache.items() if isinstance(v, torch.Tensor) and v.ndim}
+        forbidden, unguarded = _split_forbidden(params, mesh, cfg, whole_cache)
+        out[f"serve/{name}"] = {"logits": steps, "cache": _gathered(cache),
+                                "allocations": len(alloc.shapes), "forbidden": len(forbidden),
+                                "unguarded": len(unguarded),
+                                "violations": (_violations(alloc, forbidden)
+                                               + _gathered_whole(gathers, unguarded))}
+
+    if "flops" in inputs:
+        fl = inputs["flops"]
+        cfg, params, batch = fl["cfg"], fl["params"], fl["batch"]
+        local, specs = sharding.local_specs(
+            sharding.lay_out(params, sharding.param_specs(params, mesh), mesh))
+        on_rank = sharding.compute_params(local, specs, mesh, False, seq=True)
+        counts = {}
+        for key, p in (("split", on_rank), ("whole", params)):
+            with torch.no_grad(), FlopCounterMode(display=False) as fc:
+                transformer.hidden_states(p, batch, cfg, remat=False, execution=_cpu())
+            counts[key] = fc.get_total_flops()
+        out["flops"] = counts
+    return out
+
+
 SCENARIOS = {"mesh_2x2": scenario_mesh_2x2, "mesh_4x2": scenario_mesh_4x2,
-             "dist_8": scenario_dist_8}
+             "dist_8": scenario_dist_8, "mesh_tp": scenario_mesh_tp}
 
 
 def main():

@@ -4245,6 +4245,104 @@ MESH_ENSEMBLE = 4               # members of the paper model's ensemble
 MESH_ENSEMBLE_ROWS = 100        # test rows served through register(..., ensemble=)
 MESH_DP = dict(arch="smollm_135m", batch=8, seq=512, steps=2)
 MESH_SYNC_REL = 1e-5            # a synced leaf, B3 vs the plain sketch, relative norm
+MESH_RECURRENT_DECODE = 4       # decode steps after each recurrent family's meshed prefill
+MESH_RECURRENT_STEPS = 2        # train steps of each (the first pays one-time costs)
+
+
+def _ms(v) -> str:
+    """A time in ms, or a list of them (one a step), to 3 decimals."""
+    return ", ".join(f"{t:.3f}" for t in v) if isinstance(v, list) else f"{v:.3f}"
+
+
+def mesh_recurrent(dev, mesh, arch, spec, seed, exe, path):
+    """One recurrent family at its [train-recurrent] cut (`spec`: layers,
+    batch, seq) on the one-rank mesh against the unmeshed run on the same
+    card, every run under deterministic algorithms: a prefill of
+    `spec`'s batch and MESH_RECURRENT_DECODE teacher-forced decode steps
+    through `serve_step` (logits every step, every cache leaf at the end),
+    then MESH_RECURRENT_STEPS train steps (the last one's loss and grad
+    norm, every updated param leaf), each bit-identical to the unmeshed
+    one; each train step timed host-paced.  `path` zeroes the counts just
+    before each meshed run and reads them just after.  Params and states
+    are drawn anew from `seed` for each run (the card's generator repeats
+    its draws), so no two copies of a model are held."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.dist import sharding
+    from repro_torch.models import api
+    from repro_torch.serve import serve_step
+    from repro_torch.train import train_step as ts
+
+    cfg = dataclasses.replace(registry.get(arch), n_layers=spec["layers"])
+    name, b, s = cfg.family, spec["batch"], spec["seq"]
+    toks = torch.randint(0, cfg.vocab_size, (b, s + MESH_RECURRENT_DECODE),
+                         generator=torch.Generator(device=dev).manual_seed(seed + 1), device=dev,
+                         dtype=torch.int32)
+    batch, cache_size = {"tokens": toks[:, :s]}, s + MESH_RECURRENT_DECODE
+
+    def serve(msh):
+        params = api.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, execution=exe)
+        if msh is not None:
+            params = sharding.lay_out(params, sharding.param_specs(params, msh), msh)
+        t0 = time.perf_counter()
+        logits, cache = serve_step.make_prefill(cfg, msh, params, batch, cache_size,
+                                                execution=exe)(params, batch)
+        outs = [sharding.full(logits)]
+        decode = serve_step.make_decode(cfg, msh, params, cache, execution=exe)
+        for i in range(MESH_RECURRENT_DECODE):
+            logits, cache = decode(params, toks[:, s + i], cache)
+            outs.append(sharding.full(logits))
+        torch.cuda.synchronize()
+        return outs, {k: sharding.full(v) for k, v in cache.items()}, time.perf_counter() - t0
+
+    tcfg = ts.TrainConfig(arch=cfg, grad_accum=cfg.train_grad_accum)
+    data = synthetic.TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                                       seed=0)
+    tb = to_device({"tokens": synthetic.token_batch(data, 0)["tokens"]}, dev)
+
+    def train(msh):
+        state = ts.init_state(torch.Generator(device=dev).manual_seed(seed), tcfg, execution=exe)
+        if msh is not None:
+            state = ts.lay_out_state(state, msh)
+        step = ts.make_train_step(tcfg, execution=exe, mesh=msh)
+        secs = []
+        for _ in range(MESH_RECURRENT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, tb)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return ({k: float(v) for k, v in metrics.items()},
+                {p: sharding.full(v) for p, v in tree_mod.flatten_with_path(state.params)}, secs)
+
+    def det(fn):
+        return lambda: deterministic_warnings(fn)
+
+    (u_logits, u_cache, u_serve_s), _ = det(lambda: serve(None))()
+    (m_logits, m_cache, m_serve_s), notes = path(f"{name}_serve", det(lambda: serve(mesh)))
+    torch.cuda.empty_cache()
+    (u_metrics, u_params, u_train_s), _ = det(lambda: train(None))()
+    torch.cuda.empty_cache()
+    (m_metrics, m_params, m_train_s), notes_t = path(f"{name}_train", det(lambda: train(mesh)))
+    serve_same = (all(torch.equal(g, w) for g, w in zip(m_logits, u_logits))
+                  and not trees_equal(m_cache, u_cache))
+    params_diff = trees_equal(m_params, u_params)
+    if not serve_same or params_diff or m_metrics != u_metrics:
+        fail(f"mesh {name}: the one-rank meshed run differs from the unmeshed one: serving "
+             f"bit-identical {serve_same}; train metrics {m_metrics} / {u_metrics}, param "
+             f"leaves differing {params_diff[:5]}")
+    apps = -(-cfg.n_layers // cfg.hybrid.attn_every) if name == "zamba" else 0
+    return {"family": name, "layers": cfg.n_layers, "batch": b, "seq": s,
+            "shared_applications": apps,
+            "serve_ms": {"meshed": m_serve_s * 1e3, "unmeshed": u_serve_s * 1e3},
+            "train_step_ms": {"meshed": [t * 1e3 for t in m_train_s],
+                              "unmeshed": [t * 1e3 for t in u_train_s]},
+            "loss": m_metrics["loss"], "grad_norm": m_metrics["grad_norm"],
+            "deterministic_notes": sorted(set(notes) | set(notes_t))}
 
 
 def phase_mesh(dev, card_line):
@@ -4261,11 +4359,14 @@ def phase_mesh(dev, card_line):
     `make_dp_compressed_step` (the first step's gradients synced again with
     B3 and with the plain sketch, every compressed leaf within
     MESH_SYNC_REL; the first loss equal to its state's plain loss; synced +
-    new error feedback = gradient + old error feedback per leaf).  The MoE
-    all-to-all and the layers' split over `model` need two `model` ranks:
-    one card cannot reach them (tests/test_torch_dist.py and
-    tests/test_torch_mesh_tp.py hold them on gloo ranks; `[dryrun]` prices
-    the split at (16, 16))."""
+    new error feedback = gradient + old error feedback per leaf), and
+    zamba2-7b and rwkv6-1.6b at [train-recurrent]'s cuts (`mesh_recurrent`:
+    prefill + decode and two train steps, bit-identical to unmeshed, B4
+    counted in zamba's prefill and train).  The MoE all-to-all and the layers'
+    split over `model` need two `model` ranks: one card cannot reach them
+    (tests/test_torch_dist.py, tests/test_torch_mesh_tp.py and
+    tests/test_torch_mesh_recurrent.py hold them on gloo ranks; `[dryrun]`
+    prices the split at (16, 16))."""
     import dataclasses
 
     import torch
@@ -4512,6 +4613,32 @@ def phase_mesh(dev, card_line):
     out["train"] = {"loss_rel": loss_rel, "grad_norm_rel": gn_rel, "leaf_norm_rel": leaf_rel,
                     "peak_gib": peak, "peak_gib_unmeshed": peak_u}
 
+    # ---- the recurrent families at [train-recurrent]'s cuts -----------------
+    torch.cuda.empty_cache()
+    for arch, spec, seed in ((ZAMBA_ARCH, TRAIN_ZAMBA, 14), (RWKV_ARCH, TRAIN_RWKV, 13)):
+        rec = mesh_recurrent(dev, mesh, arch, spec, seed, kexe, path)
+        fam = rec["family"]
+        flash = {k: counts[f"{fam}_{k}"]["flash_attention"] for k in ("serve", "train")}
+        # one launch a shared-block application in prefill; in each train
+        # step forward + recompute for each of the 2 micro-batches
+        apps = rec["shared_applications"]
+        want = {"serve": apps, "train": MESH_RECURRENT_STEPS * 2 * 2 * apps}
+        if flash != want or any(v for k in ("serve", "train")
+                                for n_, v in counts[f"{fam}_{k}"].items() if n_ != "flash_attention"):
+            fail(f"mesh {fam}: launches {counts[f'{fam}_serve']} / {counts[f'{fam}_train']}, want "
+                 f"flash {want} and no other kernel")
+        times[f"{fam}_serve_ms"] = rec.pop("serve_ms")
+        times[f"{fam}_train_step_ms"] = rec.pop("train_step_ms")
+        out[fam] = rec
+        print(f"[mesh] {arch} ({rec['layers']} layers, {rec['batch']} x {rec['seq']}): prefill + "
+              f"{MESH_RECURRENT_DECODE} decode steps and {MESH_RECURRENT_STEPS} train steps (loss "
+              f"{rec['loss']:.6f}, "
+              f"grad norm {rec['grad_norm']:.6f}) on the mesh bit-identical to unmeshed under "
+              f"deterministic algorithms; launches serving {json.dumps(counts[f'{fam}_serve'])}, "
+              f"train {json.dumps(counts[f'{fam}_train'])}; notes "
+              f"{json.dumps(rec['deterministic_notes'])}")
+        torch.cuda.empty_cache()
+
     # ---- the RP-compressed data-parallel step -------------------------------
     dcfg = registry.get(MESH_DP["arch"])
     ccfg = compress.CompressConfig()
@@ -4593,7 +4720,7 @@ def phase_mesh(dev, card_line):
     print("[mesh] MoE expert parallelism (the all-to-all path) needs more than one `model` "
           "rank: one card cannot reach it; tests/test_torch_dist.py holds it on 8 gloo ranks")
     print(f"[mesh-time] {card_line}: host-paced ms meshed / unmeshed "
-          + "; ".join(f"{k} {v['meshed']:.3f} / {v['unmeshed']:.3f}" for k, v in times.items()))
+          + "; ".join(f"{k} {_ms(v['meshed'])} / {_ms(v['unmeshed'])}" for k, v in times.items()))
     total = {k: sum(c[k] for c in counts.values()) for k in all_counts()}
     out.update(times=times, launches_by_path=counts)
     dist.destroy_process_group()
@@ -4607,26 +4734,25 @@ def phase_mesh(dev, card_line):
 DRYRUN_TOL = 0.10    # predicted peak within 10% of the measured one
 
 
-def phase_dryrun(dev, card_line):
-    """`launch/dryrun.py` on the card's machine: h2o at [train-lm]'s cut (8
-    layers, 2 x 4096, the reference's train_4k at batch 2) on a one-rank
-    mesh, built on fake CUDA tensors over a fake one-rank group, against the
-    same step run for real on a one-rank NCCL mesh: the predicted peak within
-    DRYRUN_TOL of max_memory_allocated over the step (reset just before, read
-    just after, less what earlier phases left allocated), and the counted
-    FLOPs at least the model FLOPs 6·N·tokens.  Then the production mesh's
-    records for h2o train_4k and decode_32k with their collective wire bytes
-    by kind and axis (no card memory)."""
+def dryrun_cut(dev, card_line, arch, spec):
+    """The dry run's prediction of one train step of `arch` cut to
+    `spec`'s layers at its batch x seq (the reference's train_4k cell) on a
+    one-rank mesh, built on fake CUDA tensors over a fake one-rank group,
+    against the same step run for real on a one-rank NCCL mesh: the
+    predicted peak within DRYRUN_TOL of max_memory_allocated over the step
+    (reset just before, read just after, less what earlier phases left
+    allocated), and the counted FLOPs at least the model FLOPs
+    6·N·tokens."""
     import gc
 
     import torch
     import torch.distributed as dist
     from repro_torch.configs import registry
-    from repro_torch.launch import dryrun, report
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_smoke_mesh
 
-    layers, batch, seq = TRAIN_LM["layers"], TRAIN_LM["batch"], TRAIN_LM["seq"]
-    cfg = dryrun.apply_cut(registry.get(LM_ARCH), layers=layers)
+    layers, batch, seq = spec["layers"], spec["batch"], spec["seq"]
+    cfg = dryrun.apply_cut(registry.get(arch), layers=layers)
     t0 = time.perf_counter()
     with dryrun.fake_world(1):
         pred = dryrun.build_and_count(cfg, "train_4k", dryrun.make_mesh("one", dev), batch=batch,
@@ -4634,7 +4760,7 @@ def phase_dryrun(dev, card_line):
     t_pred = time.perf_counter() - t0
     count = pred["count"]
     if not count.flops >= pred["model_flops"]:
-        fail(f"dryrun: counted {count.flops:.4e} FLOPs, under the model's 6·N·tokens "
+        fail(f"dryrun {arch}: counted {count.flops:.4e} FLOPs, under the model's 6·N·tokens "
              f"{pred['model_flops']:.4e}")
 
     gc.collect()
@@ -4658,16 +4784,30 @@ def phase_dryrun(dev, card_line):
     gc.collect()
     torch.cuda.empty_cache()
     rel = abs(count.peak_bytes - measured) / measured
-    print(f"[dryrun] ({card_line}) h2o {layers} layers, {batch} x {seq}, one-rank mesh: "
+    print(f"[dryrun] ({card_line}) {cfg.name} {layers} layers, {batch} x {seq}, one-rank mesh: "
           f"predicted peak {count.peak_bytes / 2**30:.3f} GiB (fake CUDA tensors, built in "
           f"{t_pred:.1f} s), measured {measured / 2**30:.3f} GiB (max_memory_allocated over "
           f"one step of {t_step:.3f} s, loss {loss:.4f}): {100 * rel:.2f}% apart; counted "
           f"{count.flops:.4e} FLOPs against 6·N·tokens {pred['model_flops']:.4e} "
           f"(ratio {count.flops / pred['model_flops']:.3f}); kernels {json.dumps(count.kernels)}")
     if not rel <= DRYRUN_TOL:
-        fail(f"dryrun: predicted peak {count.peak_bytes} B is {100 * rel:.2f}% from the "
+        fail(f"dryrun {arch}: predicted peak {count.peak_bytes} B is {100 * rel:.2f}% from the "
              f"measured {measured} B (bound {100 * DRYRUN_TOL:.0f}%)")
+    return {"predicted_peak_bytes": count.peak_bytes, "measured_peak_bytes": measured,
+            "peak_rel_diff": rel, "flops": count.flops, "model_flops": pred["model_flops"],
+            "bytes": count.bytes, "build_s": t_pred, "step_s": t_step, "loss": loss}
 
+
+def phase_dryrun(dev, card_line):
+    """`launch/dryrun.py` on the card's machine: `dryrun_cut` for h2o at
+    [train-lm]'s cut (8 layers, 2 x 4096) and for zamba2 at
+    [train-recurrent]'s (12 layers, 2 x 512).  Then the production mesh's
+    records for h2o train_4k and decode_32k with their collective wire
+    bytes by kind and axis (no card memory)."""
+    from repro_torch.launch import dryrun, report
+
+    res = {"h2o": dryrun_cut(dev, card_line, LM_ARCH, TRAIN_LM),
+           "zamba": dryrun_cut(dev, card_line, ZAMBA_ARCH, TRAIN_ZAMBA)}
     production = {}
     for shape in ("train_4k", "decode_32k"):
         t0 = time.perf_counter()
@@ -4682,10 +4822,7 @@ def phase_dryrun(dev, card_line):
               f"{prod['state_bytes_per_device'] / 1e9:.2f} GB (the layers split over `model`: "
               f"the stream by sequence, the products and heads tensor-parallel); "
               f"{json.dumps(shown)}")
-    return {"predicted_peak_bytes": count.peak_bytes, "measured_peak_bytes": measured,
-            "peak_rel_diff": rel, "flops": count.flops, "model_flops": pred["model_flops"],
-            "bytes": count.bytes, "build_s": t_pred, "step_s": t_step, "loss": loss,
-            "production_train_4k": production["train_4k"],
+    return {**res, "production_train_4k": production["train_4k"],
             "production_decode_32k": production["decode_32k"]}
 
 

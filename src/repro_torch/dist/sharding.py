@@ -29,17 +29,20 @@ Compute never sees a DTensor, and computes on the shards a rank stores.
 alone — whole (`LayerShard.whole`), or in the layout its tensor-parallel
 product computes in (`block`, `cols`, `rows`: the rank's `model` block
 gathered over the DP axes only, moved between dims by one all-to-all, or
-the columns of the K/V heads its query heads read) — and every other leaf
-gathered once per step.  The gathers are `GatherParam`, whose backward is
-the true adjoint of the step's loss, so gradients come out of the backward
-as local shards in `param_specs`' layout and `global_norm` sums their
-squares over the axes each is split on.  Where the residual stream is
+the columns it reads — the K/V heads its query heads read, Mamba-2's
+z / xs / dt of its heads and the B / C every rank reads) — Zamba-2's
+shared block likewise, and every other leaf gathered once per step.  The
+gathers are `GatherParam`, whose backward is the true adjoint of the
+step's loss, so gradients come out of the backward as local shards in
+`param_specs`' layout and `global_norm` sums their squares over the axes
+each is split on.  Where the residual stream is
 split over `model` by sequence (`seq_splits`; `compute_params(seq=True)`),
-each rank of `model` holds its own share of the loss: a gather of the
-stream is `GatherRows` (backward: reduce-scatter), the row-parallel
-products' partial sums meet in `ScatterSeq` (backward: gather), and a
-leaf the split compute reads whole sums its gradient over `model`.  With
-the stream whole (decode), row-parallel products meet in `ReduceModel`.
+or Zamba-2's training carry by feature, each rank of `model` holds its own
+share of the loss: a gather of the stream is `GatherRows` (backward:
+reduce-scatter), the row-parallel products' partial sums meet in
+`ScatterSeq` (backward: gather), along the split dim, and a leaf the split
+compute reads whole sums its gradient over `model`.  With the stream whole
+(decode; RWKV-6), row-parallel products meet in `ReduceModel`.
 A K/V cache keeps its sequence dim split over `model` (`kv_seq_shard`:
 decode scores a rank's own slots and merges over `model` through the
 log-sum-exp).  `use_mesh` is the counterpart of the reference's `with
@@ -53,7 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Dict, Iterator, List, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -687,39 +690,52 @@ def _overlap(a: Tuple[int, int], b: Tuple[int, int]) -> Tuple[int, int]:
     return lo, max(lo, min(a[1], b[1]))
 
 
+def _col_ranges(rg) -> Tuple[Tuple[int, int], ...]:
+    """A rank's columns: one [lo, hi) range, or a sequence of them."""
+    return (tuple(rg),) if isinstance(rg[0], int) else tuple(tuple(x) for x in rg)
+
+
 class TakeCols(torch.autograd.Function):
-    """Columns [lo, hi) = `ranges[r]` of a tensor whose last dim is split
-    over "model" in equal blocks, from this rank's block `t`; `ranges[j]`
-    is what rank j takes.  Each rank sends every peer the part of its
-    block that the peer takes (`exchange`).  Backward: each taken
-    column's gradient goes back to its owner, which sums what its peers
-    return (a column several ranks read gets each one's share)."""
+    """The columns `ranges[r]` (a tuple of [lo, hi) ranges, concatenated in
+    their order) of a tensor whose last dim is split over "model" in equal
+    blocks, from this rank's block `t`; `ranges[j]` is what rank j takes.
+    Each rank sends every peer the parts of its block that the peer takes
+    (`exchange`).  Backward: each taken column's gradient goes back to its
+    owner, which sums what its peers return (a column several ranks read
+    gets each one's share)."""
 
     @staticmethod
     def forward(ctx, t, mesh, ranges):
         r, n = model_rank(mesh)
         w = t.shape[-1]
         lead = tuple(t.shape[:-1])
-        mine = (r * w, (r + 1) * w)
-        send = [t[..., a - r * w:b - r * w] for a, b in (_overlap(mine, rg) for rg in ranges)]
-        spans = [_overlap((j * w, (j + 1) * w), ranges[r]) for j in range(n)]
-        parts = exchange(send, [lead + (b - a,) for a, b in spans], mesh, "model")
-        ctx.args = (mesh, ranges, w, lead)
-        return torch.cat(parts, dim=-1)
+        owned = [(j * w, (j + 1) * w) for j in range(n)]
+        send = [torch.cat([t[..., a - r * w:b - r * w]
+                           for a, b in (_overlap(owned[r], rg) for rg in ranges[j])], dim=-1)
+                for j in range(n)]
+        # per owner s: how many of its columns each of this rank's ranges takes
+        lens = [[b - a for a, b in (_overlap(owned[s], rg) for rg in ranges[r])] for s in range(n)]
+        parts = exchange(send, [lead + (sum(ln),) for ln in lens], mesh, "model")
+        pieces = [p.split(ln, dim=-1) for p, ln in zip(parts, lens)]
+        ctx.args = (mesh, ranges, w, lead, lens)
+        return torch.cat([pieces[s][i] for i in range(len(ranges[r])) for s in range(n)], dim=-1)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, ranges, w, lead = ctx.args
+        mesh, ranges, w, lead, lens = ctx.args
         r, n = model_rank(mesh)
-        lo = ranges[r][0]
-        spans = [_overlap((j * w, (j + 1) * w), ranges[r]) for j in range(n)]
-        back = [_overlap((r * w, (r + 1) * w), rg) for rg in ranges]
-        parts = exchange([g[..., a - lo:b - lo] for a, b in spans],
-                         [lead + (b - a,) for a, b in back], mesh, "model")
+        k = len(ranges[r])
+        owned = (r * w, (r + 1) * w)
+        g_pieces = g.split([lens[s][i] for i in range(k) for s in range(n)], dim=-1)
+        send = [torch.cat([g_pieces[i * n + s] for i in range(k)], dim=-1) for s in range(n)]
+        back = [[_overlap(owned, rg) for rg in ranges[j]] for j in range(n)]
+        parts = exchange(send, [lead + (sum(b - a for a, b in bk),) for bk in back], mesh,
+                         "model")
         out = g.new_zeros(lead + (w,))
-        for (a, b), p in zip(back, parts):
-            if b > a:
-                out[..., a - r * w:b - r * w] += p
+        for bk, p in zip(back, parts):
+            for (a, b), piece in zip(bk, p.split([b - a for a, b in bk], dim=-1)):
+                if b > a:
+                    out[..., a - r * w:b - r * w] += piece
         return out, None, None
 
 
@@ -861,9 +877,11 @@ class LayerShard:
     def _dp_spec(self) -> Spec:
         return tuple(None if ax == "model" else ax for ax in self.spec)
 
-    def whole(self) -> torch.Tensor:
-        """The gathered tensor, cast where `to` asked."""
-        return self._cast(self._gather(self.spec, self.seq))
+    def whole(self, model_sum: Optional[bool] = None) -> torch.Tensor:
+        """The gathered tensor, cast where `to` asked.  `model_sum`: whether
+        each rank's gradient of it is a share to sum over "model" (default
+        `seq`), as where compute split over "model" reads it whole."""
+        return self._cast(self._gather(self.spec, self.seq if model_sum is None else model_sum))
 
     @property
     def model_split(self) -> bool:
@@ -876,21 +894,24 @@ class LayerShard:
         is this rank's alone."""
         return self._cast(self._gather(self._dp_spec(), False))
 
-    def cols(self, ranges: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    def cols(self, ranges) -> torch.Tensor:
         """Columns `ranges[r]` of the leaf's last dim, whole in the others,
-        where rank j of "model" takes `ranges[j]`: the stored block itself
-        where the ranges are the storage blocks, else the block gathered
-        over the DP axes and the columns exchanged over "model"
-        (`TakeCols`); a leaf "model" does not split is read whole and cut
-        (each rank's gradient a share, summed over "model")."""
+        where rank j of "model" takes `ranges[j]`: one [lo, hi) range, or
+        several, concatenated in their order.  The stored block itself where
+        the ranges are the storage blocks, else the block gathered over the
+        DP axes and the columns exchanged over "model" (`TakeCols`; a column
+        several ranks take sums their gradients); a leaf "model" does not
+        split is read whole and cut (each rank's gradient a share, summed
+        over "model")."""
         r, _ = model_rank(self.mesh)
-        lo, hi = ranges[r]
+        ranges = tuple(_col_ranges(rg) for rg in ranges)
         if not self.model_split:
-            return self._cast(self._gather(self.spec, True)[..., lo:hi])
+            t = self._gather(self.spec, True)
+            return self._cast(torch.cat([t[..., lo:hi] for lo, hi in ranges[r]], dim=-1))
         t = self._gather(self._dp_spec(), False)
         w = t.shape[-1]
-        if any(tuple(rg) != (j * w, (j + 1) * w) for j, rg in enumerate(ranges)):
-            t = TakeCols.apply(t, self.mesh, tuple(tuple(rg) for rg in ranges))
+        if any(rg != ((j * w, (j + 1) * w),) for j, rg in enumerate(ranges)):
+            t = TakeCols.apply(t, self.mesh, ranges)
         return self._cast(t)
 
     def rows(self) -> torch.Tensor:
@@ -906,25 +927,29 @@ class LayerShard:
         return self._cast(move_split(t, self.mesh, "model", t.ndim - 1, t.ndim - 2))
 
 
+def model_split_of(leaf: Any) -> Optional[Tuple[Any, int, int, bool]]:
+    """(mesh, this rank's index along "model", "model" ranks, `seq`) of a
+    meshed step's layer leaf (a `LayerShard`); None without a mesh or with
+    one `model` rank, where a model family computes as on one rank."""
+    if not isinstance(leaf, LayerShard):
+        return None
+    r, n = model_rank(leaf.mesh)
+    return None if n == 1 else (leaf.mesh, r, n, leaf.seq)
+
+
 def read_whole(x: Any) -> Any:
     """A `LayerShard` gathered whole; anything else as it is."""
     return x.whole() if isinstance(x, LayerShard) else x
-
-
-def whole_outside_layers(params: Dict[str, Any]) -> Dict[str, Any]:
-    """`params` with every leaf outside `layers` gathered whole
-    (`read_whole`), the layers' leaves as they are."""
-    return {k: v if k == "layers" else tree_mod.tree_map(read_whole, v)
-            for k, v in params.items()}
 
 
 def compute_params(params: Any, specs: Specs, mesh, rows_split: bool, seq: bool = False,
                    lazy: bool = False) -> Any:
     """The params a meshed step's model code reads, from a rank's local
     shards `params` (nested dicts) laid out by `specs` ({path: spec}): each
-    stacked `layers` leaf a `LayerShard`, every other leaf (embedding,
-    head, norms, a shared block, front-end projections) gathered whole
-    (`gather_param`), once a step.  `lazy` (a step with no backward: the
+    stacked `layers` leaf and each leaf of Zamba-2's `shared` block a
+    `LayerShard` (read in the layouts its products compute in), every
+    other leaf (embedding, head, norms, front-end projections) gathered
+    whole (`gather_param`), once a step.  `lazy` (a step with no backward: the
     serving steps): every leaf that a gather would make whole is handed
     out as a `LayerShard`, and the model code reads it in the layout it
     computes in (`read_whole` where whole).  `seq`: the stream is split
@@ -943,7 +968,8 @@ def compute_params(params: Any, specs: Specs, mesh, rows_split: bool, seq: bool 
             else:
                 spec = specs.get(p) or (None,) * v.ndim
                 out[k] = (LayerShard(v, spec, mesh, rows_split, seq=seq)
-                          if p.startswith("['layers']") or (lazy and split_axes(spec, mesh))
+                          if p.startswith(("['layers']", "['shared']"))
+                          or (lazy and split_axes(spec, mesh))
                           else gather_param(v, spec, mesh, rows_split, model_sum=seq))
         return out
 

@@ -264,16 +264,66 @@ class StepCount:
     collectives: List[roofline.Collective]
     kernels: Dict[str, Any]
     peak_by_kind: Dict[str, float] = dataclasses.field(default_factory=dict)
+    peak_top: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
 
-def count_step(fn, external: List[torch.Tensor], mesh) -> StepCount:
+def _peak_tracker(top: int):
+    """A MemTracker that also keeps, each time the total reaches a new peak,
+    the `top` largest live storages: bytes, kind, and the op, shape and
+    dtype of the tensor that first held each."""
+    from torch.distributed._tools import mem_tracker
+
+    class PeakTop(mem_tracker.MemTracker):
+        def __init__(self):
+            super().__init__()
+            self.tops: Dict[Any, List[Dict[str, Any]]] = {}
+            self._op = "external"
+
+        @property
+        def peak_top(self) -> List[Dict[str, Any]]:
+            """The list of the device with the largest peak."""
+            if not self._peak_mem:
+                return []
+            return self.tops.get(max(self._peak_mem, key=self._peak_mem.get), [])
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self._op = str(func)
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+        def _track(self, reftype, t):
+            super()._track(reftype, t)
+            for st in mem_tracker.get_untyped_storages(t):
+                winfo, _ = self._WINFO.get(st, (None, None))
+                if winfo is not None and not hasattr(winfo, "made_by"):
+                    winfo.made_by = (self._op, list(t.shape), str(t.dtype))
+
+        def _update_peak_stats(self, peak_state):
+            before = dict(self._peak_mem)
+            super()._update_peak_stats(peak_state)
+            for dev, peak in self._peak_mem.items():
+                if peak == before.get(dev):
+                    continue
+                live = sorted((w for w, _ in self._WINFO.values() if w.device == dev),
+                              key=lambda w: w.mem_consumed, reverse=True)[:top]
+                self.tops[dev] = [
+                    dict(zip(("op", "shape", "dtype"), getattr(w, "made_by", ("?", [], "?"))),
+                         bytes=w.mem_consumed, kind=getattr(w.reftype, "value", str(w.reftype)))
+                    for w in live]
+
+    return PeakTop()
+
+
+def count_step(fn, external: List[torch.Tensor], mesh, top: int = 0) -> StepCount:
     """Run `fn()` once under the counting modes: MemTracker (with `external`,
     the tensors the rank holds before the step), FlopCounterMode, the
-    StepCounter and the kernels' fake-branch recorder."""
+    StepCounter and the kernels' fake-branch recorder.  With `top`, the
+    record also lists the `top` largest storages live at the peak
+    (`_peak_tracker`; each new peak scans the live storages, so it is off
+    by default)."""
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
 
-    mt = MemTracker()
+    mt = _peak_tracker(top) if top else MemTracker()
     mt.track_external(*external)
     counter = StepCounter(mesh)
     flop = FlopCounterMode(display=False)
@@ -292,7 +342,7 @@ def count_step(fn, external: List[torch.Tensor], mesh) -> StepCount:
                      collectives=counter.collectives,
                      kernels={"calls": dict(work.calls), "flops": dict(work.flops),
                               "bytes": dict(work.bytes)},
-                     peak_by_kind=by_kind)
+                     peak_by_kind=by_kind, peak_top=getattr(mt, "peak_top", []))
 
 
 # ---------------------------------------------------------------------------
@@ -425,12 +475,12 @@ def build_cell(cfg, shape_name: str, mesh, *, batch: Optional[int] = None,
                 model_flops=model_flops, params=n_total, active_params=n_active, batch=b, seq=s)
 
 
-def build_and_count(cfg, shape_name: str, mesh, **kw) -> Dict[str, Any]:
+def build_and_count(cfg, shape_name: str, mesh, top: int = 0, **kw) -> Dict[str, Any]:
     """`build_cell`, then its step run once under the counting modes;
     returns the counts, the per-rank state bytes and the model FLOPs."""
     cell = build_cell(cfg, shape_name, mesh, **kw)
     with cell.mode:
-        count = count_step(cell.run, cell.held, mesh)
+        count = count_step(cell.run, cell.held, mesh, top=top)
     return {"count": count, "state_bytes": cell.state_bytes, "model_flops": cell.model_flops,
             "params": cell.params, "active_params": cell.active_params, "batch": cell.batch,
             "seq": cell.seq}
@@ -461,10 +511,12 @@ def _no_cache():
 
 def run_cell(arch_id: str, shape_name: str, mesh_name: str, *, verbose: bool = True,
              opt_override: Optional[Dict[str, Any]] = None, layers: Optional[int] = None,
-             batch: Optional[int] = None, seq: Optional[int] = None) -> Dict[str, Any]:
+             batch: Optional[int] = None, seq: Optional[int] = None,
+             top: int = 0) -> Dict[str, Any]:
     """One cell's JSON record: "skipped" where `cell_supported` rules it out,
-    else "ok" with the counts and the roofline terms.  Starts and destroys its
-    own fake process group."""
+    else "ok" with the counts and the roofline terms (with `top`, the largest
+    storages live at the peak, `peak_top_per_device`).  Starts and destroys
+    its own fake process group."""
     cfg = apply_cut(registry.get(arch_id), layers=layers, opt_override=opt_override)
     ok, why = api.cell_supported(cfg, shape_name)
     if not ok:
@@ -477,7 +529,7 @@ def run_cell(arch_id: str, shape_name: str, mesh_name: str, *, verbose: bool = T
     for rank in priced_ranks(mesh_name):
         with fake_world(chips, rank):
             mesh = make_mesh(mesh_name, CARD)
-            res = build_and_count(cfg, shape_name, mesh, batch=batch, seq=seq)
+            res = build_and_count(cfg, shape_name, mesh, top=top, batch=batch, seq=seq)
         counts[rank] = res["count"]
     t_build = time.monotonic() - t0
 
@@ -505,6 +557,7 @@ def run_cell(arch_id: str, shape_name: str, mesh_name: str, *, verbose: bool = T
         "state_bytes_per_device": res["state_bytes"],
         "peak_bytes_per_device": count.peak_bytes,
         "peak_by_kind_per_device": count.peak_by_kind,
+        "peak_top_per_device": count.peak_top,
         "fits": count.peak_bytes <= HBM_PER_CHIP,
         "over_bytes": max(0.0, count.peak_bytes - HBM_PER_CHIP),
         "params": res["params"], "active_params": res["active_params"],
@@ -541,6 +594,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="RP-compressed KV cache ratio (hillclimb variant)")
     ap.add_argument("--tag", type=str, default="",
                     help="suffix for output files (hillclimb variants)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers (the record's n_layers)")
+    ap.add_argument("--top", type=int, default=0,
+                    help="record the N largest storages live at the peak")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)
@@ -561,7 +618,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 print(f"[dryrun] skip existing {path}")
                 continue
             try:
-                res = run_cell(arch_id, shape_name, mesh_name, opt_override=override)
+                res = run_cell(arch_id, shape_name, mesh_name, opt_override=override,
+                               layers=args.layers, top=args.top)
             except Exception as e:      # noqa: BLE001 — recorded in the cell's JSON
                 traceback.print_exc()
                 res = {"arch": arch_id, "shape": shape_name, "mesh": mesh_name,

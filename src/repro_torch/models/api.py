@@ -77,6 +77,17 @@ def splits_stream(cfg: ArchConfig, batch: Dict[str, Any], mesh) -> bool:
         transformer.stream_len(cfg, batch), mesh)
 
 
+def splits_features(cfg: ArchConfig, mesh) -> bool:
+    """Whether a training step's carry splits over "model" by feature on
+    `mesh`: Zamba-2's, where the ranks divide d_model (`ssm.splits`; the
+    reference pins its carry's d over `model`, since its scan needs the
+    whole sequence).  Each rank of `model` then holds its share of the
+    loss, as with `splits_stream`."""
+    from repro_torch.dist import sharding
+
+    return cfg.family == "zamba" and ssm.splits(cfg, sharding.model_rank(mesh)[1])
+
+
 def exact_param_counts(cfg: ArchConfig) -> Tuple[int, int]:
     """(total, active) parameter counts from the port's own init, run on
     fake (meta-backed) tensors, so no memory is allocated at any size.
@@ -105,25 +116,15 @@ def exact_param_counts(cfg: ArchConfig) -> Tuple[int, int]:
     return int(total), int(active)
 
 
-def _serving_params(params, cfg: ArchConfig):
-    """A serving step's params: a meshed step hands the leaves outside the
-    layers out on their shards (`dist.sharding.compute_params(lazy=True)`);
-    the transformer reads each where it computes, the recurrent families
-    read them whole."""
-    from repro_torch.dist import sharding
-
-    return params if cfg.family == "transformer" else sharding.whole_outside_layers(params)
-
-
 def prefill(params, batch, cfg: ArchConfig, cache_size: int, *,
             execution: Execution = Execution(), kv_rp_r: Optional[torch.Tensor] = None):
-    return _mod(cfg).prefill(_serving_params(params, cfg), batch, cfg, cache_size,
+    return _mod(cfg).prefill(params, batch, cfg, cache_size,
                              execution=execution, **_kv_rp_kw(cfg, kv_rp_r))
 
 
 def decode_step(params, token, cache, cfg: ArchConfig, *,
                 execution: Execution = Execution(), kv_rp_r: Optional[torch.Tensor] = None):
-    return _mod(cfg).decode_step(_serving_params(params, cfg), token, cache, cfg,
+    return _mod(cfg).decode_step(params, token, cache, cfg,
                                  execution=execution, **_kv_rp_kw(cfg, kv_rp_r))
 
 

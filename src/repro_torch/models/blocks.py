@@ -62,6 +62,20 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return _rms_norm(x, w, eps)
 
 
+def rms_norm_split(x: torch.Tensor, w: torch.Tensor, eps: float, mesh) -> torch.Tensor:
+    """`rms_norm` of a tensor whose last dim is split over "model" in equal
+    blocks, x and w this rank's blocks: the mean of squares spans every
+    rank's block (the local sums of squares added over "model"), in f32,
+    rounded to x's dtype.  Each rank's output reads the summed squares, so
+    their gradients are summed back over "model" too (`SumGrad` under
+    `ReduceModel`)."""
+    x32 = x.to(torch.float32)
+    sq = torch.sum(torch.square(x32), dim=-1, keepdim=True)
+    sq = shard_rules.ReduceModel.apply(shard_rules.SumGrad.apply(sq, mesh, "model"), mesh)
+    width = x.shape[-1] * shard_rules.axis_size(mesh, "model")
+    return (x32 * torch.rsqrt(sq / width + eps) * w.to(torch.float32)).to(x.dtype)
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.sigmoid's own ops, 1/(1 + e^−x), each rounded to x's dtype as
     # the reference rounds them in bf16 (torch.sigmoid rounds once, which

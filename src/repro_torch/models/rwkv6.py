@@ -9,9 +9,13 @@ token-shift inputs of each layer and the position, no KV cache.
 
 Parameters are a plain dict with the reference's keys and its stacked
 `[L, ...]` layout (`bridge.params_from_reference` maps the JAX pytree leaf
-by leaf); the layer stack is a Python loop in place of `lax.scan`, and the
-reference's mesh pins are dropped (the model code runs on local tensors; on
-a mesh each layer body gathers its own leaves, `blocks.gather_layer`).  The WKV
+by leaf); the layer stack is a Python loop in place of `lax.scan`.  On a
+mesh each layer computes on the rank's shards: gathered whole with one
+`model` rank or where the ranks do not divide the heads
+(`blocks.gather_layer`), else split over `model` as the reference pins it
+(`_tp`): the stream whole, the time mix by WKV head (`ln_x` across the
+ranks, `wo` row-parallel), the channel mix by d_ff (`_channel_mix`), the
+ranks repeating one loss; decode on the stored columns.  The WKV
 recurrence is a step loop in plain PyTorch, as the reference's is a
 `lax.scan` outside any Pallas kernel: r, k, v, w and g are computed for the
 whole sequence first, and only the state update and the read-out run per
@@ -32,13 +36,14 @@ normed input in the compute dtype.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.execution import Execution
-from repro_torch.models import blocks
+from repro_torch.dist import sharding as shard_rules
+from repro_torch.models import blocks, transformer
 from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
@@ -132,37 +137,117 @@ def _wkv_scan(r, k, v, w, u, state0):
     return torch.cat(outs, dim=1), state
 
 
-def _time_mix(lp, x, prev_x, state, cfg: ArchConfig, nh: int):
-    """x: the layer's normed input (B, S, d) -> (out, x[:, -1], new wkv state)."""
+class _TP(NamedTuple):
+    """How a meshed step's layers split over "model" (`_tp`)."""
+    mesh: Any
+    r: int          # this rank's index along "model"
+    n: int          # "model" ranks
+    cm: bool        # the channel mix's d_ff splits
+
+
+def _tp(params: Params, cfg: ArchConfig) -> Optional[_TP]:
+    """The split of a meshed step's layers over "model", read from their
+    shards: None without a mesh, with one `model` rank or where the ranks
+    do not divide the WKV heads (every path is then the single-rank code)."""
+    split = shard_rules.model_split_of(params["layers"]["wr"])
+    if split is None or (cfg.d_model // HEAD_DIM) % split[2]:
+        return None
+    mesh, r, n, _ = split
+    return _TP(mesh, r, n, cfg.d_ff % n == 0)
+
+
+class _Reads(NamedTuple):
+    """How a block reads its leaves `lp`: "plain" tensors, or a rank's
+    `LayerShard`s — "whole" (every rank computes the block whole),
+    "split" (this rank's WKV heads or d_ff columns; the block's input is
+    then read through `SumGrad`, so each rank's gradient of a leaf it
+    reads whole is a share, summed over "model") or "stored" (decode:
+    every product on the rank's stored columns, `transformer._all_cols`)."""
+    lp: Params
+    tp: Optional[_TP] = None
+    mode: str = "plain"
+
+    def vec(self, name: str) -> torch.Tensor:
+        """A leaf read whole."""
+        t = self.lp[name]
+        return t.whole(model_sum=True) if self.mode == "split" else shard_rules.read_whole(t)
+
+    def own(self, name: str) -> torch.Tensor:
+        """A leaf by its last dim's channels: where split, this rank's
+        stored block (the ranks divide d and d_ff, so "model" splits every
+        leaf's last dim), else whole."""
+        return self.lp[name].block() if self.mode == "split" else self.vec(name)
+
+    def mm(self, h: torch.Tensor, name: str, part: str = "cols") -> torch.Tensor:
+        """h @ the leaf: where split, this rank's block of its columns
+        (`part` "cols") or of its rows ("rows": a partial sum), or every
+        column ("all"); decode's stored columns, gathered."""
+        if self.mode == "stored":
+            return transformer._all_cols(self.lp[name], h, self.tp)
+        if self.mode == "split" and part == "rows":
+            return h @ self.lp[name].rows()
+        return h @ (self.own(name) if part == "cols" else self.vec(name))
+
+
+def _time_mix(lp, x, prev_x, state, cfg: ArchConfig, nh: int, rd: Optional[_Reads] = None):
+    """x: the layer's normed input (B, S, d) -> (out, x[:, -1], new wkv
+    state).  `rd` "split": this rank's WKV heads nh / n — r, k, v, g and the
+    decay from its head columns (the decay's `w_lora_a` whole), `u_bonus`
+    by its rows, `ln_x` across the ranks (`blocks.rms_norm_split`), `wo`
+    row-parallel, met in an all-reduce (`ReduceModel`); the state is its
+    heads'."""
+    rd = rd or _Reads(lp)
     b, s, d = x.shape
+    split = rd.mode == "split"
+    if split:
+        x = shard_rules.SumGrad.apply(x, rd.tp.mesh, "model")
+        nh //= rd.tp.n
     xp = _token_shift(x, prev_x)
 
     def mix(name):
-        m = lp[name].to(x.dtype)
+        m = rd.vec(name).to(x.dtype)
         return x * m + xp * (1.0 - m)
 
-    r = (mix("mix_r") @ lp["wr"]).reshape(b, s, nh, HEAD_DIM)
-    k = (mix("mix_k") @ lp["wk"]).reshape(b, s, nh, HEAD_DIM)
-    v = (mix("mix_v") @ lp["wv"]).reshape(b, s, nh, HEAD_DIM)
-    g = blocks.act_fn("silu")(mix("mix_g") @ lp["wg"])
+    r = rd.mm(mix("mix_r"), "wr").reshape(b, s, nh, HEAD_DIM)
+    k = rd.mm(mix("mix_k"), "wk").reshape(b, s, nh, HEAD_DIM)
+    v = rd.mm(mix("mix_v"), "wv").reshape(b, s, nh, HEAD_DIM)
+    g = blocks.act_fn("silu")(rd.mm(mix("mix_g"), "wg"))
     # data-dependent decay, summed in w_base's dtype (the compute dtype)
-    w_log = lp["w_base"] + torch.tanh(mix("mix_w") @ lp["w_lora_a"]) @ lp["w_lora_b"]
+    w_log = rd.own("w_base") + rd.mm(torch.tanh(rd.mm(mix("mix_w"), "w_lora_a", "all")),
+                                     "w_lora_b")
     w = torch.exp(-torch.exp(w_log.to(torch.float32))).to(x.dtype)
     w = w.reshape(b, s, nh, HEAD_DIM)
-    out, state = _wkv_scan(r, k, v, w.to(torch.float32), lp["u_bonus"].to(torch.float32),
-                           state)
-    out = out.reshape(b, s, d).to(x.dtype)
-    out = blocks.rms_norm(out, lp["ln_x"], cfg.norm_eps) * g
-    return out @ lp["wo"], x[:, -1], state
+    u = rd.lp["u_bonus"].rows() if split else rd.vec("u_bonus")
+    out, state = _wkv_scan(r, k, v, w.to(torch.float32), u.to(torch.float32), state)
+    out = out.reshape(b, s, nh * HEAD_DIM).to(x.dtype)
+    if split:
+        out = blocks.rms_norm_split(out, rd.own("ln_x"), cfg.norm_eps, rd.tp.mesh) * g
+        return (shard_rules.ReduceModel.apply(rd.mm(out, "wo", "rows"), rd.tp.mesh), x[:, -1],
+                state)
+    out = blocks.rms_norm(out, rd.vec("ln_x"), cfg.norm_eps) * g
+    return rd.mm(out, "wo", "all"), x[:, -1], state
 
 
-def _channel_mix(lp, x, prev_x):
+def _channel_mix(lp, x, prev_x, rd: Optional[_Reads] = None):
+    """`rd` "split": `cm_k` column-parallel over d_ff and `cm_v`
+    row-parallel, whose partial sums reduce-scatter along d to meet this
+    rank's columns of `cm_r`; their product gathered along d (the ranks
+    repeat the loss: `GatherRepl`), so no rank reads `cm_r` whole."""
+    rd = rd or _Reads(lp)
+    split = rd.mode == "split"
+    if split:
+        x = shard_rules.SumGrad.apply(x, rd.tp.mesh, "model")
     xp = _token_shift(x, prev_x)
-    cr = lp["cmix_r"].to(x.dtype)
-    ck = lp["cmix_k"].to(x.dtype)
-    r = blocks.sigmoid((x * cr + xp * (1 - cr)) @ lp["cm_r"])
-    k = (x * ck + xp * (1 - ck)) @ lp["cm_k"]
-    return r * (torch.square(F.relu(k)) @ lp["cm_v"]), x[:, -1]
+    cr = rd.vec("cmix_r").to(x.dtype)
+    ck = rd.vec("cmix_k").to(x.dtype)
+    r = blocks.sigmoid(rd.mm(x * cr + xp * (1 - cr), "cm_r"))
+    k = rd.mm(x * ck + xp * (1 - ck), "cm_k")
+    kv = rd.mm(torch.square(F.relu(k)), "cm_v", "rows")
+    if split:
+        mesh = rd.tp.mesh
+        kv = shard_rules.ScatterSeq.apply(kv, mesh, 2)
+        return shard_rules.GatherRepl.apply(r * kv, mesh, "model", 2), x[:, -1]
+    return r * kv, x[:, -1]
 
 
 def init_state(cfg: ArchConfig, batch: int, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -181,19 +266,30 @@ def init_state(cfg: ArchConfig, batch: int, device: torch.device) -> Dict[str, t
     }
 
 
-def _block(lp, x, cfg: ArchConfig, nh: int, wkv0, sh_t0, sh_c0):
-    """One layer from its states -> (x, wkv, shift_t, shift_c)."""
-    h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    dt, sh_t, wkv = _time_mix(lp, h, sh_t0.to(x.dtype), wkv0, cfg, nh)
+def _block(lp, x, cfg: ArchConfig, nh: int, wkv0, sh_t0, sh_c0, tp: Optional[_TP] = None,
+           stored: bool = False):
+    """One layer from its states -> (x, wkv, shift_t, shift_c).  With `tp`
+    (`lp` the layer's `LayerShard`s) the stream stays whole: this rank's
+    WKV heads and d_ff columns (the channel mix whole where the ranks do
+    not divide d_ff), the state its heads'; with `stored` (decode) every
+    head on the stored columns against the whole state."""
+    if tp is None:
+        tm = cm = _Reads(lp)
+    elif stored:
+        tm = cm = _Reads(lp, tp, "stored")
+    else:
+        tm, cm = _Reads(lp, tp, "split"), _Reads(lp, tp, "split" if tp.cm else "whole")
+    h = blocks.rms_norm(x, shard_rules.read_whole(lp["ln1"]), cfg.norm_eps)
+    dt, sh_t, wkv = _time_mix(lp, h, sh_t0.to(x.dtype), wkv0, cfg, nh, tm)
     x = x + dt
-    h = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    dc, sh_c = _channel_mix(lp, h, sh_c0.to(x.dtype))
+    h = blocks.rms_norm(x, shard_rules.read_whole(lp["ln2"]), cfg.norm_eps)
+    dc, sh_c = _channel_mix(lp, h, sh_c0.to(x.dtype), cm)
     return x + dc, wkv, sh_t, sh_c
 
 
 def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
                   remat: bool = True, execution: Execution = Execution(),
-                  state: Dict[str, torch.Tensor] = None):
+                  state: Dict[str, torch.Tensor] = None, want_state: bool = True):
     """Backbone pass -> (final normed hidden (B, S, d), aux {}, new state).
 
     A given `state`'s tensors are overwritten with the new state (the
@@ -201,24 +297,35 @@ def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfi
     new state is built from their outputs, nothing written in place, so
     autograd can run through it (the training forward: with `remat` each
     layer under checkpoint, its leaves cast inside the checkpointed
-    body)."""
+    body); `want_state` False (the loss) builds none.
+
+    Where the layers split over "model" (`_tp`) the stream is whole on
+    every rank, as the reference pins it, and the ranks repeat one loss:
+    from zero states (train, prefill) each rank computes its WKV heads and
+    d_ff columns (`_block`), the new state's heads gathered over "model";
+    from a given state (decode) every head on the stored columns against
+    the replicated state, so no state moves between ranks."""
     dev = execution.torch_device()
     cdt = blocks.torch_dtype(cfg.compute_dtype)
-    x = blocks.embed(params, batch["tokens"], cdt)
+    x = transformer._embed_rows(params, batch["tokens"], cdt)
     b = x.shape[0]
     nh = cfg.d_model // HEAD_DIM
+    tp = _tp(params, cfg)
     fresh = state is None
     zeros = init_state(cfg, b, dev) if fresh else None
     pos = 0 if fresh else int(state["pos"])
+    # from zero states a split layer starts from its heads' block of them
+    heads = None if tp is None or not fresh else slice(tp.r * nh // tp.n, (tp.r + 1) * nh // tp.n)
 
     def body(x, lp, wkv0, sh_t0, sh_c0):
-        return _block(blocks.cast_stacked(blocks.gather_layer(lp), cdt), x, cfg, nh, wkv0,
-                      sh_t0, sh_c0)
+        lp = blocks.cast_stacked(lp if tp is not None else blocks.gather_layer(lp), cdt)
+        return _block(lp, x, cfg, nh, wkv0, sh_t0, sh_c0, tp, stored=not fresh)
 
     outs = []
     for i, lp in enumerate(blocks.unstacked(params)):
         src = zeros if fresh else state
-        args = (x, lp, src["wkv"][i], src["shift_t"][i], src["shift_c"][i])
+        wkv0 = src["wkv"][i] if heads is None else src["wkv"][i][:, heads]
+        args = (x, lp, wkv0, src["shift_t"][i], src["shift_c"][i])
         x, wkv, sh_t, sh_c = blocks.remat(body, *args) if remat else body(*args)
         if fresh:
             outs.append((wkv, sh_t, sh_c))
@@ -227,9 +334,13 @@ def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfi
             state["shift_t"][i] = sh_t
             state["shift_c"][i] = sh_c
     x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if fresh and not want_state:
+        return x, {}, None
     if fresh:
         state = {name: torch.stack(ts) for name, ts in
                  zip(("wkv", "shift_t", "shift_c"), zip(*outs))}
+        if tp is not None:
+            state["wkv"] = shard_rules.all_gather_cat(state["wkv"], tp.mesh, "model", 2)
     new_state = {"wkv": state["wkv"], "shift_t": state["shift_t"], "shift_c": state["shift_c"],
                  "pos": torch.tensor(pos + x.shape[1], dtype=torch.int32)}
     return x, {}, new_state
@@ -238,7 +349,8 @@ def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfi
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
             remat: bool = True, execution: Execution = Execution()):
     """(mean next-token NLL, {"ce": it}) from zero states."""
-    x, _, _ = hidden_states(params, batch, cfg, remat=remat, execution=execution)
+    x, _, _ = hidden_states(params, batch, cfg, remat=remat, execution=execution,
+                            want_state=False)
     targets = batch["tokens"][:, 1:]
     loss = blocks.chunked_softmax_xent(x[:, :-1], params["lm_head"], targets)
     return loss, {"ce": loss}
@@ -259,8 +371,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     position only (the reference slices it from the full logits);
     `cache_size` is unused: the state does not grow with the sequence."""
     x, _, state = hidden_states(params, batch, cfg, execution=execution)
-    cdt = x.dtype
-    return (x[:, -1] @ params["lm_head"].to(cdt)).to(torch.float32), state
+    return transformer._logits(params, x[:, -1], cfg, x.dtype), state
 
 
 def decode_step(params: Params, token: torch.Tensor, state: Dict[str, torch.Tensor],
@@ -271,5 +382,4 @@ def decode_step(params: Params, token: torch.Tensor, state: Dict[str, torch.Tens
     the same effect); the returned dict holds them and the advanced `pos`."""
     x, _, state = hidden_states(params, {"tokens": token[:, None]}, cfg,
                                 execution=execution, state=state)
-    cdt = x.dtype
-    return (x[:, 0] @ params["lm_head"].to(cdt)).to(torch.float32), state
+    return transformer._logits(params, x[:, 0], cfg, x.dtype), state

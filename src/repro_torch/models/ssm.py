@@ -12,13 +12,30 @@ slot.
 Parameters are a plain dict with the reference's keys and its stacked
 `[L, ...]` layout; the layer stack is a Python loop in place of
 `lax.scan` (each layer's leaves cast to the compute dtype as it runs, so
-no second whole-model copy exists), and the reference's mesh pins are
-dropped: on a mesh each layer gathers its own leaves from the rank's
-shards (`blocks.gather_layer`) and the shared block's K/V cache keeps its
-slots split over "model" as the transformer's does.  The shared block's prefill attention goes through the flash
-kernel when the `Execution` says `backend="kernel"`; its decode attention
-and both SSD forms are plain PyTorch, as the reference's are jnp outside
-any Pallas kernel.
+no second whole-model copy exists).  The shared block's prefill attention
+goes through the flash kernel when the `Execution` says `backend="kernel"`;
+its decode attention and both SSD forms are plain PyTorch, as the
+reference's are jnp outside any Pallas kernel.
+
+On a mesh the layers compute on the rank's shards (`dist.sharding.
+LayerShard`).  With one `model` rank, or where the ranks do not divide
+d_model, each layer gathers its leaves whole (`blocks.gather_layer`).
+Otherwise the layers split over `model` as the reference pins them
+(`_tp`): a Mamba-2 layer by SSD head — z, xs and dt from the rank's
+`in_proj` columns, B and C whole on every rank, the conv on its channels,
+`norm_y` across the ranks, `out_proj` row-parallel — and the shared block
+by head (B4 on the rank's heads) and by d_ff, its input concat(x, x0)
+gathered whole.  In training the carry x and the embedding x0 are split by
+feature between layers, (B_local, S, d / n), which is what `remat` keeps
+(the reference's `constrain(x, "batch", None, "model")`: its scan needs the
+whole sequence); each layer gathers x along d and its row-parallel outputs
+reduce-scatter back, and each rank of `model` holds its share of the loss.
+Prefill keeps the stream whole (the outputs all-reduced) and gathers each
+layer's SSD state and conv inputs into the replicated cache; decode runs
+every product on the stored columns and every head against that cache.
+Heads the ranks do not divide run whole on every rank (the degrade rule).
+The shared block's K/V cache keeps its slots split over "model" as the
+transformer's does.
 
 `mamba_block` keeps both of the reference's forms and their rounding
 points: the block form (Mamba-2's chunked algorithm) when the sequence is a
@@ -35,14 +52,14 @@ form.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.execution import Execution
 from repro_torch.dist import sharding as shard_rules
-from repro_torch.models import blocks
+from repro_torch.models import blocks, transformer
 from repro_torch.models.transformer import cache_slots, prompt_slots
 from repro_torch.models.config import ArchConfig
 
@@ -205,34 +222,125 @@ def _ssd_blocks_remat(xh, bmat, cmat, dt, a, state):
     return torch.cat(ys, dim=1), state
 
 
+class _Reads(NamedTuple):
+    """A Mamba-2 layer's leaves as one rank computes with them: tensors,
+    and the products and norms as functions of their input."""
+    ln: torch.Tensor
+    proj_in: Callable        # h -> [z | xbc | dt]
+    conv: Callable           # (xbc, conv state) -> (silu(conv(xbc) + b), new state)
+    a_log: torch.Tensor
+    d_skip: torch.Tensor
+    dt_bias: torch.Tensor
+    norm_y: Callable         # y -> rms_norm(y, norm_y)
+    proj_out: Callable       # y -> y @ out_proj
+
+
+def _whole_reads(lp: Params, cfg: ArchConfig) -> _Reads:
+    lp = blocks.gather_layer(lp)
+    return _Reads(lp["ln"], lambda h: h @ lp["in_proj"],
+                  lambda xbc, st: _causal_conv(xbc, lp["conv_w"], lp["conv_b"], st),
+                  lp["a_log"], lp["d_skip"], lp["dt_bias"],
+                  lambda y: blocks.rms_norm(y, lp["norm_y"], cfg.norm_eps),
+                  lambda y: y @ lp["out_proj"])
+
+
+def _ssd_cols(cfg: ArchConfig, n: int):
+    """Per rank of "model", as column ranges: (its `in_proj` columns — z,
+    xs and dt of its SSD heads, and B / C, which every rank reads — and its
+    conv channels, xs of its heads and B / C); n divides the heads."""
+    spec = cfg.ssm
+    di, nh, ds, dh = (spec.d_inner(cfg.d_model), spec.n_heads(cfg.d_model), spec.d_state,
+                      spec.head_dim)
+    k = nh // n
+    inp = [((j * k * dh, (j + 1) * k * dh), (di + j * k * dh, di + (j + 1) * k * dh),
+            (2 * di, 2 * di + 2 * ds), (2 * di + 2 * ds + j * k, 2 * di + 2 * ds + (j + 1) * k))
+           for j in range(n)]
+    conv = [((j * k * dh, (j + 1) * k * dh), (di, di + 2 * ds)) for j in range(n)]
+    return inp, conv
+
+
+def _head_reads(lp: Params, cfg: ArchConfig, tp) -> _Reads:
+    """This rank's SSD heads (train, prefill): `in_proj` and the conv by
+    `_ssd_cols`, the per-head and per-channel vectors by their stored
+    block, `norm_y` across the ranks, `out_proj` row-parallel (its output
+    a partial sum)."""
+    inp, conv = _ssd_cols(cfg, tp.n)
+    w_in, w_conv, b_conv = lp["in_proj"].cols(inp), lp["conv_w"].cols(conv), lp["conv_b"].cols(conv)
+    norm_y, w_out = lp["norm_y"].block(), lp["out_proj"].rows()
+    return _Reads(lp["ln"].whole(), lambda h: h @ w_in,
+                  lambda xbc, st: _causal_conv(xbc, w_conv, b_conv, st),
+                  lp["a_log"].block(), lp["d_skip"].block(), lp["dt_bias"].block(),
+                  lambda y: blocks.rms_norm_split(y, norm_y, cfg.norm_eps, tp.mesh),
+                  lambda y: y @ w_out)
+
+
+def _conv_stored(w, bias, xbc: torch.Tensor, state: torch.Tensor, tp):
+    """Decode's conv on every channel: this rank's stored channels, the
+    (B, 1, ·) outputs gathered over "model"; the new state (the last K − 1
+    inputs) from the whole input every rank holds."""
+    if not w.model_split:
+        return _causal_conv(xbc, w.whole(), bias.whole(), state)
+    wb = w.block()
+    c = wb.shape[-1]
+    own = slice(tp.r * c, (tp.r + 1) * c)
+    y, _ = _causal_conv(xbc[..., own], wb, bias.block(), state[..., own])
+    xin = torch.cat([state.to(xbc.dtype), xbc], dim=1)
+    return shard_rules.all_gather_cat(y, tp.mesh, "model", 2), xin[:, -(wb.shape[0] - 1):]
+
+
+def _stored_reads(lp: Params, cfg: ArchConfig, tp) -> _Reads:
+    """Decode, every head on each rank against the replicated states: each
+    product on the rank's stored columns, the (B, 1, ·) outputs gathered
+    over "model" (`transformer._all_cols`); the conv likewise; the vectors
+    whole."""
+    return _Reads(lp["ln"].whole(), lambda h: transformer._all_cols(lp["in_proj"], h, tp),
+                  lambda xbc, st: _conv_stored(lp["conv_w"], lp["conv_b"], xbc, st, tp),
+                  lp["a_log"].whole(), lp["d_skip"].whole(), lp["dt_bias"].whole(),
+                  lambda y: blocks.rms_norm(y, lp["norm_y"].whole(), cfg.norm_eps),
+                  lambda y: transformer._all_cols(lp["out_proj"], y, tp))
+
+
 def mamba_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, ssm_state: torch.Tensor,
-                conv_state: Optional[torch.Tensor]):
+                conv_state: Optional[torch.Tensor], tp=None, every_head: bool = False):
     """x (B, S, d) -> (y (B, S, d), new ssm_state (B, nh, dh, ds) f32, new
-    conv_state (B, K − 1, C)); the given states are not written."""
+    conv_state (B, K − 1, C)); the given states are not written.
+
+    Without `tp`, or with one that does not split, every leaf whole
+    (`_whole_reads`, a layer of `LayerShard`s gathered).  With a split
+    (`_tp`): this rank's SSD heads nh / n on the whole x (`_head_reads`),
+    y then this rank's partial sum of the row-parallel `out_proj` and the
+    states those of its heads and channels; with `every_head` (decode)
+    every head on the stored columns (`_stored_reads`)."""
     spec = cfg.ssm
     b, s, d = x.shape
-    di, nh, ds, dh = spec.d_inner(d), spec.n_heads(d), spec.d_state, spec.head_dim
+    if tp is None or tp.n == 1:
+        rd, n = _whole_reads(lp, cfg), 1
+    elif every_head:
+        rd, n = _stored_reads(lp, cfg, tp), 1
+    else:
+        rd, n = _head_reads(lp, cfg, tp), tp.n
+    di, nh, ds, dh = spec.d_inner(d) // n, spec.n_heads(d) // n, spec.d_state, spec.head_dim
 
-    h = blocks.rms_norm(x, lp["ln"], cfg.norm_eps)
-    z, xbc, dt = torch.split(h @ lp["in_proj"], [di, di + 2 * ds, nh], dim=-1)
-    xbc, conv_state = _causal_conv(xbc, lp["conv_w"], lp["conv_b"], conv_state)
+    h = blocks.rms_norm(x, rd.ln, cfg.norm_eps)
+    z, xbc, dt = torch.split(rd.proj_in(h), [di, di + 2 * ds, nh], dim=-1)
+    xbc, conv_state = rd.conv(xbc, conv_state)
     xs, bmat, cmat = torch.split(xbc, [di, ds, ds], dim=-1)
-    dt = F.softplus(dt.to(torch.float32) + lp["dt_bias"].to(torch.float32))   # (B, S, nh)
-    a = -torch.exp(lp["a_log"].to(torch.float32))                            # (nh,)
+    dt = F.softplus(dt.to(torch.float32) + rd.dt_bias.to(torch.float32))     # (B, S, nh)
+    a = -torch.exp(rd.a_log.to(torch.float32))                              # (nh,)
     xh = xs.reshape(b, s, nh, dh)
     if s % SSD_CHUNK == 0 and s > 1:
         by_chunk = torch.is_grad_enabled() and xh.requires_grad
         ys, ssm_state = (_ssd_blocks_remat if by_chunk else _ssd_blocks)(xh, bmat, cmat, dt, a,
                                                                          ssm_state)
         # the block form adds the skip term in the compute dtype
-        y = ys + lp["d_skip"].to(torch.float32)[None, None, :, None].to(ys.dtype) * xh
+        y = ys + rd.d_skip.to(torch.float32)[None, None, :, None].to(ys.dtype) * xh
     else:
         ys, ssm_state = _ssd_steps(xh, bmat, cmat, torch.exp(dt * a), dt, ssm_state)
         # the step form adds it in f32 and rounds once
-        y = ys + lp["d_skip"].to(torch.float32)[None, None, :, None] * xh
+        y = ys + rd.d_skip.to(torch.float32)[None, None, :, None] * xh
     y = y.reshape(b, s, di).to(x.dtype)
-    y = blocks.rms_norm(y, lp["norm_y"], cfg.norm_eps) * blocks.act_fn("silu")(z)
-    return y @ lp["out_proj"], ssm_state, conv_state
+    y = rd.norm_y(y) * blocks.act_fn("silu")(z)
+    return rd.proj_out(y), ssm_state, conv_state
 
 
 # ---------------------------------------------------------------------------
@@ -274,74 +382,243 @@ def n_shared_slots(cfg: ArchConfig) -> int:
     return -(-cfg.n_layers // cfg.hybrid.attn_every)
 
 
-def _shared_qkv(sp: Params, x, x0, cfg: ArchConfig, positions):
-    """The shared block's roped q, k and v from concat(x, x_embed)."""
-    b, s, _ = x.shape
-    h = blocks.rms_norm(torch.cat([x, x0], dim=-1), sp["ln1"], cfg.norm_eps)
-    q = (h @ sp["wq"]).reshape(b, s, cfg.n_heads, cfg.dh)
-    k = (h @ sp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.dh)
-    vv = (h @ sp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.dh)
+# ---------------------------------------------------------------------------
+# the split over "model"
+# ---------------------------------------------------------------------------
+
+class _TP(NamedTuple):
+    """How a Zamba-2 step splits over "model" (`_tp`); `_WHOLE` where it
+    does not."""
+    mesh: Any
+    r: int          # this rank's index along "model"
+    n: int          # "model" ranks
+    feat: bool      # training: the carry split by feature, each rank its share of the loss
+    ssd: bool       # the SSD heads split: rank r computes heads r·nh/n ..
+    heads: bool     # the shared block's query heads split
+    ffn: bool       # the shared MLP's d_ff splits
+
+
+_WHOLE = _TP(None, 0, 1, False, False, False, False)
+
+
+def splits(cfg: ArchConfig, n: int) -> bool:
+    """Whether Zamba-2's layers split over n ranks of "model": more than
+    one, dividing d_model (the reference pins the training carry's d over
+    `model`; where n does not divide it, its `constrain` pins nothing)."""
+    return n > 1 and cfg.d_model % n == 0
+
+
+def _tp(params: Params, cfg: ArchConfig) -> _TP:
+    """The split of a step's layers over "model", read from their shards:
+    `_WHOLE` without a mesh, with one `model` rank, or where the ranks do
+    not divide d_model (every step then computes as on one rank)."""
+    split = shard_rules.model_split_of(params["layers"]["in_proj"])
+    if split is None or not splits(cfg, split[2]):
+        return _WHOLE
+    mesh, r, n, seq = split
+    return _TP(mesh, r, n, seq, cfg.ssm.n_heads(cfg.d_model) % n == 0,
+               transformer.splits_heads(cfg, n), cfg.d_ff % n == 0)
+
+
+def _stream(x: torch.Tensor, tp: _TP) -> torch.Tensor:
+    """The whole stream: the carry gathered along d where it splits by
+    feature (`GatherRows`: each rank's gradient of it is a part, summed
+    and scattered back), else x itself."""
+    return shard_rules.GatherRows.apply(x, tp.mesh, "model", 2) if tp.feat else x
+
+
+def _own(y: torch.Tensor, tp: _TP) -> torch.Tensor:
+    """A whole (B, S, d) output in the carry's layout: this rank's feature
+    block where the carry splits (every rank computed y whole, so its
+    gradient is the block's, zeros elsewhere), else y."""
+    if not tp.feat:
+        return y
+    dn = y.shape[-1] // tp.n
+    return y[..., tp.r * dn:(tp.r + 1) * dn]
+
+
+def _leave(o: torch.Tensor, tp: _TP) -> torch.Tensor:
+    """A row-parallel product's partial sums in the carry's layout:
+    reduce-scattered along d (`ScatterSeq`), or all-reduced on a whole
+    stream (`ReduceModel`)."""
+    if tp.feat:
+        return shard_rules.ScatterSeq.apply(o, tp.mesh, 2)
+    return shard_rules.ReduceModel.apply(o, tp.mesh)
+
+
+# ---------------------------------------------------------------------------
+# the shared attention + MLP block
+# ---------------------------------------------------------------------------
+
+def _times(w: torch.Tensor) -> Callable:
+    return lambda h: h @ w
+
+
+def _shared_params(sp: Params, cfg: ArchConfig, cdt: torch.dtype, tp: _TP) -> Params:
+    """The shared block's leaves as train and prefill compute with them,
+    cast to the compute dtype once a step (the reference casts them once
+    outside its layer scan): the norms whole, each matrix a function
+    h -> h @ it.  Where the heads split, this rank's query heads' and K/V
+    heads' columns of `wq` / `wk` / `wv` and `wo`'s rows; where d_ff
+    splits, its d_ff columns of `w_in` / `w_gate` and `w_out`'s rows; the
+    rest whole."""
+    sp = blocks.cast(sp, cdt)
+    part = {}
+    if tp.heads:
+        dh, ranges = cfg.dh, transformer._head_ranges(cfg, tp.n)
+        kv = [(a * dh, c * dh) for _, (a, c) in ranges]
+        part.update(wq=sp["wq"].cols([(a * dh, c * dh) for (a, c), _ in ranges]),
+                    wk=sp["wk"].cols(kv), wv=sp["wv"].cols(kv), wo=sp["wo"].rows())
+    if tp.ffn:
+        f = cfg.d_ff // tp.n
+        part.update({k: sp[k].cols([(j * f, (j + 1) * f) for j in range(tp.n)])
+                     for k in ("w_in", "w_gate")}, w_out=sp["w_out"].rows())
+    out = {k: part[k] if k in part else shard_rules.read_whole(v) for k, v in sp.items()}
+    return {k: (w if k in ("ln1", "ln2") else _times(w)) for k, w in out.items()}
+
+
+def _decode_shared(sp: Params, tp: _TP) -> Params:
+    """Decode's shared block, read once a step: the norms whole, each
+    matrix a function h -> h @ it, on the rank's stored columns (gathered
+    over the DP axes once) with the (B, 1, ·) product gathered over
+    "model" where "model" splits it (`transformer._all_cols`' arithmetic),
+    else whole."""
+    def mat(w):
+        if tp.mesh is None or not w.model_split:
+            return _times(shard_rules.read_whole(w))
+        blk = w.block()
+        return lambda h: shard_rules.all_gather_cat(h @ blk, tp.mesh, "model", h.ndim - 1)
+
+    return {k: (shard_rules.read_whole(w) if k in ("ln1", "ln2") else mat(w))
+            for k, w in sp.items()}
+
+
+def _qkv(sp: Params, h: torch.Tensor, cfg: ArchConfig, positions, heads=None):
+    """Roped q, k and v of the normed concat h; `heads` = (query heads,
+    K/V heads) where `sp` holds only a rank's columns of them."""
+    b, s, _ = h.shape
+    hq, hkv = heads or (cfg.n_heads, cfg.n_kv_heads)
+    q = sp["wq"](h).reshape(b, s, hq, cfg.dh)
+    k = sp["wk"](h).reshape(b, s, hkv, cfg.dh)
+    vv = sp["wv"](h).reshape(b, s, hkv, cfg.dh)
     return (blocks.apply_rope(q, positions, cfg.rope_theta),
             blocks.apply_rope(k, positions, cfg.rope_theta), vv)
 
 
-def _shared_attn_train(sp: Params, x, x0, cfg: ArchConfig, positions, backend: str):
-    """The shared block on the full sequence -> (x, (k, v))."""
+def _mlp(sp: Params, h2: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The shared MLP of the normed concat h2."""
+    return sp["w_out"](blocks.act_fn(cfg.act)(sp["w_gate"](h2)) * sp["w_in"](h2))
+
+
+def _shared_block(sp: Params, x, x0, cfg: ArchConfig, positions, backend: str, tp: _TP):
+    """The shared block on the full sequence (`sp` from `_shared_params`)
+    -> (x, (k, v, first K/V head held)); x and x0 are the carry's layout.
+    Its input concat(x, x0) is gathered whole; where the heads split, B4
+    runs on this rank's query heads and the K/V heads they read and `wo`'s
+    partial sums leave through `_leave`, else every head on every rank;
+    the MLP likewise by d_ff."""
     b, s, _ = x.shape
-    q, k, vv = _shared_qkv(sp, x, x0, cfg, positions)
+    x0f = _stream(x0, tp)
+    h = blocks.rms_norm(torch.cat([_stream(x, tp), x0f], dim=-1), sp["ln1"], cfg.norm_eps)
+    if tp.heads:
+        qh, kh = transformer._head_ranges(cfg, tp.n)[tp.r]
+        q, k, vv = _qkv(sp, h, cfg, positions, (qh[1] - qh[0], kh[1] - kh[0]))
+    else:
+        (q, k, vv), kh = _qkv(sp, h, cfg, positions), (0, cfg.n_kv_heads)
     attn = blocks.flash_attention(q, k, vv, causal=True, window=cfg.sliding_window,
                                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, backend=backend)
-    x = x + attn.reshape(b, s, -1) @ sp["wo"]
-    return x + _shared_mlp(sp, x, x0, cfg), (k, vv)
+    o = sp["wo"](attn.reshape(b, s, -1))
+    x = x + (_leave(o, tp) if tp.heads else _own(o, tp))
+    h2 = blocks.rms_norm(torch.cat([_stream(x, tp), x0f], dim=-1), sp["ln2"], cfg.norm_eps)
+    y = _mlp(sp, h2, cfg)
+    return x + (_leave(y, tp) if tp.ffn else _own(y, tp)), (k, vv, kh[0])
 
 
-def _shared_mlp(sp: Params, x, x0, cfg: ArchConfig):
-    h2 = blocks.rms_norm(torch.cat([x, x0], dim=-1), sp["ln2"], cfg.norm_eps)
-    return (blocks.act_fn(cfg.act)(h2 @ sp["w_gate"]) * (h2 @ sp["w_in"])) @ sp["w_out"]
-
-
-def _zero_ssm_state(cfg: ArchConfig, b: int, device) -> torch.Tensor:
+def _zero_ssm_state(cfg: ArchConfig, b: int, device, n: int = 1) -> torch.Tensor:
+    """Zero SSD states of nh / n heads."""
     spec = cfg.ssm
-    return torch.zeros((b, spec.n_heads(cfg.d_model), spec.head_dim, spec.d_state),
+    return torch.zeros((b, spec.n_heads(cfg.d_model) // n, spec.head_dim, spec.d_state),
                        dtype=torch.float32, device=device)
+
+
+def _mamba_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, tp: _TP):
+    """A Mamba-2 layer on the whole stream x from zero states -> (its
+    output in the carry's layout, the SSD state and conv inputs of this
+    rank's heads and channels, or of every one): this rank's SSD heads
+    where they split, else the whole layer on every rank."""
+    if tp.ssd:
+        y, ssm_st, conv_st = mamba_block(lp, x, cfg, _zero_ssm_state(cfg, x.shape[0], x.device,
+                                                                     tp.n), None, tp)
+        return _leave(y, tp), ssm_st, conv_st
+    y, ssm_st, conv_st = mamba_block(lp, x, cfg, _zero_ssm_state(cfg, x.shape[0], x.device),
+                                     None)
+    return _own(y, tp), ssm_st, conv_st
 
 
 def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
                   remat: bool = True, execution: Execution = Execution()
                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Full-sequence backbone from zero states -> (final normed hidden, {}),
-    the reference's training forward: every f32 layer leaf cast to the
-    compute dtype (`blocks.cast_stacked`), the shared block cast once
+    """Full-sequence backbone from zero states -> (final normed hidden,
+    aux), the reference's training forward: every f32 layer leaf cast to
+    the compute dtype (`blocks.cast_stacked`), the shared block cast once
     outside the layers; with `remat` each layer, with the shared block where
-    it applies, under checkpoint."""
+    it applies, under checkpoint.  aux holds `split`: None, or where the
+    train step splits the layers over "model" (`_tp` with `feat`), the
+    split and the first position of this rank's block of the final hidden
+    states, which is then what they hold (B, its positions, d).
+
+    On that split the carry x and the embedding x0 are this rank's
+    feature block (B_local, S, d / n) between layers (what `remat` keeps);
+    each layer gathers x along d for its norm and its products, and the
+    row-parallel outputs reduce-scatter back into the block.  Each rank of
+    `model` holds its share of the loss: after the last layer the stream is
+    gathered and each rank runs the final norm and the head on its
+    positions (`loss_fn`)."""
     execution.torch_device()
     cdt = blocks.torch_dtype(cfg.compute_dtype)
+    tp = _tp(params, cfg)
+    tp = tp if tp.feat else _WHOLE
     x = blocks.embed(params, batch["tokens"], cdt)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
-    shared = blocks.cast(params["shared"], cdt)
+    shared = _shared_params(params["shared"], cfg, cdt, tp)
 
     def body(x, x0, lp, use_attn):
-        y, _, _ = mamba_block(blocks.cast_stacked(blocks.gather_layer(lp), cdt), x, cfg,
-                              _zero_ssm_state(cfg, b, x.device), None)
-        x = x + y
+        x = x + _mamba_layer(blocks.cast_stacked(lp, cdt), _stream(x, tp), cfg, tp)[0]
         if use_attn:
-            x, _ = _shared_attn_train(shared, x, x0, cfg, positions, execution.backend)
+            x, _ = _shared_block(shared, x, x0, cfg, positions, execution.backend, tp)
         return x
 
+    x = _own(x, tp)
     x0 = x
     for i, lp in enumerate(blocks.unstacked(params)):
         args = (x, x0, lp, i % cfg.hybrid.attn_every == 0)
         x = blocks.remat(body, *args) if remat else body(*args)
-    return blocks.rms_norm(x, params["final_norm"], cfg.norm_eps), {}
+    split = None
+    if tp.feat:
+        lo, hi = tp.r * s // tp.n, (tp.r + 1) * s // tp.n
+        x, split = _stream(x, tp)[:, lo:hi], (tp, lo)
+    return blocks.rms_norm(x, params["final_norm"], cfg.norm_eps), {"split": split}
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
             remat: bool = True, execution: Execution = Execution()):
-    """(mean next-token NLL, {"ce": it}) from zero states."""
-    x, _ = hidden_states(params, batch, cfg, remat=remat, execution=execution)
-    targets = batch["tokens"][:, 1:]
-    loss = blocks.chunked_softmax_xent(x[:, :-1], params["lm_head"], targets)
+    """(mean next-token NLL, {"ce": it}) from zero states.  Where the
+    layers split over "model" each rank runs the head and the NLL on its
+    block of positions, and the loss is this rank's share: its NLL sum over
+    the count of every rank's targets (the shares sum to the loss; `ce` is
+    the whole)."""
+    x, aux = hidden_states(params, batch, cfg, remat=remat, execution=execution)
+    tokens = batch["tokens"].to(x.device)
+    if aux["split"] is not None:
+        tp, lo = aux["split"]
+        targets = transformer._stream_targets(tokens, 0, tokens.shape[1], True)
+        nll, count = blocks.chunked_xent_sums(x, params["lm_head"],
+                                              targets[:, lo:lo + x.shape[1]])
+        count = shard_rules.all_reduce_sum_(count.detach().clone(), tp.mesh, "model")
+        loss = nll / torch.clamp(count, min=1.0)
+        return loss, {"ce": shard_rules.all_reduce_sum_(loss.detach().clone(), tp.mesh, "model")}
+    loss = blocks.chunked_softmax_xent(x[:, :-1], params["lm_head"], tokens[:, 1:])
     return loss, {"ce": loss}
 
 
@@ -383,37 +660,66 @@ def init_cache(cfg: ArchConfig, batch: int, cache_size: int,
     }
 
 
+def _whole_states(ssm_st: torch.Tensor, conv_st: torch.Tensor, cfg: ArchConfig, tp: _TP):
+    """A prefill layer's final SSD state and conv inputs of this rank's
+    heads and channels, gathered over "model" into the cache's layout
+    (every head, every channel, as `cache_specs` replicates them)."""
+    di = cfg.ssm.d_inner(cfg.d_model) // tp.n
+    xs = shard_rules.all_gather_cat(conv_st[..., :di], tp.mesh, "model", 2)
+    return (shard_rules.all_gather_cat(ssm_st, tp.mesh, "model", 1),
+            torch.cat([xs, conv_st[..., di:]], dim=-1))
+
+
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             cache_size: int, *, execution: Execution = Execution()):
     """Runs the prompt, returns (last-position logits (B, V) f32, cache as
     `init_cache` lays it out): each layer's SSD state and conv inputs, and
     at each shared-block slot the last `keep` keys / values of the prompt
-    at slots 0..keep-1."""
+    at slots 0..keep-1.  Where the layers split over "model" (`_tp`) the
+    stream stays whole and the products split as in training: each rank's
+    SSD heads (their final states and conv inputs gathered over "model"
+    into the cache), the shared block's heads and d_ff, the row-parallel
+    outputs all-reduced; where a rank holds only some K/V heads, each rank
+    gets every head of its cache slots from the ranks that hold them
+    (`transformer._kv_slots`)."""
     dev = execution.torch_device()
     cdt = blocks.torch_dtype(cfg.compute_dtype)
-    x = blocks.embed(params, batch["tokens"], cdt)
+    tp = _tp(params, cfg)
+    x = transformer._embed_rows(params, batch["tokens"], cdt)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
-    shared = blocks.cast(params["shared"], cdt)
+    shared = _shared_params(params["shared"], cfg, cdt, tp)
     every = cfg.hybrid.attn_every
     _, r, n_kv = shard_rules.kv_seq_shard()
     cache = init_cache(cfg, b, cache_size, dev, seq_shards=n_kv)
-    n = min(s, cache["k"].shape[2] * n_kv)
-    lo, cnt = prompt_slots(n, cache["k"].shape[2], r)
+    slots = cache["k"].shape[2]
+    n = min(s, slots * n_kv)
+    lo, cnt = prompt_slots(n, slots, r)
+    # whether some rank holds only some K/V heads (the same answer on every rank)
+    some_heads = tp.heads and any(
+        c - a < cfg.n_kv_heads for _, (a, c) in transformer._head_ranges(cfg, tp.n))
     x0 = x
     for i in range(cfg.n_layers):
-        lp = blocks.cast(blocks.gather_layer(blocks.layer_params(params, i)), cdt)
-        y, ssm_st, conv_st = mamba_block(lp, x, cfg, _zero_ssm_state(cfg, b, x.device), None)
+        lp = blocks.cast(blocks.layer_params(params, i), cdt)
+        y, ssm_st, conv_st = _mamba_layer(lp, x, cfg, tp)
+        if tp.ssd:
+            ssm_st, conv_st = _whole_states(ssm_st, conv_st, cfg, tp)
         x = x + y
         cache["ssm"][i] = ssm_st
         cache["conv"][i] = conv_st
         if i % every == 0:
-            x, (k, vv) = _shared_attn_train(shared, x, x0, cfg, positions, execution.backend)
-            if cnt:
-                cache["k"][i // every, :, :cnt] = k[:, s - n + lo:s - n + lo + cnt]
-                cache["v"][i // every, :, :cnt] = vv[:, s - n + lo:s - n + lo + cnt]
+            x, (k, vv, k0) = _shared_block(shared, x, x0, cfg, positions, execution.backend, tp)
+            j = i // every
+            if some_heads:
+                cache["k"][j, :, :cnt] = transformer._kv_slots(k, k0, tp, cfg, s, n, slots, n_kv,
+                                                               None)
+                cache["v"][j, :, :cnt] = transformer._kv_slots(vv, k0, tp, cfg, s, n, slots,
+                                                               n_kv, None)
+            elif cnt:
+                cache["k"][j, :, :cnt] = k[:, s - n + lo:s - n + lo + cnt]
+                cache["v"][j, :, :cnt] = vv[:, s - n + lo:s - n + lo + cnt]
     x = blocks.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"].to(cdt)).to(torch.float32)
+    logits = transformer._logits(params, x, cfg, cdt)
     cache["len"] = torch.tensor(n, dtype=torch.int32)
     cache["pos"] = torch.tensor(s, dtype=torch.int32)
     return logits[:, 0], cache
@@ -427,12 +733,18 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
     value are written into the given cache's tensors in place (the
     reference donates the cache to the same effect); the returned dict
     holds those tensors and the advanced `len` / `pos`.  The KV slot is
-    `len` while the cache fills, then `pos % S` (the reference's ring)."""
+    `len` while the cache fills, then `pos % S` (the reference's ring).
+    Where the layers split over "model" (`_tp`) the stream stays whole:
+    every product runs on the rank's stored columns, the (B, 1, ·) outputs
+    gathered over "model" (`transformer._all_cols`), and every rank updates
+    every head's SSD state and conv inputs in its replicated cache, so no
+    state moves between ranks."""
     execution.torch_device()
     cdt = blocks.torch_dtype(cfg.compute_dtype)
-    x = blocks.embed(params, token[:, None], cdt)                             # (B, 1, d)
+    tp = _tp(params, cfg)
+    x = transformer._embed_rows(params, token[:, None], cdt)                  # (B, 1, d)
     b = x.shape[0]
-    shared = blocks.cast(params["shared"], cdt)
+    shared = _decode_shared(blocks.cast(params["shared"], cdt), tp)
     every = cfg.hybrid.attn_every
     shard = shard_rules.kv_seq_shard()
     s_loc = cache["k"].shape[2]
@@ -444,23 +756,26 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     x0 = x
     for i in range(cfg.n_layers):
-        lp = blocks.cast(blocks.gather_layer(blocks.layer_params(params, i)), cdt)
-        y, ssm_st, conv_st = mamba_block(lp, x, cfg, cache["ssm"][i], cache["conv"][i])
+        lp = blocks.cast(blocks.layer_params(params, i), cdt)
+        y, ssm_st, conv_st = mamba_block(lp, x, cfg, cache["ssm"][i], cache["conv"][i], tp,
+                                         every_head=True)
         cache["ssm"][i] = ssm_st
         cache["conv"][i] = conv_st
         x = x + y
         if i % every == 0:
-            q, k, vv = _shared_qkv(shared, x, x0, cfg, positions)
+            h = blocks.rms_norm(torch.cat([x, x0], dim=-1), shared["ln1"], cfg.norm_eps)
+            q, k, vv = _qkv(shared, h, cfg, positions)
             k_c, v_c = cache["k"][i // every], cache["v"][i // every]
             if owner == shard[1]:
                 k_c[:, j] = k[:, 0].to(k_c.dtype)
                 v_c[:, j] = vv[:, 0].to(v_c.dtype)
             attn = blocks.decode_attention(q, k_c, v_c, new_len, window=cfg.sliding_window,
                                            seq_shard=shard)
-            x = x + attn.reshape(b, 1, -1) @ shared["wo"]
-            x = x + _shared_mlp(shared, x, x0, cfg)
+            x = x + shared["wo"](attn.reshape(b, 1, -1))
+            h2 = blocks.rms_norm(torch.cat([x, x0], dim=-1), shared["ln2"], cfg.norm_eps)
+            x = x + _mlp(shared, h2, cfg)
     x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, 0] @ params["lm_head"].to(cdt)).to(torch.float32)
+    logits = transformer._logits(params, x[:, 0], cfg, cdt)
     new_cache = {"ssm": cache["ssm"], "conv": cache["conv"], "k": cache["k"], "v": cache["v"],
                  "len": torch.tensor(new_len, dtype=torch.int32),
                  "pos": torch.tensor(pos + 1, dtype=torch.int32)}

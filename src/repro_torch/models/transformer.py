@@ -195,17 +195,19 @@ def _tp(params: Params, cfg: ArchConfig) -> Optional[_TP]:
     """The split of a meshed step's layers over "model", read from their
     shards: None without a mesh or with one `model` rank (every path is then
     the single-rank code)."""
-    w = params["layers"]["wq"]
-    if not isinstance(w, shard_rules.LayerShard):
+    split = shard_rules.model_split_of(params["layers"]["wq"])
+    if split is None:
         return None
-    r, n = shard_rules.model_rank(w.mesh)
-    if n == 1:
-        return None
-    # a rank's query heads split when n divides them and they read their
-    # K/V heads in the attention's GQA order (whole K/V groups, or part of one)
+    mesh, r, n, seq = split
+    return _TP(mesh, r, n, seq, splits_heads(cfg, n), cfg.moe is None and cfg.d_ff % n == 0)
+
+
+def splits_heads(cfg: ArchConfig, n: int) -> bool:
+    """Whether attention's query heads split over n ranks of "model": n
+    divides them and each rank's heads read their K/V heads in the
+    attention's GQA order (whole K/V groups, or part of one)."""
     qn, g = cfg.n_heads // n, cfg.n_heads // cfg.n_kv_heads
-    heads = cfg.n_heads % n == 0 and (qn % g == 0 or g % qn == 0)
-    return _TP(w.mesh, r, n, w.seq, heads, cfg.moe is None and cfg.d_ff % n == 0)
+    return cfg.n_heads % n == 0 and (qn % g == 0 or g % qn == 0)
 
 
 def _head_ranges(cfg: ArchConfig, n: int) -> List[Tuple[Tuple[int, int], Tuple[int, int]]]:
@@ -394,27 +396,27 @@ def _head(params: Params, cfg: ArchConfig) -> torch.Tensor:
 # `model` block (the serving steps hand the leaves outside the layers out on
 # their shards, `compute_params(lazy=True)`): one token's rows of the
 # table's columns, and the head's columns of the vocabulary, each gathered
-# over "model" as a (B, ·) activation.
+# over "model" as a (B, ·) activation.  The recurrent families' serving
+# reads them here too.
 
-def _embed_rows(params: Params, tokens: torch.Tensor, cdt: torch.dtype, tp) -> torch.Tensor:
+def _embed_rows(params: Params, tokens: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """`blocks.embed`, from the table's stored `model` block where it is
     one (the rows' column blocks gathered over "model")."""
     t = params["embed"]
     if not isinstance(t, shard_rules.LayerShard):
         return blocks.embed(params, tokens, cdt)
     x = t.block()[tokens.to(device=t.local.device, dtype=torch.long)].to(cdt)
-    return shard_rules.all_gather_cat(x, tp.mesh, "model", x.ndim - 1) if t.model_split else x
+    return shard_rules.all_gather_cat(x, t.mesh, "model", x.ndim - 1) if t.model_split else x
 
 
-def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig, cdt: torch.dtype,
-            tp) -> torch.Tensor:
+def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig, cdt: torch.dtype) -> torch.Tensor:
     """f32 logits of x (B, d): the head's stored columns of the vocabulary
     where it is one, gathered over "model"."""
     head = params["lm_head"] if not cfg.tie_embeddings else None
     if not isinstance(head, shard_rules.LayerShard):
         return (x @ _head(params, cfg).to(cdt)).to(torch.float32)
     y = (x @ head.block().to(cdt)).to(torch.float32)
-    return shard_rules.all_gather_cat(y, tp.mesh, "model", y.ndim - 1) if head.model_split else y
+    return shard_rules.all_gather_cat(y, head.mesh, "model", y.ndim - 1) if head.model_split else y
 
 
 # ---------------------------------------------------------------------------
@@ -646,7 +648,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     if tp is not None and tp.seq:            # the last position is the last rank's
         last = shard_rules.all_gather_cat(last, tp.mesh, "model", 1)[:, -1:]
     x = blocks.rms_norm(last, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, x, cfg, cdt, tp)
+    logits = _logits(params, x, cfg, cdt)
     cache["len"] = torch.tensor(n, dtype=torch.int32)
     cache["pos"] = torch.tensor(s, dtype=torch.int32)
     return logits[:, 0], cache
@@ -695,7 +697,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
     execution.torch_device()
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     tp = _tp(params, cfg)
-    x = _embed_rows(params, token[:, None], cdt, tp)                   # (B, 1, d)
+    x = _embed_rows(params, token[:, None], cdt)                       # (B, 1, d)
     b = x.shape[0]
     dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
     k_c, v_c = cache["k"], cache["v"]
@@ -736,7 +738,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
             y = _decode_ffn(lp, blocks.rms_norm(x, lp["ln2"].whole(), cfg.norm_eps), cfg, tp)
         x = x + y
     x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, x[:, 0], cfg, cdt, tp)
+    logits = _logits(params, x[:, 0], cfg, cdt)
     new_cache = {"k": k_c, "v": v_c,
                  "len": torch.tensor(new_len, dtype=torch.int32),
                  "pos": torch.tensor(pos + 1, dtype=torch.int32)}

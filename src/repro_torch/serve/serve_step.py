@@ -18,11 +18,12 @@ the batch by `train_batch_specs` and the cache by `cache_specs`
 tensor every rank holds).  Each rank computes on the shards it stores: the
 model code runs on its DP rows, under `use_mesh` for the K/V cache's slot
 split, with the params of `dist.sharding.compute_params` (each layer read
-inside its loop, the rest once a step; with several `model` ranks a
-transformer's layers split over them — prefill's stream by sequence where
+inside its loop, the rest once a step; with several `model` ranks the
+layers split over them — a transformer's prefill stream by sequence where
 their count divides it, `api.splits_stream`, the dense products and heads
-tensor-parallel — and a MoE layer goes expert-parallel over `model` on the
-stored expert shards) and — attention's kernel on local tensors — hands back
+tensor-parallel; the recurrent families' products by SSD or WKV head on a
+whole stream, their states gathered into the replicated cache — and a MoE
+layer goes expert-parallel over `model` on the stored expert shards) and — attention's kernel on local tensors — hands back
 logits sharded over the DP axes and the cache in its layout.  The K/V
 cache's slots stay split over `model`: prefill writes each rank's slot
 range, decode writes the new key on the rank that owns its slot and merges

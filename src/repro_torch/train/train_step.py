@@ -30,11 +30,12 @@ all run on the shards.  The DR front-end runs on the whole (micro-)batch
 as the reference's unsplit program does, and its unit stays replicated;
 the loss runs on this rank's rows (a MoE layer goes expert-parallel on
 the stored expert shards, on the mesh they carry).  With several `model`
-ranks a transformer's layers split over them (`models.transformer`): its
-stream by sequence where their count divides it (`api.splits_stream`),
-each rank then holding its share of the loss, which the step sums over
-`model` before the DP mean; the dense products and attention heads
-tensor-parallel.  The gradients come out in `param_specs`' layout all the
+ranks the layers split over them: a transformer's stream by sequence where
+their count divides it (`api.splits_stream`), Zamba-2's carry by feature
+(`api.splits_features`), each rank then holding its share of the loss,
+which the step sums over `model` before the DP mean; the dense products,
+attention heads, SSD heads and WKV heads tensor-parallel (RWKV-6's stream
+whole, its ranks repeating one loss).  The gradients come out in `param_specs`' layout all the
 same, so AdamW m / v, clipping and the global norm are unchanged.  Without
 a mesh the same body runs as a world of one rank.
 
@@ -214,7 +215,9 @@ def make_train_step(cfg: TrainConfig, *, execution: Execution = Execution(), mes
             # the front-end's normalisation reads the whole (micro-)batch
             micro = _apply_dr_frontend(state.dr, dcfg, micro, execution=execution)
             split = shard_rules.splits_rows(next(iter(micro.values())).shape[0], mesh)
-            seq = api.splits_stream(cfg.arch, micro, mesh)
+            # each rank of `model` holds its share of the loss where the
+            # transformer's stream splits by sequence or Zamba-2's by feature
+            seq = api.splits_stream(cfg.arch, micro, mesh) or api.splits_features(cfg.arch, mesh)
             on_shards = lambda p, _dr, b: loss_fn(  # noqa: E731
                 shard_rules.compute_params(p, specs, mesh, split, seq), None, b)
             loss, aux, g = value_and_grad(on_shards, params, None,

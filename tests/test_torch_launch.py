@@ -237,6 +237,32 @@ def test_a_meshed_train_step_peaks_below_the_whole_params():
     assert not dist.is_initialized()
 
 
+def test_the_peak_lists_its_largest_storages():
+    """`top`: the record lists the largest storages live at the peak, in
+    descending bytes, each at least the bytes of the tensor that made it,
+    together within the peak; and the peak is the one counted without it."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    cfg = t_registry.get_smoke("smollm_135m")
+    counts = {}
+    for top in (0, 5):
+        with dryrun.fake_world(8):
+            mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+            counts[top] = dryrun.build_and_count(cfg, "train_4k", mesh, top=top, batch=8,
+                                                 seq=16, device=CPU)["count"]
+    assert counts[0].peak_top == []
+    listed = counts[5].peak_top
+    assert len(listed) == 5 and counts[5].peak_bytes == counts[0].peak_bytes
+    sizes = [e["bytes"] for e in listed]
+    assert sizes == sorted(sizes, reverse=True) and sum(sizes) <= counts[5].peak_bytes
+    for e in listed:
+        assert isinstance(e["op"], str) and e["kind"]
+        if e["op"] != "?":
+            itemsize = torch.empty((), dtype=getattr(torch, e["dtype"].split(".")[-1])).element_size()
+            assert e["bytes"] >= math.prod(e["shape"]) * itemsize, e
+    assert not dist.is_initialized()
+
+
 def test_a_split_step_counts_its_model_collectives():
     """On a fake (2 data, 4 model) world, h2o SMOKE split over `model`: the
     train step's counter records, over `model`, the stream's sequence

@@ -83,6 +83,25 @@ def _gathered(tree):
     return {p: np.asarray(v) for p, v in tree_mod.flatten_with_path(sharding.to_numpy(tree))}
 
 
+def _local_blocks(tree, mesh):
+    """{path: (this rank's local numpy block, [(start, size)] per dim of the
+    whole tensor)} of a laid-out tree; a plain leaf is the whole."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.bridge import to_array
+    from repro_torch.dist import sharding
+
+    out = {}
+    for p, v in tree_mod.flatten_with_path(tree):
+        loc = sharding.local(v)
+        index = [(0, n) for n in loc.shape]
+        if sharding.is_dtensor(v):
+            for dim, ax in enumerate(sharding.spec_of(v)):
+                i, _ = sharding.shard_index(mesh, ax)
+                index[dim] = (i * loc.shape[dim], loc.shape[dim])
+        out[p] = (np.asarray(to_array(loc)), index)
+    return out
+
+
 def _local_shapes(tree, mesh):
     """{path: (local shape, the shape its spec gives)} of a laid-out tree's
     DTensor leaves."""
@@ -161,6 +180,26 @@ def _whole_shapes(params, mesh, cfg, cache=None):
                 rows[1] //= sharding.axis_size(mesh, cspecs[path][1])
                 out[tuple(rows)] = f"K/V cache {path}, this rank's rows with every slot"
     return out
+
+
+def _by_design(forbidden, params, mesh):
+    """(`forbidden` without the shapes a step makes by design, [those
+    entries as (shape, what)]): the buffers that `LayerShard.rows()`
+    exchanges over "model", (n, rows / n, columns / n) of each layer
+    matrix whose columns "model" splits.  A whole leaf "model" splits can
+    only be made by a gather over "model", so such an entry is held by
+    `ModelGathers` instead (`_gathered_whole`)."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.dist import sharding
+
+    _, n = sharding.model_rank(mesh)
+    specs = sharding.param_specs(params, mesh)
+    made = {(n, leaf.shape[-2] // n, leaf.shape[-1] // n)
+            for path, leaf in tree_mod.flatten_with_path(params)
+            if path.startswith("['layers']") and leaf.ndim == 3 and n > 1
+            and specs[path][-1] == "model"}
+    return ({s: w for s, w in forbidden.items() if s not in made},
+            sorted((s, w) for s, w in forbidden.items() if s in made))
 
 
 def _violations(alloc, forbidden):
@@ -303,11 +342,13 @@ def scenario_mesh_4x2(rank, world, inputs, d):
         transformer.kv_rp_matrix = own_r
         whole_cache = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
                        for k, v in cache.items() if isinstance(v, torch.Tensor) and v.ndim}
-        forbidden = _whole_shapes(params, mesh, cfg, whole_cache)
+        forbidden, unguarded = _by_design(_whole_shapes(params, mesh, cfg, whole_cache), params,
+                                          mesh)
         out[f"serve/{name}"] = {"logits": steps, "cache": _gathered(cache),
                                 "specs": placements, "shapes": _local_shapes(cache, mesh),
                                 "allocations": len(alloc.shapes), "forbidden": len(forbidden),
-                                "violations": _violations(alloc, forbidden)}
+                                "violations": (_violations(alloc, forbidden)
+                                               + _gathered_whole(gathers, unguarded))}
 
     ck = inputs["elastic"]
     target = ts.lay_out_state(ck["target"], mesh)
@@ -581,8 +622,146 @@ def scenario_mesh_tp(rank, world, inputs, d):
     return out
 
 
+def _recurrent_forbidden(params, mesh, cfg, cache=None):
+    """`_split_forbidden`'s twin for the recurrent families: ({shape: what}
+    a rank must never allocate, [what the guard cannot hold by shape]).
+    Beside `_whole_shapes`, each whole matrix that their split over
+    `model` reads only in part: Zamba-2's `in_proj`, `conv_w` and
+    `out_proj` where its SSD heads split, its shared block's `wq` / `wk` /
+    `wv` / `wo` where the shared heads split and `w_in` / `w_gate` /
+    `w_out` where d_ff does; RWKV-6's `wr` / `wk` / `wv` / `wg` /
+    `w_lora_b` / `wo` where the WKV heads split and `cm_r` / `cm_k` /
+    `cm_v` where d_ff does (`w_lora_a` is read whole by design).  A shape
+    that a step makes by design — a leaf's local shard, its block gathered
+    over the DP axes, its rows moved over "model", each stacked over the
+    layers as the backward stacks their gradients — goes to the second
+    list, held by `ModelGathers` instead."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.dist import sharding
+    from repro_torch.models import rwkv6, ssm, transformer
+
+    out = _whole_shapes(params, mesh, cfg, cache)
+    _, n = sharding.model_rank(mesh)
+    layers, named = params["layers"], []
+    if cfg.family == "zamba" and ssm.splits(cfg, n):
+        if cfg.ssm.n_heads(cfg.d_model) % n == 0:
+            named += [("layers", k) for k in ("in_proj", "conv_w", "out_proj")]
+        if transformer.splits_heads(cfg, n):
+            named += [("shared", k) for k in ("wq", "wk", "wv", "wo")]
+        if cfg.d_ff % n == 0:
+            named += [("shared", k) for k in ("w_in", "w_gate", "w_out")]
+    if cfg.family == "rwkv6" and n > 1 and (cfg.d_model // rwkv6.HEAD_DIM) % n == 0:
+        named += [("layers", k) for k in ("wr", "wk", "wv", "wg", "w_lora_b", "wo")]
+        if cfg.d_ff % n == 0:
+            named += [("layers", k) for k in ("cm_r", "cm_k", "cm_v")]
+    for tree, k in named:
+        shape = tuple(params[tree][k].shape[1:] if tree == "layers" else params[tree][k].shape)
+        out[shape] = f"whole ['{tree}'][{k!r}]"
+    specs = sharding.param_specs(params, mesh)
+    by_design = set()
+    for path, leaf in tree_mod.flatten_with_path(params):
+        spec = specs[path]
+        inner = path.startswith(("['layers']", "['shared']"))
+        shape = tuple(leaf.shape[1:]) if path.startswith("['layers']") else tuple(leaf.shape)
+        spec = spec[len(spec) - len(shape):]
+        kept = [spec, tuple(ax if ax == "model" else None for ax in spec)]
+        if not inner:
+            kept += [tuple(None if ax == "model" else ax for ax in spec), (None,) * len(shape)]
+        made = [tuple(d // sharding.axis_size(mesh, ax) for d, ax in zip(shape, keep))
+                for keep in kept]
+        if inner and len(shape) >= 2 and spec[-1] == "model":
+            made.append(shape[:-2] + (shape[-2] // n, shape[-1]))
+        by_design.update(made)
+        if path.startswith("['layers']"):        # stacked, as the backward stacks them
+            by_design.update((leaf.shape[0],) + m for m in made)
+    return ({shape: what for shape, what in out.items() if shape not in by_design},
+            sorted((shape, what) for shape, what in out.items() if shape in by_design))
+
+
+def scenario_mesh_recurrent(rank, world, inputs, d):
+    """Zamba-2 and RWKV-6 split over `model` on the mesh `inputs` names:
+    the train steps under the allocation guard and `LayerInputs`, prefill
+    + decode of the serving cases (every rank's cache gathered), and one
+    layer's matmul FLOPs on this rank against the unmeshed layer's
+    (`FlopCounterMode`) where `inputs` holds a FLOPs case.  `ssd_chunk`
+    sets Mamba-2's block-form chunk, as the reference's is set.  A serving
+    case records each rank's own block of the cache (`_local_blocks`)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.dist import sharding
+    from repro_torch.models import api, rwkv6, ssm
+    from repro_torch.serve import serve_step
+    from repro_torch.train import train_step as ts
+
+    ssm.SSD_CHUNK = inputs["ssd_chunk"]
+    out = {}
+    shape, names = inputs["mesh"]
+    mesh = _mesh(shape, names)
+    r, n = sharding.model_rank(mesh)
+    n_dp = sharding.axis_size(mesh, sharding.batch_axes(mesh))
+    for name, case in inputs["train"].items():
+        tcfg = case["tcfg"]
+        cfg = tcfg.arch
+        state = ts.lay_out_state(case["state"], mesh)
+        step = ts.make_train_step(tcfg, execution=_cpu(), mesh=mesh)
+        forbidden, unguarded = _recurrent_forbidden(case["state"].params, mesh, cfg)
+        metrics = []
+        with Allocations() as alloc, LayerInputs() as seen, ModelGathers() as gathers:
+            for batch in case["batches"]:
+                state, m = step(state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+        rows, s = case["batches"][0]["tokens"].shape
+        b_loc = rows // n_dp if sharding.splits_rows(rows, mesh) else rows
+        feat = api.splits_features(cfg, mesh)
+        leaves = _gathered(state)                     # collective: every rank
+        out[f"train/{name}"] = {
+            "metrics": metrics, "leaves": leaves if rank == 0 else None,
+            "shapes": _local_shapes(state, mesh), "allocations": len(alloc.shapes),
+            "forbidden": len(forbidden), "unguarded": len(unguarded),
+            "violations": _violations(alloc, forbidden) + _gathered_whole(gathers, unguarded),
+            "remat": sorted(set(seen.remat)),
+            "remat_want": (b_loc, s, cfg.d_model // n if feat else cfg.d_model)}
+
+    for name, case in inputs["serve"].items():
+        cfg, params = case["cfg"], case["params"]
+        laid = sharding.lay_out(params, sharding.param_specs(params, mesh), mesh)
+        pre = serve_step.make_prefill(cfg, mesh, laid, case["batch"], case["cache_size"],
+                                      execution=_cpu())
+        with Allocations() as alloc, ModelGathers() as gathers:
+            logits, cache = pre(laid, case["batch"])
+            steps = [sharding.full(logits).numpy()]
+            dec = serve_step.make_decode(cfg, mesh, laid, cache, execution=_cpu())
+            for tok in case["forced"]:
+                logits, cache = dec(laid, tok, cache)
+                steps.append(sharding.full(logits).numpy())
+        whole_cache = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                       for k, v in cache.items() if isinstance(v, torch.Tensor) and v.ndim}
+        forbidden, unguarded = _recurrent_forbidden(params, mesh, cfg, whole_cache)
+        out[f"serve/{name}"] = {"logits": steps, "blocks": _local_blocks(cache, mesh),
+                                "allocations": len(alloc.shapes), "forbidden": len(forbidden),
+                                "unguarded": len(unguarded),
+                                "violations": (_violations(alloc, forbidden)
+                                               + _gathered_whole(gathers, unguarded))}
+
+    for name, fl in inputs.get("flops", {}).items():
+        cfg, params, batch = fl["cfg"], fl["params"], fl["batch"]
+        local, specs = sharding.local_specs(
+            sharding.lay_out(params, sharding.param_specs(params, mesh), mesh))
+        on_rank = sharding.compute_params(local, specs, mesh, False,
+                                          seq=api.splits_features(cfg, mesh))
+        mod = {"zamba": ssm, "rwkv6": rwkv6}[cfg.family]
+        counts = {}
+        for key, p in (("split", on_rank), ("whole", params)):
+            with torch.no_grad(), FlopCounterMode(display=False) as fc:
+                mod.hidden_states(p, batch, cfg, remat=False, execution=_cpu())
+            counts[key] = fc.get_total_flops()
+        out[f"flops/{name}"] = counts
+    return out
+
+
 SCENARIOS = {"mesh_2x2": scenario_mesh_2x2, "mesh_4x2": scenario_mesh_4x2,
-             "dist_8": scenario_dist_8, "mesh_tp": scenario_mesh_tp}
+             "dist_8": scenario_dist_8, "mesh_tp": scenario_mesh_tp,
+             "mesh_recurrent": scenario_mesh_recurrent}
 
 
 def main():

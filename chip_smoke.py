@@ -16,7 +16,12 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 one p tile or p split); easi_apply in each of its bodies
                 (`plan`: small, one launch; split, two) under each
                 (so, ho), each g, f32 and bf16; integers exact at the wide
-                shape for s = 1, 3 and p; two calls give the same bits
+                shape for s = 1, 3 and p; two calls give the same bits;
+                easi_apply's column templates (`EASI_TILE_SHAPES`: every
+                width of each body the shape admits, through the C entry, in
+                f32 and bf16) equal to the narrowest width bit for bit and
+                within EASI_TOL / BF16_TOL of the plain version, and
+                `plan`'s width for each easi_block_m the resource model's
   2b. resources — every template instance of the ten kernel bodies
                 (`resource_model.every_instance`): cudaFuncGetAttributes
                 through `csrc/attributes.cu` against the resource model —
@@ -43,9 +48,10 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 update + transform through the kernels, then each kernel
                 timed beside its plain version, a cuBLAS yardstick and its
                 bound (fused_transform again with R at s = 3, ternary_matmul
-                at s = 3 and 1; both at each sparse tile template), and its
-                launches per call counted around one call at the wide shape
-                and one at the paper block
+                at s = 3 and 1; both at each sparse tile template;
+                easi_apply at each column template at EASI_TILE_SHAPES),
+                and its launches per call counted around one call at the
+                wide shape and one at the paper block
   5. serve    — the serving engine (`repro_torch.serve.DRService`) with the
                 wide model and the kernel backend in the reference's default
                 buckets (8 … 1024): `register` races the tile templates and
@@ -237,6 +243,9 @@ FUSED_EDGE = [(256, 1024, 256, 128, 1, False), (256, 1024, 256, 128, 3, False),
               (40, 1100, 60, 600, 3, False), (33, 2048, 32, 520, 3, False)]
 EASI_SHAPES = [(1, 8, 32), (32, 16, 32), (8, 24, 24), (64, 7, 100), (128, 128, 512),
                (16, 100, 300)]
+# (b, n, m) for easi_apply's column templates: the paper row, the reference's
+# tiling test (tests/test_kernels.py:117) and the wide row
+EASI_TILE_SHAPES = [(32, 16, 24), (64, 32, 1000), (256, 128, 256)]
 SO_HO = [(True, True), (True, False), (False, True)]
 # (rows, m, p, s, zero_rows) for ternary_matmul's two bodies: the wide row at
 # densities 1/p, 1/3 and 1, ragged shapes with every third row of R zero,
@@ -720,7 +729,7 @@ def phase_kernels(dev, errs):
     n_checks += 2
     bodies = set()
     for (b, n, m, so, ho, g, zeros, dt) in EASI_EDGE:
-        slices, _ = easi_update.plan(b, n, m, so, ho)
+        slices, _, _ = easi_update.plan(b, n, m, so, ho)
         bodies.add("small" if slices == 0 else "split")
         dtype, tol = ((torch.float32, EASI_TOL) if dt == "f32" else (torch.bfloat16, BF16_TOL))
         bm, y = normal(n, m, dtype=dtype, scale=0.3), normal(b, n, dtype=dtype)
@@ -736,6 +745,7 @@ def phase_kernels(dev, errs):
         n_checks += 1
     if bodies != {"small", "split"}:
         fail(f"easi_apply: the edge cases reach only {sorted(bodies)}")
+    n_checks += easi_tile_checks(dev, normal, note)
     torch.cuda.synchronize()
     print(f"[kernels] {n_checks} checks against the plain versions passed; largest |err|: "
           + ", ".join(f"{k[0]}/{k[1]} {v:.3e}" for k, v in sorted(errs.items())))
@@ -744,6 +754,115 @@ def phase_kernels(dev, errs):
 # ---------------------------------------------------------------------------
 # phase 3: the paper's model, trained and served through the kernels
 # ---------------------------------------------------------------------------
+
+def easi_split_slices(b, n):
+    """The split body's sample slices for y (b, n) on this card, as
+    `repro_easi_apply_plan` gives them where it takes that body."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    split = min(8, -(-sms // (-(-n // 32)) ** 2), -(-b // 32))
+    return -(-b // -(-b // max(split, 1)))
+
+
+def easi_entry(y, bmat, *, slices, cols, mu=1e-3, so=True, ho=True):
+    """A closure that runs easi_apply's C entry into a new output with the
+    body (`slices`, 0 for the small one) and column template `cols` forced,
+    as the wrapper would with that plan; it returns the output.  Calls made
+    here bump no launch count."""
+    import torch
+    from repro_torch.kernels import _build
+
+    b, n = y.shape
+    m = bmat.shape[1]
+    out = torch.empty_like(bmat)
+    scratch = torch.empty((2 * n * n,), dtype=torch.float32, device=bmat.device)
+    lib = _build.library()
+    codes = (_build.dtype_code("easi_apply", y), _build.dtype_code("easi_apply", bmat))
+
+    def call():
+        _build.raise_on_error("easi_apply", lib.repro_easi_apply(
+            _build.ptr(y), _build.ptr(bmat), _build.ptr(scratch), _build.ptr(out), b, n, m,
+            float(mu), 1.0 / b, int(so), int(ho), 0, slices, cols, *codes, _build.stream(bmat)))
+        return out
+    return call
+
+
+def easi_tile_bodies(b, n, m):
+    """{body: (slices, its column templates)} that a (b, n, m) call admits:
+    the small body where n <= 64, the split body always (its slices as the
+    plan would give them)."""
+    from repro_torch.kernels import resource_model as rm
+
+    out = {"split": (easi_split_slices(b, n), rm.EASI_SPLIT_COLS)}
+    if n <= rm.ES_SMALL_N:
+        out["small"] = (0, rm.EASI_SMALL_COLS)
+    return out
+
+
+def easi_tile_checks(dev, normal, note):
+    """easi_apply's column templates at EASI_TILE_SHAPES, f32 and bf16:
+    every width of each body the shape admits, through the C entry, equal to
+    the narrowest width (the default policy's) bit for bit and within
+    EASI_TOL / BF16_TOL of the plain version; the
+    wrapper with `block_m` = each width gives the same bits; `plan`'s width
+    for each easi_block_m is `resource_model.effective_easi_tile`'s.
+    Returns the number of checks."""
+    import torch
+    from repro_torch.kernels import easi_update
+    from repro_torch.kernels import resource_model as rm
+
+    checks = 0
+    for (b, n, m) in EASI_TILE_SHAPES:
+        for block_m in (1, 16, 32, 64, 128, 256, 512):
+            got = easi_update.plan(b, n, m, True, True, block_m)[2]
+            want = rm.effective_easi_tile(b, n, m, block_m)
+            if got != want:
+                fail(f"easi_apply plan({b}, {n}, {m}, block_m={block_m}): {got} columns a CTA, "
+                     f"the resource model {want}")
+        for dtype, tol in ((torch.float32, EASI_TOL), (torch.bfloat16, BF16_TOL)):
+            bm, y = normal(n, m, dtype=dtype, scale=0.3), normal(b, n, dtype=dtype)
+            want = easi_update.plain(bm, y, mu=1e-3)
+            slices_plan = easi_update.plan(b, n, m)[0]
+            for body, (slices, widths) in easi_tile_bodies(b, n, m).items():
+                base = easi_entry(y, bm, slices=slices, cols=widths[0])().clone()
+                for cols in widths:
+                    got = easi_entry(y, bm, slices=slices, cols=cols)()
+                    what = f"easi_apply {body} body, {cols} columns a CTA, ({b}, {n}, {m}) {dtype}"
+                    if not torch.equal(got, base):
+                        fail(f"{what}: differs from {widths[0]} columns in "
+                             f"{int((got != base).sum())} elements")
+                    note("easi_apply", dtype, check_close(what, got, want, **tol))
+                    if (slices == 0) == (slices_plan == 0):    # the body the wrapper takes
+                        if not torch.equal(easi_update.easi_apply(bm, y, mu=1e-3, block_m=cols),
+                                           base):
+                            fail(f"{what}: the wrapper with block_m={cols} differs")
+                    checks += 1
+    print(f"[kernels] easi_apply column templates at {EASI_TILE_SHAPES}, f32 and bf16: "
+          f"{checks} instances bit-identical to the narrowest width and within tolerance")
+    return checks
+
+
+def easi_tile_timing(dev, card_line):
+    """Device-only ms of each column template of each body that
+    EASI_TILE_SHAPES admit, through the C entry, f32 (so, ho both on)."""
+    import torch
+
+    gen, out = torch.Generator().manual_seed(12), []
+    for (b, n, m) in EASI_TILE_SHAPES:
+        bm = (torch.randn((n, m), generator=gen) * 0.3).to(dev)
+        y = torch.randn((b, n), generator=gen).to(dev)
+        for body, (slices, widths) in easi_tile_bodies(b, n, m).items():
+            row = {"shape": [b, n, m], "body": body, "slices": slices,
+                   "device_ms": {str(c): time_graph(easi_entry(y, bm, slices=slices, cols=c))
+                                 for c in widths}}
+            out.append(row)
+    print(f"[time] easi_apply column templates ({card_line}), device-only ms by columns a "
+          "CTA: " + "; ".join(
+              f"{tuple(r['shape'])} {r['body']}: "
+              + ", ".join(f"{c} {t:.4f}" for c, t in r["device_ms"].items()) for r in out))
+    return out
+
 
 def reset_counts():
     """Every kernel wrapper's launch count set to 0."""
@@ -1234,6 +1353,7 @@ def phase_wide(dev, errs, card_line):
     for s in (3, 1):
         by_name["ternary_matmul"][f"density_s{s}"] = tmm_density_timing(x, s)
     by_name["easi_apply"]["bodies"] = easi_body_timing(dev)
+    by_name["easi_apply"]["column_tiles"] = easi_tile_timing(dev, card_line)
     return rows
 
 
@@ -1249,23 +1369,16 @@ def easi_body_timing(dev):
     so the split body takes up to 8 slices of at least 32 samples, as the
     plan would give it): the measurement behind the plan's threshold."""
     import torch
-    from repro_torch.kernels import _build, easi_update
+    from repro_torch.kernels import easi_update
 
-    lib, gen, out = _build.library(), torch.Generator().manual_seed(11), []
+    gen, out = torch.Generator().manual_seed(11), []
     for (b, n, m, so) in EASI_BODY_SHAPES:
         bm = (torch.randn((n, m), generator=gen) * 0.3).to(dev)
         y = torch.randn((b, n), generator=gen).to(dev)
-        res = torch.empty_like(bm)
-        scratch = torch.empty((2 * n * n,), device=dev)
-        split = min(8, -(-b // 32))
-        split = -(-b // -(-b // split))
         row = {"shape": [b, n, m], "so": so, "plan": easi_update.plan(b, n, m, so, True)[0]}
-        for body, slices in (("small", 0), ("split", split)):
-            def call():
-                _build.raise_on_error("easi_apply", lib.repro_easi_apply(
-                    _build.ptr(y), _build.ptr(bm), _build.ptr(scratch), _build.ptr(res), b, n, m,
-                    2e-4, 1.0 / b, int(so), 1, 0, slices, 0, 0, _build.stream(bm)))
-            row[f"{body}_device_ms"] = time_graph(call)
+        for body, slices, cols in (("small", 0, 32), ("split", easi_split_slices(b, n), 16)):
+            row[f"{body}_device_ms"] = time_graph(
+                easi_entry(y, bm, slices=slices, cols=cols, mu=2e-4, so=so))
         out.append(row)
     print("[time] easi_apply bodies, device-only ms (small / split; the plan's choice): " + "; ".join(
         f"{tuple(r['shape'])}{' so' if r['so'] else ''} {r['small_device_ms']:.4f} / "

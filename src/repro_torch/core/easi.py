@@ -128,7 +128,7 @@ def easi_fit(b0: torch.Tensor, x: torch.Tensor, cfg: EASIConfig, *,
         from repro_torch.kernels import ops as kops
 
         def step(b_mat, blk):
-            return kops.easi_update(b_mat, blk, cfg)
+            return kops.easi_update(b_mat, blk, cfg, block_m=execution.easi_block_m)
     else:
         def step(b_mat, blk):
             return easi_step(b_mat, blk, cfg)[0]

@@ -16,8 +16,13 @@ quietly.
 The `tmm_block_*` fields name the tile template of B1's and B3's sparse
 bodies (`kernels/resource_model.effective_tiles` clamps them to the
 templates and the problem); the serving engine races the templates per
-bucket (`kernels/autotune.py`).  B2 and B4 choose their own tiles:
-`easi_block_m` mirrors the JAX policy's field and no kernel reads it.
+bucket (`kernels/autotune.py`).  `easi_block_m` is B2's column tile, as
+the reference's `block_m` is: the columns of B one CTA updates.  It picks
+the template of the body that runs (32, 64 or 128 columns in the small
+body, 16, 32 or 64 in the split body's update); any other value, the
+default 512 among them, runs the body's narrowest, and no template is
+wider than m needs (`kernels/resource_model.effective_easi_tile`).  B4
+chooses its own tiles.
 `dtype` is the compute dtype stages inherit unless they pin their own.
 """
 
@@ -38,7 +43,7 @@ class Execution:
     tmm_block_m: int = 128
     tmm_block_p: int = 128
     tmm_block_k: int = 512
-    # EASI-update kernel: sample-block tile
+    # EASI-update kernel: B's column tile (columns of B a CTA updates)
     easi_block_m: int = 512
     dtype: Any = torch.float32
     device: Any = "cuda"

@@ -164,7 +164,7 @@ class EASIStage:
         if exe.use_kernel:
             from repro_torch.kernels import ops as kops
 
-            return kops.easi_update(state, x, cfg)
+            return kops.easi_update(state, x, cfg, block_m=exe.easi_block_m)
         return easi_mod.easi_step(state, x, cfg)[0]
 
     def fit_stream(self, state: torch.Tensor, x: torch.Tensor, exe: Execution, *,

@@ -29,7 +29,7 @@ extern "C" int repro_kernel_attributes(int source, int body, int a, int b, int c
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rc != 0) return rc;
-  if (dyn > 48 * 1024) {   // as the launch does: opt in above 48 KB
+  if (dyn > 0) {   // as every launch that requests dynamic bytes does: opt in
     const cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                dyn);
     if (e != cudaSuccess) return static_cast<int>(e);

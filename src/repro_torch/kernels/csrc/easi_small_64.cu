@@ -1,0 +1,4 @@
+// easi_apply's small body at 64 columns of B a CTA (easi_small.cuh).
+#include "easi_small.cuh"
+
+REPRO_EASI_SMALL_WIDTH(64)

@@ -35,8 +35,9 @@ def fused_transform(x: torch.Tensor, r_int8: torch.Tensor, b_mat: torch.Tensor, 
                                          block_p=block_p)
 
 
-def easi_apply(b_mat: torch.Tensor, y: torch.Tensor, cfg):
-    """Apply one EASI update given precomputed outputs y (b, n)."""
+def easi_apply(b_mat: torch.Tensor, y: torch.Tensor, cfg, block_m: int = 512):
+    """Apply one EASI update given precomputed outputs y (b, n); `block_m`
+    is B's column tile, an `Execution`'s `easi_block_m`."""
     if cfg.normalized:
         # The normalized variant divides by data-dependent scalars; it stays
         # on the plain path (it is not the datapath the paper builds).
@@ -46,14 +47,14 @@ def easi_apply(b_mat: torch.Tensor, y: torch.Tensor, cfg):
         return b_mat - cfg.mu * (g @ b_mat)
     return _easi_kernel.easi_apply(
         b_mat.contiguous(), y.contiguous(), mu=cfg.mu, second_order=cfg.second_order,
-        higher_order=cfg.higher_order, g_name=cfg.g)
+        higher_order=cfg.higher_order, g_name=cfg.g, block_m=block_m)
 
 
-def easi_update(b_mat: torch.Tensor, h_block: torch.Tensor, cfg):
+def easi_update(b_mat: torch.Tensor, h_block: torch.Tensor, cfg, block_m: int = 512):
     """Full step: y = h Bᵀ (a plain matmul, as XLA computed it outside any
     Pallas kernel), then the fused gradient + update kernel."""
     y = h_block.to(b_mat.dtype) @ b_mat.T
-    return easi_apply(b_mat, y, cfg)
+    return easi_apply(b_mat, y, cfg, block_m)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -27,7 +27,10 @@ without an entry or an entry without a body.
 The sparse bodies of B1 and B3 are templated over tile shapes
 (`TILE_ROWS` x `TILE_P`); `effective_tiles` clamps an `Execution`'s
 `tmm_block_m` / `tmm_block_p` to the template that runs, which is what
-the serving engine's tile race (`kernels/autotune.py`) dedupes by.
+the serving engine's tile race (`kernels/autotune.py`) dedupes by.  B2's
+two bodies are templated over the columns of B a CTA updates
+(`EASI_SMALL_COLS`, `EASI_SPLIT_COLS`); `effective_easi_tile` maps an
+`Execution`'s `easi_block_m` onto them as the C entry does.
 
 Importing this module needs torch for nothing: no card, no build.
 `python -m repro_torch.kernels.resource_model --json FILE` writes the
@@ -280,18 +283,34 @@ ES_UT = 16
 TK_GRAM = 32
 ES_KC = 128
 ES_KSPLIT = NTHREADS // (ES_UT * ES_UT // 4)
+EASI_SMALL_COLS = (32, 64, 128)   # small body: columns of B a CTA (template CT)
+EASI_SPLIT_COLS = (16, 32, 64)    # split body's update: columns of its 16-row tile (UC)
 
 
-def easi_small_estimate(b: int, n: int, m: int, *, bf16: bool = False,
-                        b_bf16: Optional[bool] = None) -> KernelEstimate:
-    """easi_update.cu `easi_small_kernel<NA, TY, TB>`: 16 x 16 threads, 32
-    columns of B a CTA; ys, gys [32][64], gs [64][65], bs [64][33] f32."""
+def effective_easi_tile(b: int, n: int, m: int, block_m: int = 512,
+                        sms: int = H100_SMS) -> int:
+    """The columns of B one CTA of B2 updates for an `Execution`'s
+    `easi_block_m` on y (b, n), B (n, m), as `repro_easi_apply_plan` maps
+    it: among the templates of the body the call takes, a `block_m` that
+    names one runs it; any other (the reference's Pallas sizes, the
+    policy's default 512 among them) runs the narrowest; then no wider than
+    the narrowest template that holds m."""
+    cols = EASI_SMALL_COLS if easi_slices(b, n, sms) == 0 else EASI_SPLIT_COLS
+    bm = block_m if block_m in cols else cols[0]
+    return min(bm, min(t for t in cols if t >= min(m, cols[-1])))
+
+
+def easi_small_estimate(b: int, n: int, m: int, *, cols: int = EASI_SMALL_COLS[0],
+                        bf16: bool = False, b_bf16: Optional[bool] = None) -> KernelEstimate:
+    """easi_small.cuh `easi_small_kernel<NA, CT, TY, TB>`: 16 x 16 threads,
+    CT columns of B a CTA; ys, gys [32][64], gs [64][65] f32 static, bs
+    [16 NA][CT + 1] f32 dynamic."""
     na = min(4, _cdiv(n, 16))
-    static = (2 * 32 * ES_SMALL_N + ES_SMALL_N * (ES_SMALL_N + 1) + ES_SMALL_N * (TILE + 1)) * F32
+    static = (2 * 32 * ES_SMALL_N + ES_SMALL_N * (ES_SMALL_N + 1)) * F32
     return KernelEstimate(
-        "easi_small_kernel", "easi_update.cu", f"{_dtypes(bf16, b_bf16)},NA={na}", NTHREADS,
-        (_cdiv(m, TILE),), static, 0,
-        lookup=(2, 0, _dtype_code(bf16), _dtype_code(_or(b_bf16, bf16)), na, 0))
+        "easi_small_kernel", "easi_small.cuh", f"{_dtypes(bf16, b_bf16)},NA={na},CT={cols}",
+        NTHREADS, (_cdiv(m, cols),), static, 16 * na * (cols + 1) * F32,
+        lookup=(2, 0, _dtype_code(bf16), _dtype_code(_or(b_bf16, bf16)), na, cols))
 
 
 def easi_slices(b: int, n: int, sms: int = H100_SMS) -> int:
@@ -318,15 +337,17 @@ def easi_gram_estimate(b: int, n: int, *, bf16: bool = False,
 
 
 
-def easi_update_estimate(n: int, m: int, *, bf16: bool = False) -> KernelEstimate:
-    """easi_update.cu `easi_update_kernel<TB>`: 256 threads a 16 x 16 tile of
-    the new B; ss, hs [16][129], gs, bs [128][17], red [4][16][17] f32."""
-    static = (2 * ES_UT * (ES_KC + 1) + 2 * ES_KC * (ES_UT + 1)
-              + ES_KSPLIT * ES_UT * (ES_UT + 1)) * F32
+def easi_update_estimate(n: int, m: int, *, cols: int = EASI_SPLIT_COLS[0],
+                         bf16: bool = False) -> KernelEstimate:
+    """easi_update.cu `easi_update_kernel<UC, TB>`: 256 threads a 16 x UC
+    tile of the new B; ss, hs [16][129], gs [128][17], red [4][16][UC + 1]
+    f32 static, bs [128][UC + 1] f32 dynamic."""
+    static = (2 * ES_UT * (ES_KC + 1) + ES_KC * (ES_UT + 1)
+              + ES_KSPLIT * ES_UT * (cols + 1)) * F32
     return KernelEstimate(
-        "easi_update_kernel", "easi_update.cu", _dtypes(bf16), NTHREADS,
-        (_cdiv(n, ES_UT), _cdiv(m, ES_UT)), static, 0,
-        lookup=(2, 2, 0, _dtype_code(bf16), 0, 0))
+        "easi_update_kernel", "easi_update.cu", f"{_dtypes(bf16)},UC={cols}", NTHREADS,
+        (_cdiv(n, ES_UT), _cdiv(m, cols)), static, ES_KC * (cols + 1) * F32,
+        lookup=(2, 2, 0, _dtype_code(bf16), 0, cols))
 
 
 FA_BQ = FA_BK = 64   # flash_attention.cu
@@ -391,11 +412,13 @@ def fused_transform_call(rows: int, m: int, p: int, n: int, *, block_m: int = 12
                      if main.grid[1] > 1 else [])
 
 
-def easi_apply_call(b: int, n: int, m: int, *, bf16: bool = False,
+def easi_apply_call(b: int, n: int, m: int, *, block_m: int = 512, bf16: bool = False,
                     sms: int = H100_SMS) -> List[KernelEstimate]:
+    cols = effective_easi_tile(b, n, m, block_m, sms)
     if easi_slices(b, n, sms) == 0:
-        return [easi_small_estimate(b, n, m, bf16=bf16)]
-    return [easi_gram_estimate(b, n, bf16=bf16, sms=sms), easi_update_estimate(n, m, bf16=bf16)]
+        return [easi_small_estimate(b, n, m, cols=cols, bf16=bf16)]
+    return [easi_gram_estimate(b, n, bf16=bf16, sms=sms),
+            easi_update_estimate(n, m, cols=cols, bf16=bf16)]
 
 
 def flash_attention_call(batch: int, sq: int, skv: int, hq: int, hkv: int, dh: int, *,
@@ -432,7 +455,8 @@ REQUEST_A = dict(batch=4, sq=1024, skv=1024, hq=32, hkv=8, dh=120)
 
 def paper_scale_report(sms: int = H100_SMS) -> List[KernelEstimate]:
     """Every body at the shapes the repo runs it at, each sparse tile
-    template at the wide row; ten bodies in all."""
+    template and each of B2's column templates at the wide row; ten bodies
+    in all."""
     pr, wr = PAPER_ROW, WIDE_ROW
     out = fused_transform_call(pr["rows"], pr["m"], pr["p"], pr["n"], sms=sms)
     out += ternary_matmul_call(pr["rows"], pr["m"], pr["p"], sms=sms)
@@ -443,7 +467,8 @@ def paper_scale_report(sms: int = H100_SMS) -> List[KernelEstimate]:
                                         block_p=bp, sms=sms)
             out += ternary_matmul_call(wr["rows"], wr["m"], wr["p"], block_m=bm, block_p=bp,
                                        sms=sms)
-    out += easi_apply_call(wr["rows"], wr["n"], wr["p"], sms=sms)
+    for cols in EASI_SPLIT_COLS:
+        out += easi_apply_call(wr["rows"], wr["n"], wr["p"], block_m=cols, sms=sms)
     out += flash_attention_call(1, 1024, 1024, 8, 8, 64, bf16=False)
     out += flash_attention_call(**REQUEST_A, bf16=True)
     seen, uniq = set(), []
@@ -456,8 +481,9 @@ def paper_scale_report(sms: int = H100_SMS) -> List[KernelEstimate]:
 
 def every_instance(sms: int = H100_SMS) -> List[KernelEstimate]:
     """One estimate for every template instance the sources compile (each
-    dtype pair, tile template, NA, Dh tile and load path), at the report's
-    shapes: what `chip_smoke.py`'s `[resources]` holds against the card."""
+    dtype pair, tile template, NA, column template, Dh tile and load path),
+    at the report's shapes: what `chip_smoke.py`'s `[resources]` holds
+    against the card."""
     pr, wr = PAPER_ROW, WIDE_ROW
     out: List[KernelEstimate] = []
     for x16 in (False, True):
@@ -468,7 +494,8 @@ def every_instance(sms: int = H100_SMS) -> List[KernelEstimate]:
                                                           block_p=bp, bf16=x16, sms=sms))
         out.append(fused_transform_sum_estimate(wr["rows"], wr["n"], bf16=x16))
         out.append(easi_gram_estimate(wr["rows"], wr["n"], bf16=x16, sms=sms))
-        out.append(easi_update_estimate(wr["n"], wr["p"], bf16=x16))
+        for cols in EASI_SPLIT_COLS:
+            out.append(easi_update_estimate(wr["n"], wr["p"], cols=cols, bf16=x16))
         for b16 in (False, True):
             out.append(fused_transform_dense_estimate(pr["rows"], pr["m"], pr["p"], pr["n"],
                                                       bf16=x16, b_bf16=b16))
@@ -478,7 +505,9 @@ def every_instance(sms: int = H100_SMS) -> List[KernelEstimate]:
                         wr["rows"], wr["m"], wr["p"], wr["n"], block_m=bm, block_p=bp, bf16=x16,
                         b_bf16=b16, sms=sms))
             for na in range(1, 5):
-                out.append(easi_small_estimate(32, 16 * na, 24, bf16=x16, b_bf16=b16))
+                for cols in EASI_SMALL_COLS:
+                    out.append(easi_small_estimate(32, 16 * na, 24, cols=cols, bf16=x16,
+                                                   b_bf16=b16))
     for dh in (64, 128):
         out.append(flash_fma_estimate(1, 1024, 1024, 8, 8, dh))
         for vec in (False, True):

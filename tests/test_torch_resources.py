@@ -31,7 +31,7 @@ GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\(([^)]*)\)\s+)?(\
 def _bodies():
     """{kernel name: (source file, __launch_bounds__ arguments)} from csrc/."""
     out = {}
-    for path in sorted(CSRC.glob("*.cu")):
+    for path in sorted(CSRC.glob("*.cu*")):
         for bounds, name in GLOBAL.findall(path.read_text()):
             out[name] = (path.name, [a.strip() for a in bounds.split(",")] if bounds else [])
     return out
@@ -58,7 +58,7 @@ def test_the_estimators_follow_each_body_s_source_and_launch_bounds():
         assert est.min_ctas == (int(bounds[1]) if len(bounds) > 1 else 1), est.kernel
         assert est.threads == 256, est.kernel            # NTHREADS, FT_THREADS, TC_THREADS, ...
     assert {e.kernel for e in rm.every_instance()} == set(rm.MODELED_KERNELS)
-    assert len(rm.every_instance()) == 70
+    assert len(rm.every_instance()) == 106
 
 
 # (kernel, variant) -> (static, dynamic, CTAs an SM) read on an NVIDIA H100 80GB HBM3 at
@@ -70,9 +70,13 @@ CARD = {("ternary_matmul_dense_kernel", "f32"): (8448, 0, 8),
         ("fused_transform_kernel", "f32/f32,RL=1,PT=64"): (0, 61184, 2),
         ("fused_transform_kernel", "bf16/bf16,RL=2,PT=64"): (0, 102144, 2),
         ("fused_transform_sum_kernel", "f32"): (0, 0, 4),
-        ("easi_small_kernel", "f32/f32,NA=4"): (41472, 0, 2),
+        ("easi_small_kernel", "f32/f32,NA=4,CT=32"): (33024, 8448, 2),
+        ("easi_small_kernel", "f32/f32,NA=4,CT=64"): (33024, 16640, 2),
+        ("easi_small_kernel", "bf16/bf16,NA=4,CT=128"): (33024, 33024, 1),
         ("easi_gram_kernel", "f32"): (20896, 0, 5),
-        ("easi_update_kernel", "bf16"): (38272, 0, 4),
+        ("easi_update_kernel", "bf16,UC=16"): (29568, 8704, 4),
+        ("easi_update_kernel", "f32,UC=32"): (33664, 16896, 1),
+        ("easi_update_kernel", "bf16,UC=64"): (41856, 33280, 2),
         ("flash_attention_kernel", "f32,DH=128"): (0, 115456, 2),
         ("flash_tc_kernel", "bf16,D=128,VEC=1"): (0, 69632, 1)}
 

@@ -10,7 +10,14 @@ port's second step taken from the reference's own first-step state; and for
 `conv_b`, which starts at zero so that AdamW's first step leaves ±lr by its
 gradient's sign, the elements whose sign differs from the reference's after
 one step and their reference gradient over the largest (AdamW's first
-moment after one step is (1 − β1)·g, so it reads the gradient)."""
+moment after one step is (1 − β1)·g, so it reads the gradient).  Under
+"reference_own", for each leaf `BF16_NAMED` names and the rest of the
+farthest: the reference's own bf16 state after two steps against its f32
+state (the distance the bounds' rule scales by BF16_K), the port's bf16
+against the reference's bf16, and the port's bf16 against the reference's
+f32; under "port_over_reference_own", over the float leaves the port's
+bf16 step moves by more than 1e-3 from the reference's, the least and the
+largest ratio of the port's distance to the reference's own."""
 
 import json
 
@@ -32,7 +39,8 @@ from repro_torch.train import optimizer as t_opt
 from repro_torch.train import train_step as t_ts
 from repro_torch.train import trainer as t_trainer
 from test_torch_mesh import _reference_step
-from test_torch_mesh_recurrent import SSD_CHUNK, TRAIN_OPT, ZAMBA, _cfgs, _leaves, _rel
+from test_torch_mesh_recurrent import (BF16_NAMED, SSD_CHUNK, TRAIN_OPT, ZAMBA, _cfgs, _leaves,
+                                        _rel)
 from torch_lm_parity import np_tree
 
 TOP = 8
@@ -48,9 +56,10 @@ def _farthest(got, want):
     return dict(sorted(rels.items(), key=lambda kv: -kv[1])[:TOP])
 
 
-def gap(dtype: str) -> dict:
+def gap(dtype: str) -> tuple:
     """The readings for one compute dtype (zamba2 SMOKE at the test's dims,
-    the test's two batches, no mesh)."""
+    the test's two batches, no mesh), and the reference's and the port's
+    state leaves after the two steps."""
     jc, tc = _cfgs("zamba2_7b", ZAMBA, dtype)
     jcfg = j_ts.TrainConfig(arch=jc, opt=j_opt.AdamWConfig(**TRAIN_OPT))
     tcfg = t_ts.TrainConfig(arch=tc, opt=t_opt.AdamWConfig(**TRAIN_OPT))
@@ -77,12 +86,27 @@ def gap(dtype: str) -> dict:
     m = np.abs(want[0][".opt.m['layers']['conv_b']"].astype(np.float32))
     out["conv_b_step1"] = {"elements": int(flip.size), "sign_differs": int(flip.sum()),
                            "their_grad_over_max": sorted(float(v) for v in m[flip] / m.max())}
-    return out
+    return out, want[1], got[1]
 
 
 def main() -> None:
     j_ssm.SSD_CHUNK = t_ssm.SSD_CHUNK = SSD_CHUNK
-    print(json.dumps({dtype: gap(dtype) for dtype in ("float32", "bfloat16")}, indent=1))
+    res = {dtype: gap(dtype) for dtype in ("float32", "bfloat16")}
+    (_, ref32, _), (_, ref16, port16) = res["float32"], res["bfloat16"]
+    paths = list(BF16_NAMED) + [p for p in _farthest(port16, ref16) if p not in BF16_NAMED]
+    f32 = lambda a: a.astype(np.float32)   # noqa: E731
+    own = {p: {"reference_bf16_vs_f32": _rel(f32(ref16[p]), f32(ref32[p])),
+               "port_bf16_vs_reference_bf16": _rel(f32(port16[p]), f32(ref16[p])),
+               "port_bf16_vs_reference_f32": _rel(f32(port16[p]), f32(ref32[p]))}
+           for p in paths}
+    ratio = {}
+    for p, w in ref32.items():
+        if w.dtype.kind == "f" and _rel(f32(port16[p]), f32(ref16[p])) > 1e-3:
+            ratio[p] = _rel(f32(port16[p]), f32(ref16[p])) / _rel(f32(ref16[p]), f32(w))
+    spread = {"leaves": len(ratio), "min": min(ratio.values()), "max": max(ratio.values()),
+              "max_at": max(ratio, key=ratio.get)}
+    print(json.dumps({**{dtype: r[0] for dtype, r in res.items()}, "reference_own": own,
+                      "port_over_reference_own": spread}, indent=1))
 
 
 if __name__ == "__main__":

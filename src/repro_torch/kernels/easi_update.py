@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build, fake
 from repro_torch.kernels.ref import easi_apply_ref
 
@@ -93,11 +94,12 @@ def easi_apply(b_mat: torch.Tensor, y: torch.Tensor, *, mu: float,
     slices, n_scratch, cols = plan(bsz, n, m, second_order, higher_order, block_m)
     scratch = (torch.empty((n_scratch,), dtype=torch.float32, device=b_mat.device)
                if n_scratch else None)
-    rc = _build.library().repro_easi_apply(
-        _build.ptr(y), _build.ptr(b_mat), None if scratch is None else _build.ptr(scratch),
-        _build.ptr(out), bsz, n, m, float(mu), 1.0 / bsz, int(second_order),
-        int(higher_order), G_KINDS[g_name], slices, cols, y_code, b_code,
-        _build.stream(b_mat))
+    with obs.span("kernel.easi_apply"):
+        rc = _build.library().repro_easi_apply(
+            _build.ptr(y), _build.ptr(b_mat), None if scratch is None else _build.ptr(scratch),
+            _build.ptr(out), bsz, n, m, float(mu), 1.0 / bsz, int(second_order),
+            int(higher_order), G_KINDS[g_name], slices, cols, y_code, b_code,
+            _build.stream(b_mat))
     _build.raise_on_error(name, rc)
     launches += 2 if slices else 1   # the Gram launch and the update, or the one small body
     return out

@@ -39,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build, fake
 from repro_torch.kernels.ref import flash_attention_ref
 
@@ -87,11 +88,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
         return (out, lse) if return_lse else out
-    rc = _build.library().repro_flash_attention(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        _build.ptr(lse) if return_lse else None, b, sq, skv, hq, hkv, dh,
-        int(causal), -1 if window is None else int(window), int(q_offset),
-        1.0 / math.sqrt(dh), code, _build.stream(q))
+    with obs.span("kernel.flash_attention"):
+        rc = _build.library().repro_flash_attention(
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            _build.ptr(lse) if return_lse else None, b, sq, skv, hq, hkv, dh,
+            int(causal), -1 if window is None else int(window), int(q_offset),
+            1.0 / math.sqrt(dh), code, _build.stream(q))
     _build.raise_on_error(name, rc)
     launches += 1
     return (out, lse) if return_lse else out

@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build, fake
 from repro_torch.kernels.ref import fused_transform_ref
 from repro_torch.kernels.resource_model import effective_tiles
@@ -87,10 +88,11 @@ def fused_transform(x: torch.Tensor, r_int8: torch.Tensor, b_mat: torch.Tensor, 
     n_tiles = tiles(rows, m, p, bm, bp)
     part = (torch.empty((n_tiles, rows, n), dtype=torch.float32, device=x.device)
             if n_tiles > 1 else None)
-    rc = _build.library().repro_fused_transform(
-        _build.ptr(x), _build.ptr(r_int8), _build.ptr(b_mat), _build.ptr(out),
-        None if part is None else _build.ptr(part), rows, m, p, n, n_tiles, bm, bp,
-        float(scale), x_code, b_code, _build.stream(x))
+    with obs.span("kernel.fused_transform"):
+        rc = _build.library().repro_fused_transform(
+            _build.ptr(x), _build.ptr(r_int8), _build.ptr(b_mat), _build.ptr(out),
+            None if part is None else _build.ptr(part), rows, m, p, n, n_tiles, bm, bp,
+            float(scale), x_code, b_code, _build.stream(x))
     _build.raise_on_error(name, rc)
     launches += 2 if n_tiles > 1 else 1   # the kernel, and the summing pass after it
     return out

@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build, fake
 from repro_torch.kernels.ref import ternary_matmul_ref
 from repro_torch.kernels.resource_model import effective_tiles
@@ -77,9 +78,10 @@ def ternary_matmul(x: torch.Tensor, r_int8: torch.Tensor, *, scale: float = 1.0,
     if out.numel() == 0:
         return out
     bm, bp = effective_tiles(b, p, m, block_m, block_p)
-    rc = _build.library().repro_ternary_matmul(
-        _build.ptr(x), _build.ptr(r_int8), _build.ptr(out), b, m, p, bm, bp, float(scale),
-        code, _build.stream(x))
+    with obs.span("kernel.ternary_matmul"):
+        rc = _build.library().repro_ternary_matmul(
+            _build.ptr(x), _build.ptr(r_int8), _build.ptr(out), b, m, p, bm, bp, float(scale),
+            code, _build.stream(x))
     _build.raise_on_error(name, rc)
     launches += 1
     return out

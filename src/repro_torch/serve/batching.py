@@ -174,10 +174,11 @@ class Ticket:
     and the SLO tracker counts a miss when the FLUSH STARTS past it (the
     deadline bounds the batching window, not batch compute).
     `deadline is None` means demand-only: the ticket waits for an explicit
-    `flush()` or a full bucket.
+    `flush()` or a full bucket.  `req` is the request id its spans share
+    (`repro_torch.obs`), set at admission while a profile is active.
     """
 
-    __slots__ = ("rows", "submitted_at", "deadline",
+    __slots__ = ("rows", "submitted_at", "deadline", "req",
                  "_result", "_error", "_done", "_event")
 
     def __init__(self, rows: int, *, submitted_at: Optional[float] = None,
@@ -185,6 +186,7 @@ class Ticket:
         self.rows = rows
         self.submitted_at = submitted_at
         self.deadline = deadline
+        self.req: Optional[int] = None
         self._result = None
         self._error: Optional[BaseException] = None
         self._done = False

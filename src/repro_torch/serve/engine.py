@@ -74,7 +74,7 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tupl
 
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, obs
 from repro_torch.core.execution import Execution
 from repro_torch.dr.model import ModelState
 from repro_torch.dist import sharding as shard_rules
@@ -228,25 +228,31 @@ class CapturedProgram:
                 len(st.stages) != len(bufs) for st, bufs in zip(states, self._bufs)):
             raise ValueError("captured program called with states of another structure")
         stream = torch.cuda.current_stream(self._x.device)
+        waited = obs.span("dr.lock")      # closed once the lock is held
+        waited.__enter__()
         with self._lock:
-            if self._done is not None:
-                stream.wait_event(self._done)
-            for i, st in enumerate(states):
-                for t, b, old, ver in zip(st.stages, self._bufs[i], self._loaded[i],
-                                          self._versions[i]):
-                    if b is not None and needs_reload(t, old, ver):
-                        b.copy_(t)
-                self._loaded[i] = tuple(st.stages)
-                self._versions[i] = tuple(map(_version, st.stages))
-            self._x[:rows].copy_(x)
-            if self._dirty > rows:
-                self._x[rows:self._dirty].zero_()
-            self._dirty = rows
-            self.graph.replay()
-            ragged = rows < self._x.shape[0]
-            outs = iter([(t[:rows] if ragged else t).clone() if src is None
-                         else states[src[0]].stages[src[1]]
-                         for t, src in zip(_leaves(self._out), self._out_src)])
+            waited.__exit__(None, None, None)
+            with obs.span("dr.reload"):
+                if self._done is not None:
+                    stream.wait_event(self._done)
+                for i, st in enumerate(states):
+                    for t, b, old, ver in zip(st.stages, self._bufs[i], self._loaded[i],
+                                              self._versions[i]):
+                        if b is not None and needs_reload(t, old, ver):
+                            b.copy_(t)
+                    self._loaded[i] = tuple(st.stages)
+                    self._versions[i] = tuple(map(_version, st.stages))
+                self._x[:rows].copy_(x)
+                if self._dirty > rows:
+                    self._x[rows:self._dirty].zero_()
+                self._dirty = rows
+            with obs.span("dr.replay"):
+                self.graph.replay()
+            with obs.span("dr.outputs"):
+                ragged = rows < self._x.shape[0]
+                outs = iter([(t[:rows] if ragged else t).clone() if src is None
+                             else states[src[0]].stages[src[1]]
+                             for t, src in zip(_leaves(self._out), self._out_src)])
             self._done = torch.cuda.Event()
             self._done.record(stream)
             self.replays += 1
@@ -396,7 +402,7 @@ class DRService:
         lock, so a concurrent `serve_and_update` either lands before the
         pop (its update is in the promoted state) or after the promote
         (it chains onto the newly-live state) — never in between."""
-        with self._tws_lock(name):
+        with obs.span("dr.promote"), self._tws_lock(name):
             if version is None:
                 with self._tws_guard:
                     staged = self._staged.pop(name, None)
@@ -498,9 +504,10 @@ class DRService:
         """Serve one request (B, m) → (B, n) with the live state, padded to
         the bucket shape and run through the bounded compile cache.
         Requests above max_bucket are chunked."""
-        snap = self.registry.get(name)
-        self._check_request(snap, x)
-        return self._serve_rows(snap, x)
+        with obs.span("dr.transform"):
+            snap = self.registry.get(name)
+            self._check_request(snap, x)
+            return self._serve_rows(snap, x)
 
     # ---- micro-batched serving ---------------------------------------------
     def submit(self, name: str, x: torch.Tensor, *,
@@ -549,7 +556,8 @@ class DRService:
                     # step fails only its own ticket, the rest still run
                     for work, t in items:
                         try:
-                            out = work.fn(*work.args)
+                            with obs.span("serve.step", t.req):
+                                out = work.fn(*work.args)
                         except Exception as e:  # noqa: BLE001
                             t._fail(e)
                             continue
@@ -694,47 +702,48 @@ class DRService:
         `_fused_update_fn`); a `register(replace=True)` racing the
         pre-build is detected by config-hash mismatch under the lock and
         rebuilt there (rare, waived)."""
-        snap0 = self.registry.get(name)
-        self._check_request(snap0, x)
-        if snap0.ensemble:
-            raise NotImplementedError(
-                "train-while-serve targets single models; ensembles are "
-                "serve-only (fit them offline via DREnsemble.fit)")
-        with self._tws_guard:
-            acc = self._accum.get(name, 0.0) + self.update_fraction
-            skip = acc < 1.0 - 1e-9
-            self._accum[name] = acc if skip else acc - 1.0
-        if skip:                                # no update on this block
-            return self._serve_rows(snap0, x)
+        with obs.span("dr.serve_and_update"):
+            snap0 = self.registry.get(name)
+            self._check_request(snap0, x)
+            if snap0.ensemble:
+                raise NotImplementedError(
+                    "train-while-serve targets single models; ensembles are "
+                    "serve-only (fit them offline via DREnsemble.fit)")
+            with self._tws_guard:
+                acc = self._accum.get(name, 0.0) + self.update_fraction
+                skip = acc < 1.0 - 1e-9
+                self._accum[name] = acc if skip else acc - 1.0
+            if skip:                                # no update on this block
+                return self._serve_rows(snap0, x)
 
-        fused = self._fused_update_fn(snap0, x)
-        with self._tws_lock(name):
-            snap = self.registry.get(name)
-            if snap.chash != snap0.chash:
-                # a replace raced the pre-build: re-validate and rebuild
-                # for the new config (builds under the lock, which is acceptable:
-                # losing this race is as rare as the replace itself)
-                self._check_request(snap, x)
-                fused = self._fused_update_fn(snap, x)  # analysis: allow(blocking-under-lock)
-            with self._tws_guard:
-                staged = self._staged.get(name)
-                if staged is None:
-                    # a fresh chain starts here: remember the base it is
-                    # folded from, so a merge round can extract the delta
-                    staged = snap.state
-                    self._staged_from[name] = snap.state
-                    self._chain_updates[name] = 0
-            y, stages = fused(snap.state, staged, x)
-            new_staged = staged._replace(stages=stages, steps=staged.steps + 1)
-            with self._tws_guard:
-                self._staged[name] = new_staged
-                self._updates[name] = self._updates.get(name, 0) + 1
-                self._chain_updates[name] = \
-                    self._chain_updates.get(name, 0) + 1
-        with self._metrics_lock:
-            self.served_rows += int(x.shape[0])
-            self.batches_run += 1
-        return y
+            fused = self._fused_update_fn(snap0, x)
+            with self._tws_lock(name):
+                snap = self.registry.get(name)
+                if snap.chash != snap0.chash:
+                    # a replace raced the pre-build: re-validate and rebuild
+                    # for the new config (builds under the lock, which is acceptable:
+                    # losing this race is as rare as the replace itself)
+                    self._check_request(snap, x)
+                    fused = self._fused_update_fn(snap, x)  # analysis: allow(blocking-under-lock)
+                with self._tws_guard:
+                    staged = self._staged.get(name)
+                    if staged is None:
+                        # a fresh chain starts here: remember the base it is
+                        # folded from, so a merge round can extract the delta
+                        staged = snap.state
+                        self._staged_from[name] = snap.state
+                        self._chain_updates[name] = 0
+                y, stages = fused(snap.state, staged, x)
+                new_staged = staged._replace(stages=stages, steps=staged.steps + 1)
+                with self._tws_guard:
+                    self._staged[name] = new_staged
+                    self._updates[name] = self._updates.get(name, 0) + 1
+                    self._chain_updates[name] = \
+                        self._chain_updates.get(name, 0) + 1
+            with self._metrics_lock:
+                self.served_rows += int(x.shape[0])
+                self.batches_run += 1
+            return y
 
     # ---- warmup / metrics --------------------------------------------------
     def warmup(self, name: str, *, dtype=torch.float32,
@@ -786,7 +795,9 @@ class DRService:
         # resolution: max_delay_ms bounds the batching window (how long the
         # queue may hold a request), so a deadline-triggered flush that
         # starts on time IS met — judging on resolution would brand every
-        # deadline-expiry flush a miss by construction.
+        # deadline-expiry flush a miss by construction.  `e2e_ms` ends now,
+        # when the batch's work has run on the host: on the card, when its
+        # kernels are enqueued, not when the device has finished them.
         if t.submitted_at is None:
             return
         now = self.clock.now()

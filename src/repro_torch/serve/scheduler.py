@@ -22,6 +22,10 @@ until `advance()` moves time.  Tests can also skip the thread entirely
 (`start=False`) and pump `poll()` by hand after advancing — fully
 deterministic, no sleeps anywhere.
 
+While a `torch.profiler` profile is active the loop's phases are
+`repro_torch.obs` spans: `sched.park` (each wait on the clock),
+`sched.scan`, `sched.flush`, and the client's `sched.admit`.
+
     svc = DRService(buckets=BucketPolicy(min_bucket=8, max_bucket=64))
     svc.register("m", model, state)
     with DeadlineScheduler(svc, default_max_delay_ms=5.0) as sched:
@@ -36,6 +40,7 @@ from typing import Any, Callable, Hashable, List, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.execution import Execution
 from repro_torch.serve.engine import DRService
 
@@ -80,8 +85,6 @@ class DeadlineScheduler:
         self._stop = False  # guarded-by: _cond
         self._drain_on_stop = True  # guarded-by: _cond
         self._thread: Optional[threading.Thread] = None
-        self.flushes = 0          # batches flushed by this scheduler
-        self.polls = 0
         if start:
             self.start()
 
@@ -105,13 +108,17 @@ class DeadlineScheduler:
                     fn: Callable[..., Any], *args: Any,
                     rows: int = 1, max_delay_ms: Optional[float] = None):
         """Admit a non-DR step (LM prefill/decode) — same deadline rules,
-        same queue, same SLO accounting as DR traffic."""
-        with self._cond:
+        same queue, same SLO accounting as DR traffic.  While a profile is
+        active the ticket carries a request id (`Ticket.req`), shared by
+        its `sched.admit` and `serve.step` spans."""
+        req = obs.request_id()
+        with obs.span("sched.admit", req), self._cond:
             self._check_open()
             t = self.service.submit_step(
                 tag, kind, fn, *args, rows=rows,
                 max_delay_ms=self.default_max_delay_ms
                 if max_delay_ms is None else max_delay_ms)
+            t.req = req
             self._cond.notify_all()
         return t
 
@@ -143,13 +150,11 @@ class DeadlineScheduler:
         at the clock's current now.  Returns device batches run.  Safe to
         call from any thread, any time — the loop and manual pumping
         compose (a group drains exactly once)."""
-        self.polls += 1
         due, _ = self._scan(self.service.clock.now())
         if not due:
             return 0
-        n = self.service.flush(keys=due)
-        self.flushes += n
-        return n
+        with obs.span("sched.flush"):
+            return self.service.flush(keys=due)
 
     def next_deadline(self) -> Optional[float]:
         """Earliest absolute deadline (clock ms) over queued tickets, or
@@ -163,12 +168,13 @@ class DeadlineScheduler:
         the NOT-due remainder) — the loop's whole decision in one pass."""
         due: List[Hashable] = []
         nxt: Optional[float] = None
-        for k, (rows, dl) in self.service.batcher.pending_by_key().items():
-            if rows >= self.flush_rows or \
-                    (dl is not None and dl <= now + self.wake_lead_ms):
-                due.append(k)
-            elif dl is not None:
-                nxt = dl if nxt is None else min(nxt, dl)
+        with obs.span("sched.scan"):
+            for k, (rows, dl) in self.service.batcher.pending_by_key().items():
+                if rows >= self.flush_rows or \
+                        (dl is not None and dl <= now + self.wake_lead_ms):
+                    due.append(k)
+                elif dl is not None:
+                    nxt = dl if nxt is None else min(nxt, dl)
         return due, nxt
 
     def _run(self) -> None:
@@ -186,14 +192,12 @@ class DeadlineScheduler:
                 due, dl = self._scan(now)
                 if due:
                     continue
-                if dl is None:
-                    clock.wait(self._cond, None)
-                else:
-                    # park until wake_lead_ms BEFORE the next deadline so
-                    # the flush starts inside the budget on a real clock
-                    clock.wait(self._cond, dl - now - self.wake_lead_ms)
+                # park until wake_lead_ms BEFORE the next deadline so
+                # the flush starts inside the budget on a real clock
+                with obs.span("sched.park"):
+                    clock.wait(self._cond, None if dl is None else dl - now - self.wake_lead_ms)
         if self._drain_on_stop:
-            self.flushes += self.service.flush()
+            self.service.flush()
 
     # ---- lifecycle ---------------------------------------------------------
     @property
@@ -233,7 +237,7 @@ class DeadlineScheduler:
             if t.is_alive():
                 raise RuntimeError("scheduler loop did not stop in time")
         elif drain:
-            self.flushes += self.service.flush()
+            self.service.flush()
 
     def __enter__(self) -> "DeadlineScheduler":
         return self

@@ -4,7 +4,11 @@ Two latency distributions per (model name, bucket):
 
   queue_delay — submit → flush start (time a ticket sat in the admission
                 queue; what the deadline scheduler bounds), and
-  e2e         — submit → result resolved (queue delay + batch compute).
+  e2e         — submit → result resolved: the queue delay plus the host's
+                time to run the batch.  On the card a ticket resolves once
+                its batch's work is enqueued, so for an LM step (whose
+                kernels the device may still be running) this is not the
+                device's completion.
 
 plus deadline counters: a ticket submitted with `max_delay_ms` is *met*
 when its flush STARTS at or before its deadline and *missed* otherwise —

@@ -43,6 +43,11 @@ a mesh the same body runs as a world of one rank.
 replicated, each rank's gradients synced through `compress.compress_sync`
 (B3 sketches averaged over the DP axes, error feedback per rank), the loss
 averaged over the DP axes.
+
+While a `torch.profiler` profile is active, both steps open `repro_torch.obs`
+spans: `train.step` around the call, and inside it `train.feed`,
+`train.dr_frontend`, `train.forward`, `train.backward`, `train.optimizer`,
+`train.dr_update` (and `train.grad_sync` in the DP step).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import dr_unit
 from repro_torch.core.execution import Execution
 from repro_torch.dist import compress as compress_mod
@@ -150,17 +156,25 @@ def make_loss(cfg: TrainConfig, dcfg: Optional[dr_unit.DRConfig], *,
     """loss(params, dr, batch) -> (loss, aux): the DR front-end, then
     `api.loss_fn`."""
     def loss(params, dr, batch):
-        batch = _apply_dr_frontend(dr, dcfg, batch, execution=execution)
+        with obs.span("train.dr_frontend"):
+            batch = _apply_dr_frontend(dr, dcfg, batch, execution=execution)
         return api.loss_fn(params, batch, cfg.arch, remat=cfg.remat, execution=execution)
     return loss
 
 
 def value_and_grad(loss_fn, params: Tree, dr, batch) -> Tuple[torch.Tensor, dict, Tree]:
     """(loss, aux, grads in params' nesting) by autograd; a leaf the loss
-    does not read gets a zero gradient, as `jax.grad` gives it."""
+    does not read gets a zero gradient, as `jax.grad` gives it.
+
+    Spans `train.forward` (the loss) and `train.backward` (autograd).  On
+    the card autograd runs the backward on its device thread, so
+    `train.backward` is how long the calling thread blocks on it: the
+    backward's host time, remat's recomputed forwards included."""
     leaves = [t.detach().requires_grad_(True) for t in opt_mod.tree_leaves(params)]
-    loss, aux = loss_fn(opt_mod.tree_unflatten(params, leaves), dr, batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    with obs.span("train.forward"):
+        loss, aux = loss_fn(opt_mod.tree_unflatten(params, leaves), dr, batch)
+    with obs.span("train.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in aux.items()},
             opt_mod.tree_unflatten(params, grads))
 
@@ -207,13 +221,19 @@ def make_train_step(cfg: TrainConfig, *, execution: Execution = Execution(), mes
         return api.loss_fn(params, batch, cfg.arch, remat=cfg.remat, execution=execution)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        batch = {name: torch.as_tensor(shard_rules.full(t)).to(dev) for name, t in batch.items()
-                 if name != "step"}
+        with obs.span("train.step"):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with obs.span("train.feed"):
+            batch = {name: torch.as_tensor(shard_rules.full(t)).to(dev)
+                     for name, t in batch.items() if name != "step"}
         params, specs = shard_rules.local_specs(state.params)
         gsum, lsum, aux, split, seq = None, 0.0, {}, False, False
         for micro in _micro_batches(batch, k):
             # the front-end's normalisation reads the whole (micro-)batch
-            micro = _apply_dr_frontend(state.dr, dcfg, micro, execution=execution)
+            with obs.span("train.dr_frontend"):
+                micro = _apply_dr_frontend(state.dr, dcfg, micro, execution=execution)
             split = shard_rules.splits_rows(next(iter(micro.values())).shape[0], mesh)
             # each rank of `model` holds its share of the loss where the
             # transformer's stream splits by sequence or Zamba-2's by feature
@@ -225,7 +245,7 @@ def make_train_step(cfg: TrainConfig, *, execution: Execution = Execution(), mes
             gsum = g if gsum is None else opt_mod.tree_map(torch.add, gsum, g)
             lsum = lsum + loss
             del g
-        with torch.no_grad():
+        with torch.no_grad(), obs.span("train.optimizer"):
             grads = gsum if k == 1 else opt_mod.tree_map(lambda t: t / k, gsum)
             del gsum
             loss, aux = (lsum, aux) if k == 1 else (lsum / k, {})
@@ -247,10 +267,11 @@ def make_train_step(cfg: TrainConfig, *, execution: Execution = Execution(), mes
             params = relay(params, state.params)
             opt_state = opt_state._replace(m=relay(opt_state.m, state.opt.m),
                                            v=relay(opt_state.v, state.opt.v))
-            # DR front-end: streaming EASI update on this batch's raw features,
-            # the whole batch on every rank, so the DR unit stays replicated
-            dr = state.dr
-            if dr is not None:
+        # DR front-end: streaming EASI update on this batch's raw features,
+        # the whole batch on every rank, so the DR unit stays replicated
+        dr = state.dr
+        if dr is not None:
+            with torch.no_grad(), obs.span("train.dr_update"):
                 key = "frames" if "frames" in batch else "patches"
                 feats = _dr_normalize(batch[key].reshape(-1, cfg.arch.frontend_dim))
                 dr = dr_unit.update(dr, dcfg, feats[:DR_UPDATE_ROWS], execution=execution)
@@ -288,22 +309,29 @@ def make_dp_compressed_step(cfg: TrainConfig, mesh, *, execution: Execution = Ex
     n_dp = shard_rules.axis_size(mesh, ax)
 
     def step(state: TrainState, batch, ef):
-        batch = {name: torch.as_tensor(shard_rules.full(t)).to(dev) for name, t in batch.items()
-                 if name != "step"}
+        with obs.span("train.step"):
+            return _step(state, batch, ef)
+
+    def _step(state: TrainState, batch, ef):
+        with obs.span("train.feed"):
+            batch = {name: torch.as_tensor(shard_rules.full(t)).to(dev)
+                     for name, t in batch.items() if name != "step"}
         rows = next(iter(batch.values())).shape[0]
         if rows % n_dp:
             raise ValueError(f"a batch of {rows} rows does not split over {n_dp} DP ranks")
         loss, _, grads = value_and_grad(loss_fn, state.params, state.dr,
                                         _local_batch(batch, mesh, n_dp > 1))
         with torch.no_grad():
-            synced, new_ef = compress_mod.compress_sync(
-                grads, ef, cfg.grad_compress, ax, mesh=mesh, backend=execution.backend, r=r)
+            with obs.span("train.grad_sync"):
+                synced, new_ef = compress_mod.compress_sync(
+                    grads, ef, cfg.grad_compress, ax, mesh=mesh, backend=execution.backend, r=r)
             if inspect is not None:
                 inspect(grads, ef, synced, new_ef)
             del grads
-            loss = shard_rules.all_reduce_mean_(loss.clone(), mesh, ax)
-            params, opt_state, metrics = opt_mod.apply_updates(state.params, synced, state.opt,
-                                                               cfg.opt)
+            with obs.span("train.optimizer"):
+                loss = shard_rules.all_reduce_mean_(loss.clone(), mesh, ax)
+                params, opt_state, metrics = opt_mod.apply_updates(state.params, synced,
+                                                                   state.opt, cfg.opt)
         return (TrainState(params=params, opt=opt_state, dr=state.dr, step=state.step + 1),
                 new_ef, {"loss": loss, **metrics})
 

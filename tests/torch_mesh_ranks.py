@@ -759,9 +759,37 @@ def scenario_mesh_recurrent(rank, world, inputs, d):
     return out
 
 
+def scenario_dp_spans(rank, world, inputs, d):
+    """One `make_dp_compressed_step` under a profile: the spans it records
+    on this rank, as (name, parent's name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.dist import compress
+    from repro_torch.models.config import DRFrontendSpec
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import trainer
+
+    arch = dataclasses.replace(registry.get_smoke("hubert_xlarge"), compute_dtype="float32",
+                               dr_frontend=DRFrontendSpec(p=16, n=8))
+    cfg = ts.TrainConfig(arch=arch, grad_compress=compress.CompressConfig())
+    state = ts.init_state(torch.Generator().manual_seed(0), cfg, execution=_cpu())
+    data = synthetic.TokenStreamConfig(vocab_size=arch.vocab_size, seq_len=8,
+                                       global_batch=2 * world)
+    step = ts.make_dp_compressed_step(cfg, _mesh((world, 1)), execution=_cpu())
+    batch = trainer.make_batch(arch, data, 0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        step(state, batch, compress.residual_init(state.params))
+    spans = obs.spans()
+    names = {s.index: s.name for s in spans}
+    return {"spans": [(s.name, names.get(s.parent)) for s in spans]}
+
+
 SCENARIOS = {"mesh_2x2": scenario_mesh_2x2, "mesh_4x2": scenario_mesh_4x2,
              "dist_8": scenario_dist_8, "mesh_tp": scenario_mesh_tp,
-             "mesh_recurrent": scenario_mesh_recurrent}
+             "mesh_recurrent": scenario_mesh_recurrent, "dp_spans": scenario_dp_spans}
 
 
 def main():

@@ -96,7 +96,10 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 with Sq = 1, Skv not a multiple of 64; f32 and bf16; rows
                 that see no key are 0, their lse about -1e30); and
                 FlashAttentionFn's dq, dk, dv with the kernel's forward
-                against the all-plain ones
+                (and, in bf16, the kernel backward) against the all-plain
+                ones; the backward kernel timed at hubert-xlarge's and
+                h2o's training shapes beside its plain version, SDPA's
+                backward and its bound
   7. lm       — h2o-danube-3-4b at full width and depth (24 layers, seeded
                 random weights) served through `serve_step.make_prefill` /
                 `make_decode` with the kernel backend: request A (4 prompts
@@ -149,10 +152,11 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 share, peak memory
  13. train-lm — h2o-danube-3-4b at full width, 8 of its 24 layers, 2 x 4096
                 tokens from the synthetic stream: loss and every gradient
-                leaf, kernel backend (B4 forward with lse, the plain
-                backward) against the torch backend from one seeded state
+                leaf, kernel backend (B4 forward with lse, the backward
+                kernel) against the torch backend from one seeded state
                 within LM_REL_NORM; three steps of `make_train_step`,
-                flash counted twice a layer a step (forward, remat)
+                flash counted twice a layer a step (forward, remat) and its
+                backward twice (two passes)
  14. train-dr — hubert-xlarge CONFIG_DR at full width and depth, 2 x 1024
                 frames: the same comparison, then two train steps a backend
                 with the DR unit co-trained (B within TRAJ_TOL after each);
@@ -192,7 +196,7 @@ Phases (the first that fails ends the run with a non-zero exit code):
 
 It prints a `{"kernels": [...]}` JSON line, the card's line from nvidia-smi,
 and as its last line `{"ok": true, "device": {...}}`.  `--only fleet,fleet-tcp`
-(or `kernels`, `resources`, `wide`, `serve`, `autotune`, `mesh`, `dryrun`) runs
+(or `kernels`, `resources`, `wide`, `serve`, `autotune`, `flash`, `mesh`, `dryrun`) runs
 the card phase and the named phases alone and prints no contract line.  It imports nothing of
 JAX or of the JAX package.
 """
@@ -371,6 +375,12 @@ FLASH_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 FLASH_GRAD_REL_NORM = 1e-2
 FLASH_GRAD_SHAPES = [(2, 333, 333, 32, 8, 120, True, None), (1, 600, 5001, 32, 8, 120, True, 4096),
                      (2, 333, 333, 16, 16, 80, False, None), (1, 129, 190, 4, 4, 13, True, None)]
+# the attention backward timed at the training shapes: hubert-xlarge's train
+# cell (8 x 1024, 16 / 16 heads of 80, non-causal) and train-lm's h2o layer
+# (2 x 4096, 32 / 8 heads of 120, causal, its window of 4096 hiding nothing):
+# (b, s, hq, hkv, dh, causal, window)
+FLASH_BWD_TIMING = {"hubert-xlarge": (8, 1024, 16, 16, 80, False, None),
+                    "h2o-danube-3-4b": (2, 4096, 32, 8, 120, True, 4096)}
 # LM training.  train-lm: h2o-danube-3-4b at full width, 8 of its 24 layers
 # (1.484 B f32 params; params + grads + AdamW m and v take 23.7 GB), 2 x 4096
 # tokens from the synthetic stream.  train-dr: hubert-xlarge CONFIG_DR at full
@@ -870,6 +880,7 @@ def reset_counts():
 
     for mod in (ternary_matmul, fused_transform, easi_update, flash_attention):
         mod.launches = 0
+    flash_attention.bwd_launches = 0
 
 
 def read_counts():
@@ -2797,14 +2808,16 @@ def phase_flash(dev, errs):
           f"{errs[('flash_attention', 'f32')]:.3e}, bf16 {errs[('flash_attention', 'bf16')]:.3e}; "
           f"lse f32 {errs[('lse', 'f32')]:.3e}, bf16 {errs[('lse', 'bf16')]:.3e} (bounds "
           f"{LSE_TOL['f32']}, {LSE_TOL['bf16']}); FlashAttentionFn's gradients, kernel forward "
-          f"vs all plain: {json.dumps(grad_err)}")
+          f"(and in bf16 the kernel backward) vs all plain: {json.dumps(grad_err)}")
     errs["flash_grads"] = grad_err
+    errs["flash_bwd_timing"] = flash_bwd_timing(dev)
 
 
 def flash_grad_checks(dev, gen):
     """dq, dk, dv of `blocks.flash_attention` with backend="kernel" (the
-    kernel's forward and lse, the plain backward) against backend="torch"
-    (all plain), at FLASH_GRAD_SHAPES in f32 and bf16."""
+    kernel's forward and lse; in bf16 the kernel backward, in f32 the plain
+    one) against backend="torch" (all plain), at FLASH_GRAD_SHAPES in f32
+    and bf16."""
     import torch
     from repro_torch.models import blocks
 
@@ -2835,6 +2848,57 @@ def flash_grad_checks(dev, gen):
                              f"{FLASH_GRAD_REL_NORM})")
                     worst["bf16_max_rel_norm"] = max(worst["bf16_max_rel_norm"], rel)
     return worst
+
+
+def flash_bwd_timing(dev):
+    """The backward kernel (`flash_attention_bwd`, both passes) at each shape
+    of FLASH_BWD_TIMING: device-only ms (graph replay), beside the plain
+    version's ms, the backward of SDPA (a yardstick the port never calls)
+    and the bound: 10 Dh operations a visible (query, key) pair and query
+    head at the bf16 peak, or q, k, v, out, dout, lse read and dq, dk, dv
+    written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fake, flash_attention
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+
+    gen = torch.Generator().manual_seed(97)
+    rows = {}
+    for name, (b, s, hq, hkv, dh, causal, window) in FLASH_BWD_TIMING.items():
+        q, k, v, dout = [torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+                         for shape in ((b, s, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh),
+                                       (b, s, hq, dh))]
+        kw = dict(causal=causal, window=window)
+        out, lse = flash_attention.flash_attention(q, k, v, return_lse=True, **kw)
+        kernel = lambda: flash_attention.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        plain = lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        g = hq // hkv
+        qs = q.transpose(1, 2).detach().requires_grad_(True)
+        ks = k.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
+        vs = v.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        do_s = dout.transpose(1, 2)
+        lib = lambda: torch.autograd.grad(o, (qs, ks, vs), do_s, retain_graph=True)
+        dev_ms = time_graph(kernel, 10, 5)
+        plain_ms = time_events(plain, 3, 1)
+        lib_ms = time_events(lib, 10, 3)
+        pairs = fake.visible_pairs(s, s, causal, window, 0) * b * hq
+        el = 2
+        b_flops = 10.0 * dh * pairs
+        b_bytes = el * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        t_ops, t_bytes = b_flops / PEAK_BF16_FLOPS, b_bytes / PEAK_BYTES
+        bound = max(t_ops, t_bytes) * 1e3
+        rows[name] = {"shape": [b, s, hq, hkv, dh, causal, window], "device_ms": dev_ms,
+                      "plain_ms": plain_ms, "sdpa_backward_ms": lib_ms,
+                      "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                      "roofline": bound / dev_ms}
+        print(f"[time] flash_attention_bwd {name} {rows[name]['shape']} bf16: kernel "
+              f"{dev_ms:.4f} ms device-only, plain {plain_ms:.3f} ms, SDPA backward "
+              f"{lib_ms:.4f} ms, bound {bound:.6f} ms ({rows[name]['bound_by']}; "
+              f"{100 * bound / dev_ms:.1f} % of it)")
+        del q, k, v, dout, out, lse, qs, ks, vs, o
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3523,9 +3587,10 @@ def phase_frontend(dev):
                      "prefill_ms": k["t_prefill"] * 1e3, "torch_dr_ms": t["t_dr"] * 1e3,
                      "torch_prefill_ms": t["t_prefill"] * 1e3}
     counts = all_counts()
-    missing = [n for n, c in counts.items() if c <= 0]
-    if missing:
-        fail(f"frontend: kernels never launched on the front-end path: {missing}")
+    missing = [n for n, c in counts.items() if c <= 0 and n != "flash_attention_bwd"]
+    if missing or counts["flash_attention_bwd"]:
+        fail(f"frontend: kernels never launched on the front-end path: {missing}, or a "
+             f"backward launched: {counts}")
     print(f"[frontend] launches on the front-end path: {json.dumps(counts)}")
     return counts, out
 
@@ -4008,17 +4073,19 @@ def phase_train_lm(dev):
     batches = [to_device({"tokens": synthetic.token_batch(data, i)["tokens"]}, dev)
                for i in range(TRAIN_LM["steps"] + 1)]
     grads, counts_g = backend_grads("train-lm", tcfg, state, batches[0], dev)
-    if counts_g["flash_attention"] != 2 * cfg.n_layers:
-        fail(f"train-lm: flash launched {counts_g['flash_attention']} times in one loss + "
-             f"grads, want {2 * cfg.n_layers} (forward and remat recompute per layer)")
+    if counts_g["flash_attention"] != 2 * cfg.n_layers or \
+            counts_g["flash_attention_bwd"] != 2 * cfg.n_layers:
+        fail(f"train-lm: flash launched {counts_g['flash_attention']} times and its backward "
+             f"{counts_g['flash_attention_bwd']} in one loss + grads, want {2 * cfg.n_layers} "
+             f"each (forward and remat recompute per layer; the backward's two passes)")
     step_fn = ts.make_train_step(tcfg, execution=Execution(backend="kernel", device=dev))
     reset_counts()
     state, losses, secs = run_steps("train-lm", step_fn, state, batches[:TRAIN_LM["steps"]], dev)
     counts = all_counts()
     want = 2 * cfg.n_layers * TRAIN_LM["steps"]
-    if counts["flash_attention"] != want:
-        fail(f"train-lm: flash launched {counts['flash_attention']} times in "
-             f"{TRAIN_LM['steps']} steps, want {want}")
+    if counts["flash_attention"] != want or counts["flash_attention_bwd"] != want:
+        fail(f"train-lm: flash launched {counts['flash_attention']} times and its backward "
+             f"{counts['flash_attention_bwd']} in {TRAIN_LM['steps']} steps, want {want} each")
     print(f"[train-lm] {TRAIN_LM['steps']} train steps (kernel backend): losses "
           f"{json.dumps(losses)}; launches {json.dumps(counts)}")
     timing = step_timing(f"h2o-danube-3-4b ({cfg.n_layers} layers, {TRAIN_LM['batch']} x "
@@ -4079,8 +4146,9 @@ def phase_train_dr(dev):
     if missing:
         fail(f"train-dr: kernels never launched on the training path: {missing}")
     want = 2 * cfg.n_layers * TRAIN_DR["steps"]
-    if counts["flash_attention"] != want:
-        fail(f"train-dr: flash launched {counts['flash_attention']} times, want {want}")
+    if counts["flash_attention"] != want or counts["flash_attention_bwd"] != want:
+        fail(f"train-dr: flash launched {counts['flash_attention']} times and its backward "
+             f"{counts['flash_attention_bwd']}, want {want} each (two a layer a step)")
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["kernel"], losses["torch"]))
     if not rel <= LM_REL_NORM:
         fail(f"train-dr: losses kernel {losses['kernel']} vs torch {losses['torch']}")
@@ -4175,10 +4243,13 @@ def phase_train_recurrent(dev):
             text = "bit-identical states"
         else:
             want = 2 * 2 * -(-cfg.n_layers // cfg.hybrid.attn_every)
-            if c["flash_attention"] != want or cg["flash_attention"] != want // 2:
+            if any(c[n_] != want or cg[n_] != want // 2
+                   for n_ in ("flash_attention", "flash_attention_bwd")):
                 fail(f"train-recurrent zamba: flash launched {c['flash_attention']} times in a "
                      f"step (want {want}: 2 applications x forward + recompute x 2 "
-                     f"micro-batches), {cg['flash_attention']} in one micro-batch's loss + grads")
+                     f"micro-batches), {cg['flash_attention']} in one micro-batch's loss + "
+                     f"grads; its backward {c['flash_attention_bwd']} / "
+                     f"{cg['flash_attention_bwd']} (two passes a call: the same counts)")
             state_rel = tree_worst_rel(k_final, t_final)
             if abs(k_losses[0] - t_losses[0]) / abs(t_losses[0]) > LM_REL_NORM:
                 fail(f"train-recurrent zamba: step losses {k_losses} / {t_losses}")
@@ -4276,9 +4347,10 @@ def phase_trainer(dev):
             fail(f"trainer: the resumed run differs from the straight run: params relative norm "
                  f"{rel[0]:.3e} at {rel[1]}, losses {loss_rel:.3e}; deterministic-mode notes "
                  f"{notes}")
-    if counts["flash_attention"] != 2 * cfg.n_layers * TRAINER["steps"]:
-        fail(f"trainer: flash launched {counts['flash_attention']} times in "
-             f"{TRAINER['steps']} steps, want {2 * cfg.n_layers * TRAINER['steps']}")
+    want = 2 * cfg.n_layers * TRAINER["steps"]
+    if counts["flash_attention"] != want or counts["flash_attention_bwd"] != want:
+        fail(f"trainer: flash launched {counts['flash_attention']} times and its backward "
+             f"{counts['flash_attention_bwd']} in {TRAINER['steps']} steps, want {want} each")
     print(f"[trainer] {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{TRAINER['batch']} x {TRAINER['seq']} tokens, lr {TRAINER['lr']}): {len(losses)} steps "
           f"in {t_full:.1f} s with checkpoints every {TRAINER['ckpt_every']}; losses "
@@ -4712,9 +4784,12 @@ def phase_mesh(dev, card_line):
     if not (loss_rel <= 1e-6 and gn_rel <= 1e-6 and leaf_rel <= 1e-6):
         fail(f"mesh: meshed train step vs unmeshed: loss {loss_rel:.3e}, grad norm "
              f"{gn_rel:.3e}, params' leaf norms {leaf_rel:.3e} (relative; bound 1e-6)")
-    if counts["train"]["flash_attention"] != 4 * tcfg.arch.n_layers:
-        fail(f"mesh: flash launched {counts['train']['flash_attention']} times in two meshed "
-             f"steps, want {4 * tcfg.arch.n_layers} (forward and remat recompute per layer)")
+    if counts["train"]["flash_attention"] != 4 * tcfg.arch.n_layers or \
+            counts["train"]["flash_attention_bwd"] != 4 * tcfg.arch.n_layers:
+        fail(f"mesh: flash launched {counts['train']['flash_attention']} times and its backward "
+             f"{counts['train']['flash_attention_bwd']} in two meshed steps, want "
+             f"{4 * tcfg.arch.n_layers} each (forward and remat recompute, the backward's two "
+             f"passes, per layer)")
     times["train_step_ms"] = {"meshed": ms_m, "unmeshed": ms_u}
     print(f"[mesh] train step ({tcfg.arch.name}, {tcfg.arch.n_layers} of 24 layers, "
           f"{TRAIN_LM['batch']} x {TRAIN_LM['seq']}): loss {m_m['loss']:.6f} meshed / "
@@ -4732,14 +4807,18 @@ def phase_mesh(dev, card_line):
         rec = mesh_recurrent(dev, mesh, arch, spec, seed, kexe, path)
         fam = rec["family"]
         flash = {k: counts[f"{fam}_{k}"]["flash_attention"] for k in ("serve", "train")}
+        bwd = {k: counts[f"{fam}_{k}"]["flash_attention_bwd"] for k in ("serve", "train")}
         # one launch a shared-block application in prefill; in each train
-        # step forward + recompute for each of the 2 micro-batches
+        # step forward + recompute for each of the 2 micro-batches, and the
+        # backward's two passes for each
         apps = rec["shared_applications"]
         want = {"serve": apps, "train": MESH_RECURRENT_STEPS * 2 * 2 * apps}
-        if flash != want or any(v for k in ("serve", "train")
-                                for n_, v in counts[f"{fam}_{k}"].items() if n_ != "flash_attention"):
+        flash_names = ("flash_attention", "flash_attention_bwd")
+        if flash != want or bwd != {"serve": 0, "train": want["train"]} or any(
+                v for k in ("serve", "train")
+                for n_, v in counts[f"{fam}_{k}"].items() if n_ not in flash_names):
             fail(f"mesh {fam}: launches {counts[f'{fam}_serve']} / {counts[f'{fam}_train']}, want "
-                 f"flash {want} and no other kernel")
+                 f"flash {want}, its backward as many in training, and no other kernel")
         times[f"{fam}_serve_ms"] = rec.pop("serve_ms")
         times[f"{fam}_train_step_ms"] = rec.pop("train_step_ms")
         out[fam] = rec
@@ -4949,7 +5028,7 @@ def main() -> int:
         only = args[1].split(",")
     elif args:
         print("usage: chip_smoke.py [--only kernels,resources,wide,serve,autotune,fleet,"
-              "fleet-tcp,mesh,dryrun]", file=sys.stderr)
+              "fleet-tcp,flash,mesh,dryrun]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -4986,6 +5065,7 @@ def main() -> int:
                       "fleet-tcp": phase_fleet_tcp,
                       "serve": lambda card: phase_serve(dev, card),
                       "autotune": lambda card: phase_autotune(dev, card),
+                      "flash": lambda card: phase_flash(dev, {}),
                       "mesh": lambda card: phase_mesh(dev, card)[1],
                       "dryrun": lambda card: phase_dryrun(dev, card)}
         try:
@@ -5051,7 +5131,7 @@ def main() -> int:
             row["fleet_sketch"] = fleet["sketch"]   # the merge's sketch, a new call site
     flash_row.update(lse_max_abs_err_f32=errs[("lse", "f32")],
                      lse_max_abs_err_bf16=errs[("lse", "bf16")], grad_check=errs["flash_grads"],
-                     train_layer=train_layer)
+                     train_layer=train_layer, backward=errs["flash_bwd_timing"])
     flash_row.update(launches=lm_launches, launches_table1=t1_counts["flash_attention"],
                      launches_by_request=lm_by_entry,
                      lm_max_rel_norm=lm_worst[0], lm_max_abs_err=lm_worst[1])

@@ -5,6 +5,7 @@ spots:
   fused_transform — fused project + whiten serve transform (scale·xRᵀ)Bᵀ
   easi_update     — EASI relative gradient + weight update (easi_apply)
   flash_attention — online-softmax attention forward (causal / SWA / GQA)
+                    and its backward (dq, dk, dv in two passes)
   ops             — the entry points the DR and LM layers call
   ref             — plain PyTorch versions (the CPU path and the ground truth)
   autotune        — the serving engine's per-bucket tile race
@@ -31,4 +32,5 @@ def launch_counts() -> Dict[str, int]:
     return {"ternary_matmul": ternary_matmul.launches,
             "fused_transform": fused_transform.launches,
             "easi_apply": easi_update.launches,
-            "flash_attention": flash_attention.launches}
+            "flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention.bwd_launches}

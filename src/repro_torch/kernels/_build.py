@@ -25,9 +25,10 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("ternary_matmul.cu", "fused_transform.cu", "easi_update.cu", "easi_small_32.cu",
-           "easi_small_64.cu", "easi_small_128.cu", "flash_attention.cu", "attributes.cu",
-           "errors.cu")
-HEADERS = ("common.cuh", "ternary_encode.cuh", "easi_update.cuh", "easi_small.cuh")
+           "easi_small_64.cu", "easi_small_128.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+           "attributes.cu", "errors.cu")
+HEADERS = ("common.cuh", "ternary_encode.cuh", "easi_update.cuh", "easi_small.cuh",
+           "flash_tc.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libreprotorch_kernels.so"
@@ -48,6 +49,8 @@ _SIGNATURES = {
     "repro_easi_apply": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                               _P),
+    "repro_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _F, _P),
     "repro_kernel_attributes": (_I, _I, _I, _I, _I, _I, _I, _IP),
 }
 

@@ -10,8 +10,10 @@ extern "C" int repro_ternary_matmul_body(int, int, int, int, int, const void**, 
 extern "C" int repro_fused_transform_body(int, int, int, int, int, const void**, int*);
 extern "C" int repro_easi_apply_body(int, int, int, int, int, const void**, int*);
 extern "C" int repro_flash_attention_body(int, int, int, int, int, const void**, int*);
+extern "C" int repro_flash_attention_bwd_body(int, int, int, int, int, const void**, int*);
 
-// source: 0 ternary_matmul, 1 fused_transform, 2 easi_update, 3 flash_attention;
+// source: 0 ternary_matmul, 1 fused_transform, 2 easi_update, 3 flash_attention,
+// 4 flash_attention_bwd;
 // body and a..d as that source's lookup takes them.  out[0..6]: numRegs,
 // sharedSizeBytes (static), localSizeBytes (spills), maxThreadsPerBlock,
 // the dynamic shared bytes the launch requests, the CTAs of blockDim threads
@@ -26,6 +28,7 @@ extern "C" int repro_kernel_attributes(int source, int body, int a, int b, int c
     case 1: rc = repro_fused_transform_body(body, a, b, c, d, &fn, &dyn); break;
     case 2: rc = repro_easi_apply_body(body, a, b, c, d, &fn, &dyn); break;
     case 3: rc = repro_flash_attention_body(body, a, b, c, d, &fn, &dyn); break;
+    case 4: rc = repro_flash_attention_bwd_body(body, a, b, c, d, &fn, &dyn); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rc != 0) return rc;

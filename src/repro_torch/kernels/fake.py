@@ -16,7 +16,8 @@ What a call reports, from its shapes alone:
     tensor does not hold, so B1 and B3 report the dense contraction, an
     upper bound; B2 its Gram products and G B; B4 its visible (query, key)
     pairs, 4 · Dh each and head (q kᵀ and p v), as `PERF.md` §6's bound
-    column counts them.
+    column counts them; B4's backward 14 · Dh a pair and head (its two
+    passes recompute s and dp: s, dp and dq, then s, dp, dv and dk).
   * bytes: each input read once and each output written once.
 """
 

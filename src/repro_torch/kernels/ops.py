@@ -67,3 +67,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash_kernel.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                          causal=causal, window=window, q_offset=q_offset,
                                          return_lse=return_lse)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset: int = 0):
+    """Flash attention backward from the forward's out and lse: (dq, dk, dv)
+    in the inputs' dtype (the CUDA kernel takes bf16).  The operands are only
+    made contiguous."""
+    return _flash_kernel.flash_attention_bwd(
+        q.contiguous(), k.contiguous(), v.contiguous(), out.contiguous(), lse.contiguous(),
+        dout.contiguous(), causal=causal, window=window, q_offset=q_offset)

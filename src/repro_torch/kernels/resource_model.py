@@ -199,7 +199,7 @@ def _dtypes(bf16: bool, b_bf16: Optional[bool] = None) -> str:
     return name if b_bf16 is None else f"{name}/{'bf16' if b_bf16 else 'f32'}"
 
 
-# ---- the ten bodies -------------------------------------------------------------
+# ---- the twelve bodies -----------------------------------------------------------
 
 def ternary_matmul_dense_estimate(b: int, m: int, p: int, *, bf16: bool = False
                                   ) -> KernelEstimate:
@@ -372,21 +372,61 @@ def flash_fma_estimate(batch: int, sq: int, skv: int, hq: int, hkv: int, dh: int
         (_cdiv(sq, FA_BQ), batch * hq), 0, dyn, lookup=(3, 0, d, 0, 0, 0))
 
 
+def _flash_tc_blocks(batch: int, sq: int, hq: int, hkv: int) -> int:
+    """The CTAs of the forward's bf16 grid (and of the backward's pass 1):
+    128 rows a CTA, of hg query heads of one kv head, hg the largest power
+    of two <= 8 that divides Hq / Hkv."""
+    grp = hq // hkv
+    hg = 1
+    while hg * 2 <= TC_WARPS and grp % (hg * 2) == 0:
+        hg *= 2
+    return _cdiv(sq, 16 * TC_WARPS // hg) * batch * hkv * (grp // hg)
+
+
 def flash_tc_estimate(batch: int, sq: int, skv: int, hq: int, hkv: int, dh: int, *,
                       vec: bool = True) -> KernelEstimate:
     """flash_attention.cu `flash_tc_kernel<D, VEC>` (bf16): 8 warps a 128-row
     query tile of hg heads of one kv head; two K / V buffers of 64 rows of
     D + 8 bf16, dynamic."""
     d = _flash_tile(dh)
-    grp = hq // hkv
-    hg = 1
-    while hg * 2 <= TC_WARPS and grp % (hg * 2) == 0:
-        hg *= 2
-    qpos = 16 * TC_WARPS // hg
-    blocks = _cdiv(sq, qpos) * batch * hkv * (grp // hg)
     return KernelEstimate(
         "flash_tc_kernel", "flash_attention.cu", f"bf16,D={d},VEC={int(vec)}", 32 * TC_WARPS,
-        (blocks,), 0, 2 * 4 * TC_BK * (d + TC_PAD), lookup=(3, 1, d, int(vec), 0, 0))
+        (_flash_tc_blocks(batch, sq, hq, hkv),), 0, 2 * 4 * TC_BK * (d + TC_PAD),
+        lookup=(3, 1, d, int(vec), 0, 0))
+
+
+BW_KEYS = 16 * TC_WARPS   # flash_attention_bwd.cu: keys a pass-2 CTA
+BW_BQ = 64                # and query rows a pass-2 tile
+BWD_TILES = (16, 32, 48, 64, 80, 96, 112, 128)   # Dh rounded up to a multiple of 16
+
+
+def _bwd_tile(dh: int) -> int:
+    return _cdiv(dh, 16) * 16
+
+
+def flash_bwd_dq_estimate(batch: int, sq: int, skv: int, hq: int, hkv: int, dh: int
+                          ) -> KernelEstimate:
+    """flash_attention_bwd.cu `flash_bwd_dq_kernel<D>` (bf16, pass 1): the
+    forward's CTAs; two K / V buffers of 64 rows of D + 8 bf16 (Q and dO
+    staged in them first), dynamic."""
+    d = _bwd_tile(dh)
+    return KernelEstimate(
+        "flash_bwd_dq_kernel", "flash_attention_bwd.cu", f"bf16,D={d}", 32 * TC_WARPS,
+        (_flash_tc_blocks(batch, sq, hq, hkv),), 0, 2 * 4 * TC_BK * (d + TC_PAD),
+        lookup=(4, 0, d, 0, 0, 0))
+
+
+def flash_bwd_dkdv_estimate(batch: int, sq: int, skv: int, hq: int, hkv: int, dh: int
+                            ) -> KernelEstimate:
+    """flash_attention_bwd.cu `flash_bwd_dkdv_kernel<D>` (bf16, pass 2): 8
+    warps a (batch, kv head, 128 keys); K and V tiles of 128 rows and two
+    buffers of a Q and a dO tile of 64 rows, all of D + 8 bf16, and two
+    buffers of 64 lse and delta f32, dynamic."""
+    d = _bwd_tile(dh)
+    dyn = 2 * (2 * BW_KEYS + 4 * BW_BQ) * (d + TC_PAD) + F32 * 4 * BW_BQ
+    return KernelEstimate(
+        "flash_bwd_dkdv_kernel", "flash_attention_bwd.cu", f"bf16,D={d}", 32 * TC_WARPS,
+        (_cdiv(skv, BW_KEYS) * batch * hkv,), 0, dyn, lookup=(4, 1, d, 0, 0, 0))
 
 
 # ---- the bodies a call launches (the wrappers' plan / tiles) ------------------------
@@ -428,6 +468,12 @@ def flash_attention_call(batch: int, sq: int, skv: int, hq: int, hkv: int, dh: i
     return [flash_fma_estimate(batch, sq, skv, hq, hkv, dh)]
 
 
+def flash_attention_bwd_call(batch: int, sq: int, skv: int, hq: int, hkv: int, dh: int
+                             ) -> List[KernelEstimate]:
+    return [flash_bwd_dq_estimate(batch, sq, skv, hq, hkv, dh),
+            flash_bwd_dkdv_estimate(batch, sq, skv, hq, hkv, dh)]
+
+
 # every __global__ in csrc/ -> its estimator; tests/test_torch_resources.py
 # parses the sources and fails on a body without an entry or an entry
 # without a body
@@ -442,12 +488,14 @@ MODELED_KERNELS: Dict[str, Callable[..., KernelEstimate]] = {
     "easi_update_kernel": easi_update_estimate,
     "flash_attention_kernel": flash_fma_estimate,
     "flash_tc_kernel": flash_tc_estimate,
+    "flash_bwd_dq_kernel": flash_bwd_dq_estimate,
+    "flash_bwd_dkdv_kernel": flash_bwd_dkdv_estimate,
 }
 
 # the shapes of the report: the reference's paper-scale rows (m = 32, p = 16,
 # n = 8 under the largest bucket; flash at (1, 1024, 1024, 8, 8, 64)), the
-# repo's wide row (256, 1024, 256, 128) and flash at chip_smoke.py's request A
-# (4 x 1024, 32 / 8 heads, Dh 120, bf16)
+# repo's wide row (256, 1024, 256, 128) and flash, forward and backward, at
+# chip_smoke.py's request A (4 x 1024, 32 / 8 heads, Dh 120, bf16)
 PAPER_ROW = dict(rows=1024, m=32, p=16, n=8)
 WIDE_ROW = dict(rows=256, m=1024, p=256, n=128)
 REQUEST_A = dict(batch=4, sq=1024, skv=1024, hq=32, hkv=8, dh=120)
@@ -455,8 +503,8 @@ REQUEST_A = dict(batch=4, sq=1024, skv=1024, hq=32, hkv=8, dh=120)
 
 def paper_scale_report(sms: int = H100_SMS) -> List[KernelEstimate]:
     """Every body at the shapes the repo runs it at, each sparse tile
-    template and each of B2's column templates at the wide row; ten bodies
-    in all."""
+    template and each of B2's column templates at the wide row; twelve
+    bodies in all."""
     pr, wr = PAPER_ROW, WIDE_ROW
     out = fused_transform_call(pr["rows"], pr["m"], pr["p"], pr["n"], sms=sms)
     out += ternary_matmul_call(pr["rows"], pr["m"], pr["p"], sms=sms)
@@ -471,6 +519,7 @@ def paper_scale_report(sms: int = H100_SMS) -> List[KernelEstimate]:
         out += easi_apply_call(wr["rows"], wr["n"], wr["p"], block_m=cols, sms=sms)
     out += flash_attention_call(1, 1024, 1024, 8, 8, 64, bf16=False)
     out += flash_attention_call(**REQUEST_A, bf16=True)
+    out += flash_attention_bwd_call(**REQUEST_A)
     seen, uniq = set(), []
     for est in out:                        # the sum kernel comes once per tile point
         if est not in seen:
@@ -513,6 +562,8 @@ def every_instance(sms: int = H100_SMS) -> List[KernelEstimate]:
         for vec in (False, True):
             out.append(flash_tc_estimate(**REQUEST_A, vec=vec) if dh == 128 else
                        flash_tc_estimate(1, 1024, 1024, 8, 8, 64, vec=vec))
+    for d in BWD_TILES:
+        out += flash_attention_bwd_call(**dict(REQUEST_A, dh=d))
     return out
 
 

@@ -10,9 +10,11 @@ hand-written CUDA kernel (`kernels.ops.flash_attention`; the plain version
 for CPU tensors), otherwise through the plain double-chunked version
 (`kernels.ref.flash_attention_ref`).  When an input requires grad it runs
 as `FlashAttentionFn`, the port of the reference's custom VJP: the forward
-also returns each row's log-sum-exp, and the backward
-(`kernels.ref.flash_attention_bwd_ref`) recomputes p from it chunk by
-chunk, in plain PyTorch, as the reference's backward is XLA outside any
+also returns each row's log-sum-exp, and the backward recomputes p from
+it.  With `backend="kernel"` and bf16 inputs the backward is the CUDA
+kernel (`kernels.ops.flash_attention_bwd`; the plain version for CPU
+tensors); otherwise it is `kernels.ref.flash_attention_bwd_ref`, chunk by
+chunk in plain PyTorch, as the reference's backward is XLA outside any
 Pallas kernel.  `chunked_softmax_xent` is the training loss, one
 checkpointed chunk of logits at a time (`chunked_xent_sums` its sum and
 count, for a rank's sequence block).  The MoE layer is the reference's
@@ -136,22 +138,28 @@ class FlashAttentionFn(torch.autograd.Function):
     backward recomputes the probability tiles from (q, k, lse), so no S × S
     tensor is stored in either direction.  With `backend="kernel"` on a
     CUDA tensor the forward is the CUDA kernel (which writes lse beside
-    out); the backward is `flash_attention_bwd_ref` over the config's
-    chunks either way.  No double backward."""
+    out), and for bf16 inputs so is the backward; f32 inputs and
+    `backend="torch"` take `flash_attention_bwd_ref` over the config's
+    chunks.  No double backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, kv_chunk, backend):
         out, lse = _forward_lse(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, backend)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset, q_chunk=q_chunk,
-                      kv_chunk=kv_chunk)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        ctx.chunks = dict(q_chunk=q_chunk, kv_chunk=kv_chunk)
+        ctx.kernel = backend == "kernel"
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, dout, **ctx.kw)
+        if ctx.kernel and q.dtype == torch.bfloat16:
+            dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, dout, **ctx.mask)
+        else:
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, dout, **ctx.mask,
+                                                 **ctx.chunks)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -173,7 +181,8 @@ def flash_attention(
     (its tiles replace the chunk sizes); otherwise the plain version runs
     with chunks of `q_chunk` × `kv_chunk`, which never materialises the
     S × S scores.  When grad is enabled and an input requires it, the call
-    is `FlashAttentionFn` (forward with lse, the plain chunked backward)."""
+    is `FlashAttentionFn` (forward with lse, then the backward: the CUDA
+    kernel for bf16 with `backend="kernel"`, else the plain chunked one)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, q_offset, q_chunk, kv_chunk,
                                       backend)

@@ -46,7 +46,7 @@ def _chip_smoke():
 
 def test_every_kernel_body_has_an_estimator_and_every_estimator_a_body():
     bodies = _bodies()
-    assert len(bodies) == 10
+    assert len(bodies) == 12
     assert set(bodies) == set(rm.MODELED_KERNELS)
 
 
@@ -58,7 +58,7 @@ def test_the_estimators_follow_each_body_s_source_and_launch_bounds():
         assert est.min_ctas == (int(bounds[1]) if len(bounds) > 1 else 1), est.kernel
         assert est.threads == 256, est.kernel            # NTHREADS, FT_THREADS, TC_THREADS, ...
     assert {e.kernel for e in rm.every_instance()} == set(rm.MODELED_KERNELS)
-    assert len(rm.every_instance()) == 106
+    assert len(rm.every_instance()) == 122
 
 
 # (kernel, variant) -> (static, dynamic, CTAs an SM) read on an NVIDIA H100 80GB HBM3 at
@@ -78,7 +78,11 @@ CARD = {("ternary_matmul_dense_kernel", "f32"): (8448, 0, 8),
         ("easi_update_kernel", "f32,UC=32"): (33664, 16896, 1),
         ("easi_update_kernel", "bf16,UC=64"): (41856, 33280, 2),
         ("flash_attention_kernel", "f32,DH=128"): (0, 115456, 2),
-        ("flash_tc_kernel", "bf16,D=128,VEC=1"): (0, 69632, 1)}
+        ("flash_tc_kernel", "bf16,D=128,VEC=1"): (0, 69632, 1),
+        ("flash_bwd_dq_kernel", "bf16,D=16"): (0, 12288, 2),
+        ("flash_bwd_dq_kernel", "bf16,D=80"): (0, 45056, 1),
+        ("flash_bwd_dkdv_kernel", "bf16,D=80"): (0, 91136, 1),
+        ("flash_bwd_dkdv_kernel", "bf16,D=128"): (0, 140288, 1)}
 
 
 def test_the_model_agrees_with_the_card_s_readings():
@@ -137,6 +141,8 @@ def test_chip_smoke_shapes_stay_inside_the_limits():
     for b, sq, skv, hq, hkv, dh, *_ in cs.FLASH_SHAPES:
         for bf16 in (False, True):
             ests += rm.flash_attention_call(b, sq, skv, hq, hkv, dh, bf16=bf16)
+    for b, sq, skv, hq, hkv, dh, *_ in cs.FLASH_SHAPES + cs.FLASH_GRAD_SHAPES:
+        ests += rm.flash_attention_bwd_call(b, sq, skv, hq, hkv, dh)
     assert {e.kernel for e in ests} == set(rm.MODELED_KERNELS)
     for est in ests:
         assert est.validate() == [], est

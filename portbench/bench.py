@@ -1,7 +1,8 @@
 """The harness: one run of one cell, as `BENCHMARK.json` describes it.
 
 `main` resolves the cell by name (its configuration in `configs/<name>.json`,
-its traffic mix in `traffic/<name>.json`, its limits in
+with its family in `families/` and its reference in `reference/`, its
+traffic mix in `traffic/<name>.json`, its limits in
 `limits/<cell>.json`), refuses to run without the cards the cell asks for,
 hands the run to the traffic's driver (`drivers/<driver>.py`), reads each
 per-layer metric of a traced run with its reader (`reader_path`),
@@ -45,6 +46,12 @@ class Run:
     t_start: float
     fault: Optional[str] = None   # a fault planted under the timed path (tests, calibration)
     log: Callable[[str], None] = print
+    reference: Optional[str] = None   # the config's plain reference, `reference/<name>.py`
+
+
+def reference_of(r: Run):
+    """The plain reference module the run's configuration names."""
+    return importlib.import_module(f"portbench.reference.{r.reference}")
 
 
 @dataclasses.dataclass
@@ -161,7 +168,8 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool, *,
         log(f"[card] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
             f"CUDA {torch.version.cuda}")
     r = Run(traffic=traffic, arch=arch_mod.sizes(config["arch"], arch_overrides), seed=seed,
-            seconds=seconds, trace=trace, device=device, t_start=t_start, fault=fault, log=log)
+            seconds=seconds, trace=trace, device=device, t_start=t_start, fault=fault, log=log,
+            reference=config["reference"])
     driver = importlib.import_module(f"portbench.drivers.{traffic['driver']}")
     out: Outcome = driver.run(r)
     correct, checks = judge(out.checks, limits)

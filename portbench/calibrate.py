@@ -11,9 +11,11 @@ reference in the same way; `fault:<name>` runs the program with a fault
 planted under the timed path (`unchanged`: the state a step returns is the
 one it was given; `half_batch`: a training step sees half its rows, the
 mean taken over them; `answer_altered`: a served answer is changed where it
-is produced).  One JSON line a reading, with `correct` as the cell's
-committed limits judge it: the control and every fault have to come out
-not correct.  The readings that set a cell's limits are kept in
+is produced; `decode_unchanged`: each decode step hands back the cache's
+state as the prefill left it, so the next writes over the same slot;
+`token_altered`: a decoded token is changed where it is produced).  One
+JSON line a reading, with `correct` as the cell's committed limits judge
+it: the control and every fault have to come out not correct.  The readings that set a cell's limits are kept in
 `readings/<cell>.jsonl`, where a test judges them again against
 `limits/<cell>.json`.  The benchmark's own runs never run this.
 """
@@ -33,35 +35,41 @@ sys.path.insert(0, str(ROOT / "src"))
 
 def control(root: Path, name: str, seed: int, **kw):
     """The control's numbers: the reference in the next lower precision
-    against the float32 reference, at the cell's own sizes."""
+    against the float32 reference, at the cell's own sizes.  A decode's
+    positions are read along tokens drawn from the seed
+    (`generate.continuation`), the same on both sides."""
     import importlib
 
     import torch
 
     from portbench import arch as arch_mod
-    from portbench import bench, weights
-    from portbench.reference.transformer import Precision
+    from portbench import bench, generate, weights
 
     _, _, config, traffic, _ = bench.resolve(root, name)
     traffic = dict(traffic, **kw.get("traffic_overrides", {}))
     dev = kw.get("device") or torch.device("cuda", 0)
     r = bench.Run(traffic=traffic, arch=arch_mod.sizes(config["arch"], kw.get("arch_overrides")),
-                  seed=seed, seconds=0.0, trace=False, device=dev, t_start=time.perf_counter())
+                  seed=seed, seconds=0.0, trace=False, device=dev, t_start=time.perf_counter(),
+                  reference=config["reference"])
     driver = importlib.import_module(f"portbench.drivers.{traffic['driver']}")
-    low = Precision(lm="fp8", dr="tf32")
-    _, b0 = weights.draw_dr(r.arch, seed, dev)
+    prec = bench.reference_of(r).Precision
+    low = prec(lm="fp8", dr="tf32")
+    b0 = weights.draw_dr(r.arch, seed, dev)[1] if r.arch.dr_frontend is not None else None
     if traffic["driver"] == "train":
         got = driver.reference(r, low)
-        return driver.compare(got, driver.reference(r, Precision()), b0)
+        return driver.compare(got, driver.reference(r, prec()), b0)
     issued = kw.get("issued", 300)
     sample = sorted({issued // 7, issued // 3, issued // 2, issued - 1})
-    answers, live, staged = driver.reference(r, low, issued, sample)
-    vision = r.arch.frontend == "vision"
-    got = {"kept": {i: (red, lg, lg.argmax(-1).cpu() if vision else lg.cpu())
-                    for i, (red, lg) in answers.items()},
+    fed = {i: generate.continuation(seed, i, traffic, r.arch, dev) for i in sample} \
+        if traffic.get("decode_steps") else {}
+    answers, live, staged = driver.reference(r, low, issued, sample, fed)
+    got = {"kept": {i: {"rows": red, "logits": lg,
+                        "decode": None if dec is None else dec.unbind(1)}
+                    for i, (red, lg, dec) in answers.items()},
            "live": live, "staged": staged}
-    want = driver.reference(r, Precision(), issued, sample)
-    return driver.compare(got, want, b0, traffic["dr"] == "serve_and_update")
+    want = driver.reference(r, prec(), issued, sample, fed)
+    update = traffic["dr"] == "serve_and_update" and b0 is not None
+    return driver.compare(got, want, b0, update)
 
 
 def main(argv=None) -> int:

@@ -5,25 +5,27 @@ front end co-trained by EASI in every step).
 Set-up draws the weights and the DR unit from the seed, builds the one
 train state and step, and drives them through their first `checked_steps`
 steps on batches that all differ, through the same call and feed as the
-window; those steps also warm up every shape.  The window then runs steps
+window; those steps also warm up every shape (a configuration with no DR
+unit trains without one).  The window then runs steps
 back to back, reading the loss to the host every `log_every` steps as a
 trainer logs it, and ends at a synchronise after the last step.  Once it
 has closed and the program's state is freed, the reference follows the
 first steps from the same weights and batches, and the run compares each
 step's loss, the first gradient as AdamW got it (its first moment over
 1 − b1), the parameters' change over the checked steps, and the DR unit's
-B after them.
+B after them.  The reference is the module the configuration's
+`reference` key names.
 """
 
 from __future__ import annotations
 
 import statistics
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from portbench import arch as arch_mod
-from portbench import common, devtrace, flops, generate, weights
+from portbench import bench, common, devtrace, flops, generate, weights
 from portbench.bench import Outcome, Run
 
 DR_UPDATE_ROWS = 4096    # the rows of a batch the step folds into the DR unit
@@ -67,11 +69,13 @@ def program(r: Run):
     exe = Execution(backend="kernel", device=dev.type)
     tcfg = ts.TrainConfig(arch=cfg)
     params = weights.draw_params(a, r.seed, dev)
-    rr, b0 = weights.draw_dr(a, r.seed, dev)
+    spec = a.dr_frontend
     zero = torch.zeros((), dtype=torch.int32)
-    state = ts.TrainState(params=params, opt=opt_mod.init(params),
-                          dr=dr_unit.DRState(r=rr, b=b0.clone(), steps=zero.clone()),
-                          step=zero.clone())
+    dr = None
+    if spec is not None:
+        rr, b0 = weights.draw_dr(a, r.seed, dev)
+        dr = dr_unit.DRState(r=rr, b=b0.clone(), steps=zero.clone())
+    state = ts.TrainState(params=params, opt=opt_mod.init(params), dr=dr, step=zero.clone())
     del params
     step = ts.make_train_step(tcfg, execution=exe)
     if r.fault == "unchanged":
@@ -85,15 +89,17 @@ def program(r: Run):
         def step(state, batch):
             return inner(state, {k: v[:v.shape[0] // 2] for k, v in batch.items()})
 
-    mix = generate.mixing(r.seed, a.frontend_dim, dev)
+    mix = generate.mixing(r.seed, a.frontend_dim, dev) if a.frontend is not None else None
     pool = [generate.train_batch(r.seed, k, tr, a, mix, dev) for k in range(tr["pool"])]
     common.sync(dev)
     r.log(f"[set-up] {common.now() - r.t_start:.2f} s: weights, DR unit, AdamW state and "
           f"{len(pool)} batches on the device")
+    front = "no DR unit" if spec is None else \
+        f"DR {a.frontend_dim} -> {spec.p} -> {spec.n}"
     r.log(f"[set-up] {a.name}: {a.n_layers} layers, d_model {a.d_model}, heads "
-          f"{a.n_heads}/{a.n_kv_heads}, batch {tr['batch']} x {tr['seq']}, DR "
-          f"{a.frontend_dim} -> {a.dr_frontend.p} -> {a.dr_frontend.n}; no tile race on this "
-          f"path (the serving engine races tiles; training runs the Execution's own)")
+          f"{a.n_heads}/{a.n_kv_heads}, batch {tr['batch']} x {tr['seq']}, {front}; no tile "
+          f"race on this path (the serving engine races tiles; training runs the Execution's "
+          f"own)")
     checked = tr["checked_steps"]
     losses, g1 = [], None
     for k in range(checked):
@@ -103,7 +109,7 @@ def program(r: Run):
             g1 = _norms(_flat(state.opt.m), 1.0 / (1.0 - tcfg.opt.b1))
     readings = {"loss": [float(x) for x in losses], "g1": {p: float(v) for p, v in g1.items()},
                 "change": _change(a, r.seed, _flat(state.params), dev),
-                "b": state.dr.b.detach().clone()}
+                "b": None if spec is None else state.dr.b.detach().clone()}
     del met, losses, g1
     common.sync(dev)
     r.log(f"[set-up] {common.now() - r.t_start:.2f} s: {checked} checked steps done")
@@ -141,16 +147,17 @@ def program(r: Run):
         b, s = tr["batch"], tr["seq"]
         rows = b * s
         upd = min(rows, DR_UPDATE_ROWS)         # the update reads the first rows only
-        spec = a.dr_frontend
+        dr_bound = {}
+        if spec is not None:
+            dr_bound = {
+                "fused_transform": flops.fused_transform_bound_s(rows, a.frontend_dim, spec.p,
+                                                                 spec.n),
+                "ternary_matmul": flops.ternary_matmul_bound_s(upd, a.frontend_dim, spec.p),
+                "easi": flops.easi_bound_s(upd, spec.n, spec.p, not spec.bypass_whitening)}
         layer = {"trace": devtrace.collect(prof), "units": traced,
                  "unit_flops": flops.train_flops(a, b, s),
                  "flash_bound_s": flops.flash_bound_s(a, b, s, lse=True),
-                 "dr_bound_s": {
-                     "fused_transform": flops.fused_transform_bound_s(rows, a.frontend_dim,
-                                                                      spec.p, spec.n),
-                     "ternary_matmul": flops.ternary_matmul_bound_s(upd, a.frontend_dim, spec.p),
-                     "easi": flops.easi_bound_s(upd, spec.n, spec.p, not spec.bypass_whitening)},
-                 "peak_bytes": window_peak}
+                 "dr_bound_s": dr_bound, "peak_bytes": window_peak}
     del state, step, pool, met
     common.free(dev)
     window = {"t0": t0, "steps": i, "window_s": window_s, "tokens": tokens,
@@ -160,15 +167,16 @@ def program(r: Run):
 
 def reference(r: Run, prec) -> Dict:
     """The reference's readings of the checked steps at precision `prec`."""
-    from portbench.reference import transformer as ref
-
+    ref = bench.reference_of(r)
     a, tr, dev = r.arch, r.traffic, r.device
     ref.strict_f32()
     params = weights.draw_params(a, r.seed, dev)
     for t in ref.leaves(params).values():
         t.requires_grad_(True)
-    rr, b = weights.draw_dr(a, r.seed, dev)
-    mix = generate.mixing(r.seed, a.frontend_dim, dev)
+    rr = b = None
+    if a.dr_frontend is not None:
+        rr, b = weights.draw_dr(a, r.seed, dev)
+    mix = generate.mixing(r.seed, a.frontend_dim, dev) if a.frontend is not None else None
     opt = {"t": 0, "m": {}, "v": {}}
     losses, g1 = [], None
     for k in range(tr["checked_steps"]):
@@ -178,32 +186,34 @@ def reference(r: Run, prec) -> Dict:
         g1 = gnorms if k == 0 else g1
     with torch.no_grad():
         change = _change(a, r.seed, {p: t.detach() for p, t in ref.leaves(params).items()}, dev)
-    out = {"loss": losses, "g1": g1, "change": change, "b": b.detach().clone()}
+    out = {"loss": losses, "g1": g1, "change": change,
+           "b": None if b is None else b.detach().clone()}
     del params, opt
     common.free(dev)
     return out
 
 
-def compare(got: Dict, want: Dict, b0: torch.Tensor):
-    """The numbers that decide `correct`, with the leaves the change skips."""
+def compare(got: Dict, want: Dict, b0: Optional[torch.Tensor]):
+    """The numbers that decide `correct`, with the leaves the change skips
+    (B's change only with a DR unit)."""
     loss = max(abs(x - y) / abs(y) for x, y in zip(got["loss"], want["loss"]))
     med = statistics.median(want["g1"].values())
     # a leaf whose reference gradient is nought to rounding (the audio
     # model's unread token embedding) moves under AdamW by round-off alone
     keep = [p for p, v in want["g1"].items() if v >= 1e-3 * med]
-    return [("loss", loss),
-            ("grad_norm", common.worst_leaf(got["g1"], want["g1"])),
-            ("update_norm", common.worst_leaf(got["change"], want["change"], keep)),
-            ("dr_b", float(torch.linalg.vector_norm((got["b"] - want["b"]).double())
-                           / torch.linalg.vector_norm((want["b"] - b0).double())))]
+    out = [("loss", loss),
+           ("grad_norm", common.worst_leaf(got["g1"], want["g1"])),
+           ("update_norm", common.worst_leaf(got["change"], want["change"], keep))]
+    if b0 is not None:
+        out.append(("dr_b", float(torch.linalg.vector_norm((got["b"] - want["b"]).double())
+                                  / torch.linalg.vector_norm((want["b"] - b0).double()))))
+    return out
 
 
 def run(r: Run) -> Outcome:
-    from portbench.reference.transformer import Precision
-
     readings, w = program(r)
-    want = reference(r, Precision())
-    _, b0 = weights.draw_dr(r.arch, r.seed, r.device)
+    want = reference(r, bench.reference_of(r).Precision())
+    b0 = weights.draw_dr(r.arch, r.seed, r.device)[1] if r.arch.dr_frontend is not None else None
     checks = compare(readings, want, b0)
     return Outcome(attempted=w["steps"], failed=0, t_window=w["t0"],
                    e2e={"train_tokens_per_s": w["tokens"] / w["window_s"]},

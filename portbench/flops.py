@@ -7,7 +7,9 @@ step is 6·N·tokens over the parameters its products read plus three
 attention forwards (forward, and a backward of twice that), a serving step
 2·N over the rows each product really runs on plus one attention forward;
 causal attention counts half its pairs.  A kernel's bound counts each
-input byte read once and each output byte written once.
+input byte read once and each output byte written once.  What depends on
+the model's layers is its family's (`families/<family>.py`), which these
+functions hand on to; the DR kernels' bounds are any family's.
 """
 
 from __future__ import annotations
@@ -20,60 +22,41 @@ PEAK_BYTES = 3.35e12
 BF16, F32 = 2, 4
 
 
-def layer_params(a) -> int:
-    """Weights one token meets in one layer's products."""
-    d, dh, hq, hkv, f = a.d_model, a.dh, a.n_heads, a.n_kv_heads, a.d_ff
-    return d * hq * dh + 2 * d * hkv * dh + hq * dh * d + (3 if a.gated_mlp else 2) * d * f
+def bound_s(flops: float, nbytes: float, peak_flops: float) -> float:
+    """The least time: operations at the peak or bytes at HBM's rate."""
+    return max(flops / peak_flops, nbytes / PEAK_BYTES)
+
+
+def _family(a):
+    from portbench import arch
+
+    return arch.family(a.family)
 
 
 def frontend_in(a) -> int:
     return a.dr_frontend.n if a.dr_frontend is not None else a.frontend_dim
 
 
-def attention_pairs(a, s: int) -> float:
-    """Query-key pairs one head scores over a sequence of s."""
-    return s * (s + 1) / 2 if a.causal else float(s * s)
-
-
-def attention_forward(a, batch: int, s: int) -> float:
-    """4 · pairs · Dh a head, every head, every layer."""
-    return 4.0 * batch * attention_pairs(a, s) * a.n_heads * a.dh * a.n_layers
-
-
 def train_flops(a, batch: int, s: int) -> float:
-    """One training step on `batch` sequences of s positions, every position
-    a target (the encoder's masked units)."""
-    tokens = batch * s
-    n = a.n_layers * layer_params(a) + a.d_model * a.padded_vocab
-    if a.frontend is not None:
-        n += frontend_in(a) * a.d_model
-    return 6.0 * n * tokens + 3.0 * attention_forward(a, batch, s)
+    """One training step on `batch` sequences of s positions (the family's)."""
+    return _family(a).train_flops(a, batch, s)
 
 
 def prefill_flops(a, batch: int, s: int, prefix_rows: int) -> float:
     """One prefill of `batch` streams of s positions, of which `prefix_rows`
-    a stream come through the front-end projection; the head runs on the
-    last position only."""
-    f = 2.0 * a.n_layers * layer_params(a) * batch * s
-    f += 2.0 * a.d_model * a.padded_vocab * batch
-    if a.frontend is not None:
-        f += 2.0 * frontend_in(a) * a.d_model * batch * prefix_rows
-    return f + attention_forward(a, batch, s)
+    a stream come through the front-end projection (the family's)."""
+    return _family(a).prefill_flops(a, batch, s, prefix_rows)
 
 
-def bound_s(flops: float, nbytes: float, peak_flops: float) -> float:
-    """The least time: operations at the peak or bytes at HBM's rate."""
-    return max(flops / peak_flops, nbytes / PEAK_BYTES)
+def decode_flops(a, batch: int, s: int, steps: int) -> float:
+    """`steps` decode steps of `batch` streams after a prompt of s (the
+    family's)."""
+    return _family(a).decode_flops(a, batch, s, steps)
 
 
 def flash_bound_s(a, batch: int, s: int, lse: bool) -> float:
-    """B4 on one layer: q, k, v read and the output written in bf16, each
-    row's log-sum-exp in f32 where the training forward writes it."""
-    q = batch * s * a.n_heads * a.dh
-    kv = 2 * batch * s * a.n_kv_heads * a.dh
-    nbytes = BF16 * (2 * q + kv) + (F32 * batch * s * a.n_heads if lse else 0)
-    return bound_s(4.0 * batch * attention_pairs(a, s) * a.n_heads * a.dh, nbytes,
-                   PEAK_BF16_FLOPS)
+    """B4's least time a launch on one layer (the family's)."""
+    return _family(a).flash_bound_s(a, batch, s, lse)
 
 
 def fused_transform_bound_s(rows: int, m: int, p: int, n: int) -> float:

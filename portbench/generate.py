@@ -16,7 +16,7 @@ input again without the others.
 from __future__ import annotations
 
 import zlib
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -64,10 +64,11 @@ def features(g: torch.Generator, a: torch.Tensor, rows: int) -> torch.Tensor:
     return (mag * sign) @ a.T + 0.1 * noise
 
 
-def train_batch(seed: int, index: int, traffic: Dict, arch, a: torch.Tensor,
+def train_batch(seed: int, index: int, traffic: Dict, arch, a: Optional[torch.Tensor],
                 device) -> Dict[str, torch.Tensor]:
     """Training batch `index`: `tokens` (B, S) and, for an audio front end,
-    `frames` (B, S, f); for a vision one, `patches` (B, P, f)."""
+    `frames` (B, S, f); for a vision one, `patches` (B, P, f); a text
+    model's batch is its tokens alone (`a` None)."""
     b, s = traffic["batch"], traffic["seq"]
     g = generator(seed, "train", index, device)
     out = {"tokens": tokens(g, b, s, arch.vocab_size)}
@@ -79,16 +80,27 @@ def train_batch(seed: int, index: int, traffic: Dict, arch, a: torch.Tensor,
     return out
 
 
-def request(seed: int, index: int, traffic: Dict, arch, a: torch.Tensor,
+def request(seed: int, index: int, traffic: Dict, arch, a: Optional[torch.Tensor],
             device) -> Dict[str, torch.Tensor]:
-    """Serving request `index`: `rows` (sequences × prefix rows, f) of
-    front-end features at unit variance a feature, as the DR stage takes
-    them (a Laplace source has variance 2), and, where the traffic has
-    text, `tokens` (sequences, text tokens)."""
+    """Serving request `index`: where the traffic has front-end rows,
+    `rows` (sequences × prefix rows, f) of front-end features at unit
+    variance a feature, as the DR stage takes them (a Laplace source has
+    variance 2), and, where it has text, `tokens` (sequences, text tokens);
+    a text model's request is its tokens alone (`a` None)."""
     n = traffic["sequences"]
     g = generator(seed, "request", index, device)
-    scale = (2.0 * a.shape[1] + 0.01) ** -0.5
-    out = {"rows": features(g, a, n * traffic["prefix_rows"]) * scale}
+    out = {}
+    if traffic.get("prefix_rows"):
+        scale = (2.0 * a.shape[1] + 0.01) ** -0.5
+        out["rows"] = features(g, a, n * traffic["prefix_rows"]) * scale
     if traffic.get("text_tokens"):
         out["tokens"] = tokens(g, n, traffic["text_tokens"], arch.vocab_size)
     return out
+
+
+def continuation(seed: int, index: int, traffic: Dict, arch, device) -> torch.Tensor:
+    """(sequences, decode steps) tokens that stand for what request `index`
+    decodes, where a check reads logits along given tokens without a
+    program to decode them (the control)."""
+    g = generator(seed, "continuation", index, device)
+    return tokens(g, traffic["sequences"], traffic["decode_steps"], arch.vocab_size)

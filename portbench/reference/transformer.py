@@ -4,13 +4,16 @@ written from the equations, with no kernel, cache or batching of the
 program's.
 
 Model: embeddings (audio frames or vision patches through the front-end
-projection, vision patches put before the text tokens' embeddings); each
-layer x += Wo·attn(RoPE(q), RoPE(k), v) on the RMS-normed x (RoPE on causal
-models only, rotating the two halves of each head), then x += W_out
+projection, vision patches put before the text tokens' embeddings; a text
+model's tokens alone); each layer x += Wo·attn(RoPE(q), RoPE(k), v) on the
+RMS-normed x (RoPE on causal models only, rotating the two halves of each
+head), then x += W_out
 (act(x W_gate) ⊙ x W_in) on the RMS-normed x; a final RMS norm and the
 head.  Attention is a plain softmax over the scores, scaled by 1/√Dh, with
 the K/V heads shared by groups of query heads.  The encoder's loss is the
-mean NLL of the unit at every frame; AdamW clips the gradient at a global
+mean NLL of the unit at every frame, a causal model's that of each next
+text token; a decode is checked by one forward pass over the prompt and
+the tokens it fed (`stream_logits`).  AdamW clips the gradient at a global
 norm of 1.0 first.  The DR front end normalises each batch (centre, one
 scale), projects by the ternary R at √(p/m), then multiplies by Bᵀ; its
 update is the block EASI step, B ← B − μ G B.
@@ -19,7 +22,7 @@ update is the block EASI step, B ← B − μ G B.
 (each operand rounded to float8 e4m3 at a per-tensor scale, the products
 then in float32), so the same code is the control one step of precision
 below the configuration.  Sizes come in as a plain object with the fields
-of `portbench/arch.py`'s `Arch`; weights as the nested dict the benchmark
+of `portbench/families/transformer.py`'s `Arch`; weights as the nested dict the benchmark
 drew.
 """
 
@@ -164,9 +167,12 @@ def layer(lp: Dict[str, torch.Tensor], x: torch.Tensor, a, mode: str) -> torch.T
     return x + mm(y, lp["w_out"], mode)
 
 
-def embed(params, a, feats: torch.Tensor, tokens: Optional[torch.Tensor], mode: str):
+def embed(params, a, feats: Optional[torch.Tensor], tokens: Optional[torch.Tensor], mode: str):
     """The stream (B, S, d): reduced front-end features (B, P, n) through the
-    projection, before the tokens' embeddings for a vision model."""
+    projection, before the tokens' embeddings for a vision model; the
+    tokens' embeddings alone without a front end."""
+    if a.frontend is None:
+        return params["embed"].to(torch.float32)[tokens.long()]
     px = mm(feats, params["frontend_proj"], mode)
     if a.frontend == "audio":
         return px
@@ -192,6 +198,24 @@ def last_logits(params, a, feats, tokens, mode: str) -> torch.Tensor:
     with torch.no_grad():
         x = hidden(params, a, embed(params, a, feats, tokens, mode), mode)
         return mm(x[:, -1], params["lm_head"], mode)
+
+
+def stream_logits(params, a, feats, tokens, start: int, mode: str) -> torch.Tensor:
+    """(B, S − start, V) float32 logits of positions start .. S − 1 of the
+    whole stream, in one forward pass over it (a prompt and the tokens a
+    decode fed after it, teacher-forced)."""
+    with torch.no_grad():
+        x = hidden(params, a, embed(params, a, feats, tokens, mode), mode)
+        return mm(x[:, start:], params["lm_head"], mode)
+
+
+def lm_loss(params, a, feats, tokens, mode: str) -> torch.Tensor:
+    """Mean NLL of each text token from the position before it (past a
+    vision model's patches), the head over the padded vocabulary."""
+    x = hidden(params, a, embed(params, a, feats, tokens, mode), mode, remat=True)
+    n_prefix = feats.shape[1] if a.frontend == "vision" else 0
+    logits = mm(x[:, n_prefix:n_prefix + tokens.shape[1] - 1], params["lm_head"], mode)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1).long())
 
 
 def encoder_loss(params, a, feats, tokens, mode: str) -> torch.Tensor:
@@ -230,17 +254,22 @@ def train_step(params, opt: Dict, dr: Tuple[torch.Tensor, torch.Tensor], batch, 
     """One step in place on `params` (leaves requiring grad) and the AdamW
     state `opt` ({"t": int, "m": {path: t}, "v": {path: t}}); the DR unit
     reads its pre-step state in the loss, then takes one EASI step on the
-    batch's first 4096 normalised rows.  Returns (loss, the clipped
-    gradient's norm by path, the new B)."""
+    batch's first 4096 normalised rows.  The encoder's loss is every
+    frame's unit, a causal model's the next text token.  Returns (loss,
+    the clipped gradient's norm by path, the new B, None without a DR
+    unit)."""
     r, b = dr
     spec = a.dr_frontend
-    raw = batch["frames"]
-    nb, s, fd = raw.shape
-    flat = dr_normalize(raw.reshape(nb * s, fd).to(torch.float32))
-    with torch.no_grad():
-        feats = dr_transform(r, b, flat, prec.dr).reshape(nb, s, -1)
+    feats = None
+    if spec is not None:
+        raw = batch["frames" if a.frontend == "audio" else "patches"]
+        nb, s, fd = raw.shape
+        flat = dr_normalize(raw.reshape(nb * s, fd).to(torch.float32))
+        with torch.no_grad():
+            feats = dr_transform(r, b, flat, prec.dr).reshape(nb, s, -1)
     lv = leaves(params)
-    loss = encoder_loss(params, a, feats, batch["tokens"], prec.lm)
+    loss = lm_loss(params, a, feats, batch["tokens"], prec.lm) if a.causal else \
+        encoder_loss(params, a, feats, batch["tokens"], prec.lm)
     grads = torch.autograd.grad(loss, list(lv.values()), allow_unused=True,
                                 materialize_grads=True)
     with torch.no_grad():
@@ -259,5 +288,6 @@ def train_step(params, opt: Dict, dr: Tuple[torch.Tensor, torch.Tensor], batch, 
             mhat = m / (1 - adam.b1 ** t)
             vhat = v / (1 - adam.b2 ** t)
             p.sub_(adam.lr * mhat / (torch.sqrt(vhat) + adam.eps))
-        b_new = easi_update(r, b, flat[:4096], spec.mu, not spec.bypass_whitening, prec.dr)
+        b_new = None if spec is None else \
+            easi_update(r, b, flat[:4096], spec.mu, not spec.bypass_whitening, prec.dr)
     return loss.detach(), clipped, b_new

@@ -16,7 +16,7 @@ from portbench.tests import smoke
 def test_the_control_reads_far_above_the_program(cell):
     config, traffic = smoke.CELLS[cell]
     _, program = smoke.run(cell)
-    control = dict(calibrate.control(smoke.ROOT, cell, smoke.SEED, device=smoke.CPU,
+    control = dict(calibrate.control(smoke.root_of(cell), cell, smoke.SEED, device=smoke.CPU,
                                      arch_overrides=smoke.ARCH[config],
                                      traffic_overrides=smoke.TRAFFIC[traffic], issued=24))
     assert set(control) == set(program)

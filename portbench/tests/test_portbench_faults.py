@@ -17,6 +17,11 @@ CASES = [
     ("internvl2-1b-dr.prefill", "answer_altered"),  # a served answer altered where it is produced
     ("hubert-xlarge-dr.encode", None),
     ("hubert-xlarge-dr.encode", "answer_altered"),
+    ("internvl2-1b-dr.answer", None),
+    ("internvl2-1b-dr.answer", "unchanged"),
+    ("internvl2-1b-dr.answer", "answer_altered"),     # the first token's logits altered
+    ("internvl2-1b-dr.answer", "decode_unchanged"),   # a decode step hands back the cache it got
+    ("internvl2-1b-dr.answer", "token_altered"),      # a decoded token altered where it is made
 ]
 
 

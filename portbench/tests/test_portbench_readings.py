@@ -1,6 +1,7 @@
 """The chip readings that each cell's limits were set from
 (`readings/<cell>.jsonl`, written by `calibrate.py` and the cell's timed
-runs on an H100) judged again against the committed `limits/<cell>.json`:
+runs on an H100; a held cell's too) judged again against the committed
+`limits/<cell>.json`:
 every sound run of the program is correct, and the control and every
 planted fault are not.  A limit moved past the control's readings, or
 under the program's, fails here."""
@@ -15,7 +16,7 @@ from portbench import bench
 from portbench.tests import smoke
 
 MANIFEST = json.loads((smoke.ROOT / "BENCHMARK.json").read_text())
-CELLS = [w["name"] for w in MANIFEST["workloads"]]
+CELLS = [w["name"] for w in MANIFEST["workloads"]] + sorted(smoke.HELD)
 
 
 def _readings(cell):

@@ -101,3 +101,25 @@ def test_training_steps_match_the_port():
         if float(moved.norm()) > 0:
             assert _rel(t - p0, moved) < 2e-3, path
     assert _rel(state.dr.b - b, rb - b) < 1e-3
+
+
+def test_a_decode_matches_the_reference_s_full_forward():
+    """The answer cell at tiny sizes: the program's prefill and every decode
+    step's logits against one forward pass of the reference over the prompt
+    and the tokens the decode fed, both in float32."""
+    res, checks = smoke.run("internvl2-1b-dr.answer")
+    assert res["correct"] and res["attempted"] > 0
+    assert checks["logits"]["value"] < 1e-5 and checks["decode_logits"]["value"] < 1e-5
+
+
+def test_stream_logits_end_where_the_last_logits_are():
+    a = _arch("internvl2-1b-dr")
+    params = weights.draw_params(a, smoke.SEED, smoke.CPU)
+    g = torch.Generator().manual_seed(5)
+    feats = torch.randn((2, a.frontend_seq, a.dr_frontend.n), generator=g)
+    tokens = torch.randint(0, a.vocab_size, (2, 6), generator=g, dtype=torch.int32)
+    ref.strict_f32()
+    s = a.frontend_seq + 6
+    lg = ref.stream_logits(params, a, feats, tokens, s - 3, "f32")
+    assert lg.shape == (2, 3, a.padded_vocab)
+    assert _rel(lg[:, -1], ref.last_logits(params, a, feats, tokens, "f32")) < 1e-6

@@ -19,6 +19,8 @@ SPAN_METRICS = {
                                 "dr_host_ms.serve"),
     "hubert-xlarge-dr.encode": ("step_host_ms.serve", "step_off_cpu_ms.serve",
                                 "dr_host_ms.serve"),
+    "internvl2-1b-dr.answer": ("step_host_ms.serve", "step_off_cpu_ms.serve",
+                               "dr_host_ms.serve"),
 }
 
 

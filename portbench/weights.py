@@ -1,10 +1,10 @@
 """The weights of a run, drawn on the device from its seed by the benchmark
 and handed to both the program and the reference.
 
-The parameter layout is the port's transformer's (`embed`, stacked
-`layers` leaves `[L, ...]`, `final_norm`, `lm_head`, `frontend_proj`),
-with its init's distributions: N(0, 1/d_in) for a dense leaf, the scaled
-output projections, ones for the norms.  Each leaf is one call on a
+The parameter leaves and their scales are the family's
+(`families/<family>.py`: for the dense transformer `embed`, stacked
+`layers` leaves `[L, ...]`, `final_norm`, `lm_head`, `frontend_proj`), a
+path's groups nested as the port's dict nests them.  Each leaf is one call on a
 generator of its own (`generate.generator(seed, "param:<path>", 0)`), so
 the reference can draw a leaf again without holding the others.  The DR
 unit's state is the paper's: a sparse ternary R (p, m) with s = p, an empty
@@ -13,11 +13,11 @@ row given one ±1, and an orthonormal B (n, p).
 
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Tuple
 
 import torch
 
+from portbench import arch as arch_mod
 from portbench.generate import generator
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -25,30 +25,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def leaf_specs(arch) -> List[Tuple[str, Tuple[int, ...], float]]:
     """(path, shape, scale) of every parameter leaf, paths as `layers/wq`;
-    a scale of 0 marks a norm's ones.  Dense transformers only."""
-    if arch.family != "transformer" or arch.moe is not None:
-        raise ValueError(f"{arch.name}: the benchmark draws dense transformers only")
-    d, dh, hq, hkv, f, n_l = (arch.d_model, arch.dh, arch.n_heads, arch.n_kv_heads, arch.d_ff,
-                              arch.n_layers)
-    v = arch.padded_vocab
-    out = [("embed", (v, d), 1.0),
-           ("final_norm", (d,), 0.0),
-           ("layers/ln1", (n_l, d), 0.0),
-           ("layers/ln2", (n_l, d), 0.0),
-           ("layers/wq", (n_l, d, hq * dh), 1.0 / math.sqrt(d)),
-           ("layers/wk", (n_l, d, hkv * dh), 1.0 / math.sqrt(d)),
-           ("layers/wv", (n_l, d, hkv * dh), 1.0 / math.sqrt(d)),
-           ("layers/wo", (n_l, hq * dh, d), 1.0 / math.sqrt(2 * n_l * hq * dh)),
-           ("layers/w_in", (n_l, d, f), 1.0 / math.sqrt(d)),
-           ("layers/w_out", (n_l, f, d), 1.0 / math.sqrt(2 * n_l * f))]
-    if arch.gated_mlp:
-        out.append(("layers/w_gate", (n_l, d, f), 1.0 / math.sqrt(d)))
-    if not arch.tie_embeddings:
-        out.append(("lm_head", (d, v), 1.0 / math.sqrt(d)))
-    if arch.frontend is not None:
-        f_in = arch.dr_frontend.n if arch.dr_frontend is not None else arch.frontend_dim
-        out.append(("frontend_proj", (f_in, d), 1.0 / math.sqrt(f_in)))
-    return sorted(out)
+    a scale of 0 marks a norm's ones.  The family's (`families/`)."""
+    return arch_mod.family(arch.family).leaf_specs(arch)
 
 
 def draw_leaf(seed: int, spec, device, dtype=torch.float32) -> torch.Tensor:
@@ -64,14 +42,18 @@ def draw_leaf(seed: int, spec, device, dtype=torch.float32) -> torch.Tensor:
 def draw_params(arch, seed: int, device) -> Dict:
     """The port's nested parameter dict, in the config's `param_dtype`."""
     dtype = DTYPES[arch.param_dtype]
-    params: Dict = {"layers": {}}
-    for spec in leaf_specs(arch):
-        path = spec[0]
-        t = draw_leaf(seed, spec, device, dtype)
-        if path.startswith("layers/"):
-            params["layers"][path.split("/", 1)[1]] = t
-        else:
-            params[path] = t
+    specs = leaf_specs(arch)
+    params: Dict = {}
+    for path, _, _ in specs:            # every group first, as the port's dict lays them out
+        node = params
+        for g in path.split("/")[:-1]:
+            node = node.setdefault(g, {})
+    for spec in specs:
+        *groups, name = spec[0].split("/")
+        node = params
+        for g in groups:
+            node = node[g]
+        node[name] = draw_leaf(seed, spec, device, dtype)
     return params
 
 

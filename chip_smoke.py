@@ -94,7 +94,11 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 Dh 72 / 120 / 128 and one not a multiple of 8, GQA groups
                 1 / 4 / 8, windows that hide whole 64-key tiles, q_offset
                 with Sq = 1, Skv not a multiple of 64; f32 and bf16; rows
-                that see no key are 0, their lse about -1e30); and
+                that see no key are 0, their lse about -1e30); the bf16
+                kernel at Dh 224 with Zamba2's scale (Dh / 2)^-1/2 at
+                (1, 4096, 32/32) and a ragged length, out, each (batch,
+                head) within FLASH_REL_NORM and lse, timed at 4096 beside
+                its plain version, SDPA and its bound; and
                 FlashAttentionFn's dq, dk, dv with the kernel's forward
                 (and, in bf16, the kernel backward) against the all-plain
                 ones; the backward kernel timed at hubert-xlarge's and
@@ -150,6 +154,14 @@ Phases (the first that fails ends the run with a non-zero exit code):
                 the step form (prefill 960 + 64 decode steps) within
                 ZAMBA_BLOCK_STEP_REL_NORM; cache bytes, step times, idle
                 share, peak memory
+     zamba-published — Zamba2-7B-Instruct at its published layout
+                (`configs/zamba2_7b.PUBLISHED`: 2 SSD groups, 2 shared
+                blocks at 13 layers, Dh 224, adapters; 7.36 B f32 params):
+                one 4096-token prompt through `api.prefill`, kernel vs
+                torch backend in bf16 within ZAMBA_PUB_REL_NORM on the
+                logits and each cache leaf, both beside the torch backend
+                in f32; flash exactly 13 times on the kernel path (counted
+                from zero) and never on the torch path
  13. train-lm — h2o-danube-3-4b at full width, 8 of its 24 layers, 2 x 4096
                 tokens from the synthetic stream: loss and every gradient
                 leaf, kernel backend (B4 forward with lse, the backward
@@ -196,7 +208,8 @@ Phases (the first that fails ends the run with a non-zero exit code):
 
 It prints a `{"kernels": [...]}` JSON line, the card's line from nvidia-smi,
 and as its last line `{"ok": true, "device": {...}}`.  `--only fleet,fleet-tcp`
-(or `kernels`, `resources`, `wide`, `serve`, `autotune`, `flash`, `mesh`, `dryrun`) runs
+(or `kernels`, `resources`, `wide`, `serve`, `autotune`, `flash`, `zamba-published`, `mesh`,
+`dryrun`) runs
 the card phase and the named phases alone and prints no contract line.  It imports nothing of
 JAX or of the JAX package.
 """
@@ -322,6 +335,14 @@ FLASH_SHAPES = [
     (1, 190, 190, 16, 16, 80, True, None), (2, 290, 290, 14, 2, 64, True, None),
     (1, 77, 211, 14, 2, 64, False, None),
 ]
+# B4 at Zamba2-7B-Instruct's shared attention (configs/zamba2_7b.PUBLISHED):
+# 32/32 heads of Dh 224, causal, scores scaled by (224 / 2)^-1/2; the
+# benchmark cell's prefill (1 x 4096) and a ragged length, bf16 only (the f32
+# kernel stops at Dh 128).  Its lse is held as tests/test_torch_flash_d224.py
+# holds it.
+FLASH_D224 = [(1, 4096, 32, 32, 224), (1, 1000, 32, 32, 224)]
+FLASH_D224_SCALE = 1.0 / math.sqrt(112)
+FLASH_D224_LSE_ATOL = 2e-2
 # h2o-danube-3-4b (src/repro/configs/h2o_danube3_4b.py): request A and B
 LM_ARCH = "h2o_danube3_4b"
 LM_REQUESTS = {"A": dict(batch=4, prompt=1024, decode=16, cache=1040),
@@ -364,6 +385,15 @@ ZAMBA_ARCH = "zamba2_7b"
 # shared block's ring.
 ZAMBA_SPLIT = 960
 ZAMBA_BLOCK_STEP_REL_NORM = 1e-3
+# Zamba2-7B-Instruct at its published layout: one prompt of the benchmark
+# cell's 4096 tokens through `api.prefill`, kernel against torch backend in
+# bf16 (they differ in attention's summation order, carried through 81
+# layers), both beside the torch backend in f32.  The bound is the cell's own
+# logits limit (portbench/limits/zamba2-7b.prefill-4k.json, bf16 program
+# against the f32 reference), held on the logits and on each cache leaf; it
+# was set before the first reading here.
+ZAMBA_PUB_PROMPT = 4096
+ZAMBA_PUB_REL_NORM = 5e-2
 # B4's lse output against the plain version's (f32 in both dtypes; the bf16
 # kernel sums its scores on the tensor cores and takes exp on the SFU), and
 # FlashAttentionFn's gradients with the kernel's forward against the
@@ -2801,6 +2831,7 @@ def phase_flash(dev, errs):
             check_close(f"flash_attention lse of rows with keys, q_offset={q_offset} dh={dh} "
                         f"{dtype}", lse[..., seen], want_lse[..., seen], **LSE_TOL[key])
             n_checks += 1
+    errs["flash_d224"] = flash_d224(dev)
     grad_err = flash_grad_checks(dev, gen)
     torch.cuda.synchronize()
     print(f"[kernels] flash_attention: {n_checks} checks against the plain version passed "
@@ -2811,6 +2842,62 @@ def phase_flash(dev, errs):
           f"(and in bf16 the kernel backward) vs all plain: {json.dumps(grad_err)}")
     errs["flash_grads"] = grad_err
     errs["flash_bwd_timing"] = flash_bwd_timing(dev)
+
+
+def flash_d224(dev):
+    """B4's bf16 forward at Dh 224 with the caller's scale (FLASH_D224)
+    against its plain version: elementwise within FLASH_TOL, each (batch,
+    head) within FLASH_REL_NORM, the lse within FLASH_D224_LSE_ATOL; at the
+    first shape timed (device only) beside its plain version, SDPA with the
+    same scale, and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention
+
+    gen = torch.Generator().manual_seed(224)
+    fa, plain = flash_attention.flash_attention, flash_attention.plain
+    kw = dict(causal=True, scale=FLASH_D224_SCALE)
+    rows = []
+    for (b, s, hq, hkv, dh) in FLASH_D224:
+        q, k, v = [torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+                   for shape in ((b, s, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh))]
+        what = f"flash_attention {[b, s, hq, hkv, dh]} bf16 causal, scale (Dh / 2)^-1/2"
+        got, lse = fa(q, k, v, return_lse=True, **kw)
+        want, want_lse = plain(q, k, v, return_lse=True, **kw)
+        err = check_close(what, got, want, **FLASH_TOL["bf16"])
+        norms = check_flash_norm(what, got, want,
+                                 plain(*(t.to(torch.float32) for t in (q, k, v)), **kw))
+        lse_err = check_close(f"{what} lse", lse, want_lse, rtol=0.0, atol=FLASH_D224_LSE_ATOL)
+        row = {"shape": [b, s, hq, hkv, dh], "causal": True, "scale": FLASH_D224_SCALE,
+               "max_abs_err": err, "lse_max_abs_err": lse_err, **norms}
+        del got, want, lse, want_lse
+        if not rows:
+            kern = lambda: fa(q, k, v, **kw)
+            slow = lambda: plain(q, k, v, **kw)
+            g = hq // hkv
+            qs, ks, vs = (q.transpose(1, 2), k.repeat_interleave(g, dim=2).transpose(1, 2),
+                          v.repeat_interleave(g, dim=2).transpose(1, 2))
+            lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                         scale=FLASH_D224_SCALE)
+            dev_ms, plain_dev_ms, lib_dev_ms = (time_graph(kern, 10, 3), time_graph(slow, 3, 2),
+                                                time_graph(lib, 10, 3))
+            flops = 4.0 * dh * b * hq * (s * (s + 1) // 2)
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+            bms, bby = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+            row.update(device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+                       library_device_ms=lib_dev_ms, bound_ms=bms, bound_by=bby,
+                       roofline_pct=100.0 * bms / dev_ms)
+            print(f"[time] flash_attention zamba2-7b-instruct {[b, s, hq, hkv, dh]} bf16 causal, "
+                  f"scale (Dh / 2)^-1/2: device-only {dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} "
+                  f"TFLOP/s, {100.0 * bms / dev_ms:.1f} % of the bound); plain (device) "
+                  f"{plain_dev_ms:.4f} ms; SDPA (device) {lib_dev_ms:.4f} ms; bound {bms:.6f} ms "
+                  f"({bby})")
+        print(f"[flash] {what}: max |err| {err:.3e}, relative norm a (batch, head) "
+              f"{norms['rel_norm']:.3e} (bound {FLASH_REL_NORM}), lse max |err| {lse_err:.3e} "
+              f"(bound {FLASH_D224_LSE_ATOL})")
+        rows.append(row)
+    return rows
 
 
 def flash_grad_checks(dev, gen):
@@ -3858,6 +3945,86 @@ def phase_zamba(dev):
            "cache_bytes": nbytes, "block_vs_step_rel_norm_f32": block_step, **rows,
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     return counts, out
+
+
+def phase_zamba_published(dev):
+    """Zamba2-7B-Instruct at its published layout (configs/zamba2_7b.PUBLISHED)
+    at full width and depth: 81 Mamba-2 layers with B and C in 2 groups, 2
+    shared blocks in alternation at 13 layers (32/32 heads of Dh 224,
+    per-use adapters and output Linears), 7.36 B f32 params drawn on the
+    card.  One prompt of ZAMBA_PUB_PROMPT tokens through `api.prefill` on the
+    kernel backend, counted from zero, then on the torch backend, in bf16,
+    and on the torch backend in f32: kernel vs torch within
+    ZAMBA_PUB_REL_NORM on the last logits' relative row norm and on every
+    cache leaf, B4 launched once a use of a shared block on the kernel path
+    and never on the torch path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.zamba2_7b import PUBLISHED as cfg
+    from repro_torch.core.execution import Execution
+    from repro_torch.models import api
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device=dev).manual_seed(32), cfg,
+                             execution=Execution(device=dev))
+    torch.cuda.synchronize()
+    print(f"[zamba-published] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{len(cfg.hybrid.layer_ids)} uses of {cfg.hybrid.n_blocks} shared blocks (heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of Dh {cfg.dh}), {cfg.ssm.n_groups} SSD groups; "
+          f"{cfg.param_count()} f32 params drawn on the card in {time.perf_counter() - t0:.2f} s")
+    toks = torch.randint(0, cfg.vocab_size, (1, ZAMBA_PUB_PROMPT), dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(33), device=dev)
+    uses = len(cfg.hybrid.layer_ids)
+    runs = {}
+    for name, backend, c in (("kernel", "kernel", cfg), ("torch", "torch", cfg),
+                             ("torch_f32", "torch",
+                              dataclasses.replace(cfg, compute_dtype="float32"))):
+        exe = Execution(backend=backend, device=dev)
+        api.prefill(params, {"tokens": toks}, c, ZAMBA_PUB_PROMPT, execution=exe)     # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        logits, cache = api.prefill(params, {"tokens": toks}, c, ZAMBA_PUB_PROMPT, execution=exe)
+        torch.cuda.synchronize()
+        runs[name] = dict(logits=logits.to(torch.float32), cache=cache, counts=all_counts(),
+                          ms=(time.perf_counter() - t) * 1e3)
+    k, t, w32 = runs["kernel"], runs["torch"], runs["torch_f32"]["logits"]
+    flash = {name: r["counts"]["flash_attention"] for name, r in runs.items()}
+    if flash != {"kernel": uses, "torch": 0, "torch_f32": 0}:
+        fail(f"zamba-published: flash launches {flash}; want {uses} on the kernel path, none on "
+             f"the torch path")
+    g, w = k["logits"], t["logits"]
+    if tuple(g.shape) != (1, cfg.padded_vocab) or not bool(torch.isfinite(g).all()):
+        fail(f"zamba-published: logits of shape {tuple(g.shape)}, finite "
+             f"{bool(torch.isfinite(g).all())}")
+
+    def rel(a, b):
+        return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+
+    rels = {"kernel_vs_torch": rel(g, w), "kernel_vs_f32": rel(g, w32),
+            "torch_vs_f32": rel(w, w32)}
+    if not rels["kernel_vs_torch"] <= ZAMBA_PUB_REL_NORM:
+        fail(f"zamba-published: kernel vs torch backend: relative row norm "
+             f"{rels['kernel_vs_torch']:.3e} (bound {ZAMBA_PUB_REL_NORM})")
+    leaf_rel = {}
+    for name in ("ssm", "conv", "k", "v"):
+        kc, tc = k["cache"][name].to(torch.float32), t["cache"][name].to(torch.float32)
+        leaf_rel[name] = float((kc - tc).norm() / tc.norm())
+        if not bool(torch.isfinite(kc).all()) or not leaf_rel[name] <= ZAMBA_PUB_REL_NORM:
+            fail(f"zamba-published: cache {name} relative norm {leaf_rel[name]:.3e} (bound "
+                 f"{ZAMBA_PUB_REL_NORM})")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ms = {name: r["ms"] for name, r in runs.items()}
+    print(f"[zamba-published] 1 x {ZAMBA_PUB_PROMPT} tokens through api.prefill: last logits' "
+          f"relative row norms {json.dumps(rels)} (kernel vs torch bound {ZAMBA_PUB_REL_NORM}); "
+          f"cache leaves kernel vs torch {json.dumps(leaf_rel)}; flash launches "
+          f"{json.dumps(flash)} ({uses} uses); prefill ms (host-paced) {json.dumps(ms)}; peak "
+          f"memory {peak:.1f} GiB")
+    out = {"rel_norm": rels, "cache_rel_norm": leaf_rel, "flash_launches": flash,
+           "prefill_ms": ms, "peak_gib": peak}
+    return k["counts"], out
 
 
 def flash_geometry_timing(dev):
@@ -5028,7 +5195,7 @@ def main() -> int:
         only = args[1].split(",")
     elif args:
         print("usage: chip_smoke.py [--only kernels,resources,wide,serve,autotune,fleet,"
-              "fleet-tcp,flash,mesh,dryrun]", file=sys.stderr)
+              "fleet-tcp,flash,zamba-published,mesh,dryrun]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -5066,6 +5233,7 @@ def main() -> int:
                       "serve": lambda card: phase_serve(dev, card),
                       "autotune": lambda card: phase_autotune(dev, card),
                       "flash": lambda card: phase_flash(dev, {}),
+                      "zamba-published": lambda card: phase_zamba_published(dev)[1],
                       "mesh": lambda card: phase_mesh(dev, card)[1],
                       "dryrun": lambda card: phase_dryrun(dev, card)}
         try:
@@ -5107,6 +5275,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         zamba_counts, zamba = timed("zamba", phase_zamba, dev)
         torch.cuda.empty_cache()
+        zpub_counts, zpub = timed("zamba-published", phase_zamba_published, dev)
+        torch.cuda.empty_cache()
         train_lm_counts, train_lm = timed("train-lm", phase_train_lm, dev)
         torch.cuda.empty_cache()
         train_dr_counts, train_dr = timed("train-dr", phase_train_dr, dev)
@@ -5131,7 +5301,8 @@ def main() -> int:
             row["fleet_sketch"] = fleet["sketch"]   # the merge's sketch, a new call site
     flash_row.update(lse_max_abs_err_f32=errs[("lse", "f32")],
                      lse_max_abs_err_bf16=errs[("lse", "bf16")], grad_check=errs["flash_grads"],
-                     train_layer=train_layer, backward=errs["flash_bwd_timing"])
+                     train_layer=train_layer, backward=errs["flash_bwd_timing"],
+                     d224=errs["flash_d224"])
     flash_row.update(launches=lm_launches, launches_table1=t1_counts["flash_attention"],
                      launches_by_request=lm_by_entry,
                      lm_max_rel_norm=lm_worst[0], lm_max_abs_err=lm_worst[1])
@@ -5150,6 +5321,7 @@ def main() -> int:
         row["launches_frontend"] = front_counts[name]
         row["launches_rwkv6"] = rwkv_counts[name]
         row["launches_zamba"] = zamba_counts[name]
+        row["launches_zamba_published"] = zpub_counts[name]
         row["launches_train_lm"] = train_lm_counts[name]
         row["launches_train_dr"] = train_dr_counts[name]
         row["launches_train_recurrent"] = train_rec_counts[name]
@@ -5161,7 +5333,7 @@ def main() -> int:
     print(f"[serve-steps] {json.dumps(serve)}")
     print(f"[fleet-steps] {json.dumps({'fleet': fleet, 'fleet_tcp': fleet_tcp})}")
     zoo = {"lm_queue": lmq, "kv_rp": kvrp, "moe": moe, "frontend": front, "rwkv6": rwkv,
-           "zamba": zamba}
+           "zamba": zamba, "zamba_published": zpub}
     print(f"[lm-zoo-steps] {json.dumps(zoo)}")
     train = {"train_lm": train_lm, "train_dr": train_dr, "train_recurrent": train_rec,
              "trainer": trainer_out, "train_layer": train_layer}

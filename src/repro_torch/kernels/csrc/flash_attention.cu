@@ -60,8 +60,17 @@
 //     lse is m + logf(l) in f32, written by one thread of the row after the
 //     row's l is complete: with a null lse pointer nothing else changes.
 //   - Everything sums in f32; p is rounded to v's dtype before p v, as both
-//     JAX versions do.  Tiles of Dh 64 and 128 are compiled; Dh > 128 is
-//     refused.
+//     JAX versions do.  Tiles of Dh 64 and 128 are compiled for both, and
+//     of Dh 224 for bf16 (Zamba2's shared block: 32 heads on a 7168-wide
+//     concat, scaled by (224 / 2)^-1/2, so `scale` is the caller's); a
+//     wider head is refused.
+//   - At D 224 the bf16 kernel keeps Q in shared memory, not in registers:
+//     its output fragment alone is 112 registers a thread, and Q's 56 more
+//     would spill past the 255 a thread may hold.  Q's 128 rows sit beside
+//     the two K / V buffers (178 176 bytes in all, one CTA an SM), and each
+//     kv tile reads them back by ldmatrix, one pair of k-steps at a time,
+//     summing every score in the same order as the register-resident
+//     form.
 #include "flash_tc.cuh"
 
 using namespace repro_torch;
@@ -267,12 +276,19 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, void* out, fl
 // bf16: the tensor-core kernel
 // ---------------------------------------------------------------------------
 
+// Up to D 128, Q is held in registers through the kv loop; above it, in
+// shared memory (see the header).
+template <int D>
+constexpr bool TC_Q_IN_SMEM = D > 128;
+
 // Two buffers, each a K tile and a V tile of TC_BK rows.  The Q tile (16
 // rows a warp, at most 128) is staged in buffer 1 before the kv loop, read
-// into registers, and then overwritten by the second kv tile.
+// into registers, and then overwritten by the second kv tile; where Q stays
+// in shared memory it has its own 128 rows after the buffers.
 template <int D>
 constexpr size_t tc_smem_bytes() {
-  return sizeof(bf16) * (size_t)4 * TC_BK * (D + TC_PAD);
+  return sizeof(bf16) * (size_t)(4 * TC_BK + (TC_Q_IN_SMEM<D> ? 16 * TC_WARPS : 0)) *
+         (D + TC_PAD);
 }
 
 // One CTA: TC_WARPS warps, 16 query rows each, all reading the K/V of kv
@@ -290,10 +306,13 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KS = D / 16;        // k-steps of Q K^T
   constexpr int NT = D / 8;         // n-tiles of the output
   constexpr int ST = TC_BK / 8;     // n-tiles of the score tile
-  static_assert(16 * NW <= 2 * TC_BK, "the Q tile must fit in one kv buffer");
+  constexpr bool QS = TC_Q_IN_SMEM<D>;
+  static_assert(QS || 16 * NW <= 2 * TC_BK, "the Q tile must fit in one kv buffer");
+  static_assert(KS % 2 == 0 && NT % 2 == 0, "k-steps and output n-tiles come in pairs");
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* kvs = reinterpret_cast<bf16*>(tc_smem);   // [buffer][K, V][TC_BK][LD]
-  bf16* qs = kvs + 2 * TC_BK * LD;                // buffer 1, before the loop
+  // buffer 1 before the loop, or Q's own rows after both buffers
+  bf16* qs = kvs + (QS ? 4 : 2) * TC_BK * LD;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -348,12 +367,15 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[KS][4];   // this warp's 16 rows of Q, for the whole kv loop
+  // this warp's 16 rows of Q as ldmatrix reads them, k-step kk at + kk * 16
+  const bf16* q_frag = qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                       (lane >> 4) * 8;
+  [[maybe_unused]] uint32_t qf[QS ? 1 : KS][4];   // Q in registers for the whole kv loop (D <= 128)
+  if constexpr (!QS) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16 +
-                        (lane >> 4) * 8);
-  __syncthreads();      // buffer 1 is free for the second kv tile
+    for (int kk = 0; kk < KS; ++kk) ldsm_x4(qf[kk], q_frag + kk * 16);
+    __syncthreads();    // buffer 1 is free for the second kv tile
+  }
 
   float o[NT][4];
 #pragma unroll
@@ -375,15 +397,35 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // S = Q K^T: n-tile j holds keys k0 + 8 j .. + 7
     float s[ST][4];
 #pragma unroll
-    for (int j = 0; j < ST; ++j) {
+    for (int j = 0; j < ST; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if constexpr (QS) {
+      // each pair of Q's k-steps read once a tile; every s[j] still sums
+      // its k-steps in ascending order
 #pragma unroll
       for (int kk = 0; kk < KS; kk += 2) {
-        uint32_t kf[4];
-        ldsm_x4(kf, kt + (j * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
-        mma_bf16(s[j], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[j], qf[kk + 1], kf[2], kf[3]);
+        uint32_t qlo[4], qhi[4];
+        ldsm_x4(qlo, q_frag + kk * 16);
+        ldsm_x4(qhi, q_frag + (kk + 1) * 16);
+#pragma unroll
+        for (int j = 0; j < ST; ++j) {
+          uint32_t kf[4];
+          ldsm_x4(kf, kt + (j * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
+          mma_bf16(s[j], qlo, kf[0], kf[1]);
+          mma_bf16(s[j], qhi, kf[2], kf[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < ST; ++j) {
+#pragma unroll
+        for (int kk = 0; kk < KS; kk += 2) {
+          uint32_t kf[4];
+          ldsm_x4(kf, kt + (j * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
+          mma_bf16(s[j], qf[kk], kf[0], kf[1]);
+          mma_bf16(s[j], qf[kk + 1], kf[2], kf[3]);
+        }
       }
     }
 
@@ -510,18 +552,20 @@ cudaError_t launch_tc_dh(const void* q, const void* k, const void* v, void* out,
                          scale, stream);
   };
   if (dh <= 64) return vec ? go(launch_tc<64, true>) : go(launch_tc<64, false>);
-  return vec ? go(launch_tc<128, true>) : go(launch_tc<128, false>);
+  if (dh <= 128) return vec ? go(launch_tc<128, true>) : go(launch_tc<128, false>);
+  return vec ? go(launch_tc<224, true>) : go(launch_tc<224, false>);
 }
 
 }  // namespace
 
 // window < 0 means no sliding window; lse may be null (no log-sum-exp is
-// written).  bf16 runs the tensor-core kernel, f32 the FMA kernel.
+// written); the scores are multiplied by `scale`.  bf16 runs the
+// tensor-core kernel (Dh up to 224), f32 the FMA kernel (Dh up to 128).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      void* lse, int b, int sq, int skv, int hq, int hkv, int dh,
                                      int causal, int window, int q_offset, float scale,
                                      int dtype, void* stream) {
-  if (dh < 1 || dh > 128 || hkv < 1 || hq % hkv != 0)
+  if (dh < 1 || dh > (dtype == kBF16 ? 224 : 128) || hkv < 1 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
@@ -541,13 +585,18 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
 
 // A kernel body, for csrc/attributes.cu: body 0 the f32 FMA kernel with its
 // tile of Dh (dh 64 or 128), 1 the bf16 tensor-core kernel with its tile of
-// Dh (64 or 128) and vec 1 for 16-byte cp.async loads (0: element by
+// Dh (64, 128 or 224) and vec 1 for 16-byte cp.async loads (0: element by
 // element).  *fn is the kernel, *dyn the dynamic shared bytes its launch
 // requests.
 extern "C" int repro_flash_attention_body(int body, int dh, int vec, int unused0, int unused1,
                                           const void** fn, int* dyn) {
   (void)unused0;
   (void)unused1;
+  if (body == 1 && dh == 224) {
+    *fn = vec ? (const void*)flash_tc_kernel<224, true> : (const void*)flash_tc_kernel<224, false>;
+    *dyn = (int)tc_smem_bytes<224>();
+    return 0;
+  }
   if (dh != 64 && dh != 128) return static_cast<int>(cudaErrorInvalidValue);
   const bool d64 = dh == 64;
   if (body == 0) {

@@ -8,8 +8,9 @@ the H100 and what its design does about that.  It holds two kernels, and the
 C entry point picks one by dtype:
 
   - bf16 (the LM path): a tensor-core kernel, FA2-style.  Each CTA of 8
-    warps owns a 128-row query tile (16 rows a warp, Q in registers; under
-    GQA the rows of a group's heads share the CTA and its K/V tiles); K
+    warps owns a 128-row query tile (16 rows a warp, Q in registers, or
+    at Dh 224 in shared memory; under GQA the rows of a group's heads
+    share the CTA and its K/V tiles); K
     and V tiles stay bf16 in shared memory, double-buffered with cp.async;
     S = QKᵀ and P·V run on `mma.sync` m16n8k16 with f32 accumulation,
     p rounded to bf16 in registers; only tiles cut by a mask edge evaluate
@@ -58,19 +59,24 @@ bwd_launches = 0   # and by `flash_attention_bwd` (two a call)
 
 plain = flash_attention_ref
 
-MAX_DH = 128   # the widest head the kernel's tiles hold
+MAX_DH = 224       # the widest head the bf16 kernel's tiles hold (Zamba2's shared block)
+MAX_DH_F32 = 128   # and the f32 kernel's
+MAX_DH_BWD = 128   # and the backward's
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0, return_lse: bool = False):
+                    q_offset: int = 0, return_lse: bool = False,
+                    scale: Optional[float] = None):
     """out (B, Sq, Hq, Dh) in q.dtype from q (B, Sq, Hq, Dh) and k, v
-    (B, Skv, Hkv, Dh); query row r sits at position q_offset + r.  With
-    `return_lse`, (out, lse (B, Hq, Sq) f32)."""
+    (B, Skv, Hkv, Dh); query row r sits at position q_offset + r; the
+    scores scaled by `scale` (default 1/√Dh).  With `return_lse`, (out,
+    lse (B, Hq, Sq) f32).  The bf16 kernel takes Dh up to `MAX_DH`, the
+    f32 one up to `MAX_DH_F32`."""
     global launches
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                     return_lse=return_lse)
+                     return_lse=return_lse, scale=scale)
     name = "flash_attention"
     if fake.is_fake(q):
         b, sq, hq, dh = q.shape
@@ -89,8 +95,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != b or k.shape[3] != dh or hq % hkv != 0:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match k/v {tuple(k.shape)} "
                          f"(same B and Dh, Hq a multiple of Hkv)")
-    if dh > MAX_DH:
-        raise ValueError(f"{name}: head dim {dh} > {MAX_DH} is not supported by the kernel")
+    top = MAX_DH if q.dtype == torch.bfloat16 else MAX_DH_F32
+    if dh > top:
+        raise ValueError(f"{name}: head dim {dh} > {top} is not supported by the {q.dtype} "
+                         f"kernel")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k, v must share a dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -104,7 +112,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             _build.ptr(lse) if return_lse else None, b, sq, skv, hq, hkv, dh,
             int(causal), -1 if window is None else int(window), int(q_offset),
-            1.0 / math.sqrt(dh), code, _build.stream(q))
+            1.0 / math.sqrt(dh) if scale is None else float(scale), code, _build.stream(q))
     _build.raise_on_error(name, rc)
     launches += 1
     return (out, lse) if return_lse else out
@@ -112,7 +120,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
-                        window: Optional[int] = None, q_offset: int = 0):
+                        window: Optional[int] = None, q_offset: int = 0,
+                        scale: Optional[float] = None):
     """(dq, dk, dv) in the inputs' dtype: the gradients of `flash_attention`
     at q (B, Sq, Hq, Dh), k, v (B, Skv, Hkv, Dh), from its out (B, Sq, Hq,
     Dh), its lse (B, Hq, Sq) f32 and the output's gradient dout (B, Sq, Hq,
@@ -120,7 +129,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     global bwd_launches
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window,
-                                       q_offset=q_offset)
+                                       q_offset=q_offset, scale=scale)
     name = "flash_attention_bwd"
     if fake.is_fake(q):
         b, sq, hq, dh = q.shape
@@ -144,8 +153,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     if tuple(lse.shape) != (b, hq, sq) or lse.dtype != torch.float32:
         raise ValueError(f"{name}: want lse (B, Hq, Sq) = {(b, hq, sq)} float32, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    if dh > MAX_DH:
-        raise ValueError(f"{name}: head dim {dh} > {MAX_DH} is not supported by the kernel")
+    if dh > MAX_DH_BWD:
+        raise ValueError(f"{name}: head dim {dh} > {MAX_DH_BWD} is not supported by the kernel")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v, out, dout)):
         raise TypeError(f"{name}: the kernel takes bfloat16 q, k, v, out and dout, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}, {dout.dtype}")
@@ -157,7 +166,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
         rc = _build.library().repro_flash_attention_bwd(
             *map(_build.ptr, (q, k, v, out, dout, lse, delta, dq, dk, dv)), b, sq, skv, hq, hkv,
             dh, int(causal), -1 if window is None else int(window), int(q_offset),
-            1.0 / math.sqrt(dh), _build.stream(q))
+            1.0 / math.sqrt(dh) if scale is None else float(scale), _build.stream(q))
     _build.raise_on_error(name, rc)
     bwd_launches += 2
     return dq, dk, dv

@@ -59,22 +59,24 @@ def easi_update(b_mat: torch.Tensor, h_block: torch.Tensor, cfg, block_m: int = 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0, return_lse: bool = False):
+                    q_offset: int = 0, return_lse: bool = False,
+                    scale: Optional[float] = None):
     """Flash attention forward: q (B, Sq, Hq, Dh), k/v (B, Skv, Hkv, Dh) ->
     (B, Sq, Hq, Dh), and with `return_lse` also each row's log-sum-exp (B,
     Hq, Sq) in f32.  The kernel reads the (B, S, H, Dh) layout as it is, so
     no head-major copy is made; the operands are only made contiguous."""
     return _flash_kernel.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                          causal=causal, window=window, q_offset=q_offset,
-                                         return_lse=return_lse)
+                                         return_lse=return_lse, scale=scale)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
-                        window: Optional[int] = None, q_offset: int = 0):
+                        window: Optional[int] = None, q_offset: int = 0,
+                        scale: Optional[float] = None):
     """Flash attention backward from the forward's out and lse: (dq, dk, dv)
     in the inputs' dtype (the CUDA kernel takes bf16).  The operands are only
     made contiguous."""
     return _flash_kernel.flash_attention_bwd(
         q.contiguous(), k.contiguous(), v.contiguous(), out.contiguous(), lse.contiguous(),
-        dout.contiguous(), causal=causal, window=window, q_offset=q_offset)
+        dout.contiguous(), causal=causal, window=window, q_offset=q_offset, scale=scale)

@@ -84,7 +84,8 @@ def _chunks(n: int, c: int):
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         q_offset: int = 0, q_chunk: int = 1024,
-                        kv_chunk: int = 1024, return_lse: bool = False):
+                        kv_chunk: int = 1024, return_lse: bool = False,
+                        scale: Optional[float] = None):
     """Double-chunked online-softmax attention forward, the arithmetic of
     the JAX package's `blocks._flash_forward`: q (B, Sq, Hq, Dh), k and v
     (B, Skv, Hkv, Dh), query row r at position q_offset + r, query head h
@@ -92,6 +93,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     f32; p is rounded to v's dtype before the p·v product; the output is in
     q's dtype.  With `return_lse`, (out, lse): lse (B, Hq, Sq) f32 is each
     row's m + log(max(l, 1e-30)), the residual of the reference's VJP.
+
+    The scores are scaled by `scale` (default 1/√Dh).
 
     Masked entries get p = 0 (the reference computes exp(−1e30 − m), which
     is 0 wherever the row has seen a key, and 1 before it has).  So a row
@@ -101,7 +104,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, hq, dh = q.shape
     _, skv, hkv, _ = k.shape
     g = hq // hkv
-    scale = 1.0 / math.sqrt(dh)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
     dev = q.device
     out = torch.zeros((b, sq, hq, dh), dtype=q.dtype, device=dev)
     lse = torch.empty((b, hkv, g, sq), dtype=torch.float32, device=dev) if return_lse else None
@@ -140,7 +143,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
                             causal: bool = True, window: Optional[int] = None,
-                            q_offset: int = 0, q_chunk: int = 1024, kv_chunk: int = 1024):
+                            q_offset: int = 0, q_chunk: int = 1024, kv_chunk: int = 1024,
+                            scale: Optional[float] = None):
     """The attention backward, the arithmetic of the JAX package's
     `blocks._flash_backward`: p is recomputed per chunk pair from (q, k,
     lse), never stored whole.  q, out, dout (B, Sq, Hq, Dh), k, v (B, Skv,
@@ -160,7 +164,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, hq, dh = q.shape
     _, skv, hkv, _ = k.shape
     g = hq // hkv
-    scale = 1.0 / math.sqrt(dh)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
     dev = q.device
     f32 = torch.float32
 

@@ -356,8 +356,19 @@ TC_BK = 64
 TC_PAD = 8
 
 
+FLASH_TC_TILES = (64, 128, 224)   # the bf16 forward's Dh tiles; the f32 one stops at 128
+
+
 def _flash_tile(dh: int) -> int:
-    return 64 if dh <= 64 else 128
+    return 64 if dh <= 64 else 128 if dh <= 128 else 224
+
+
+def _flash_tc_smem(d: int) -> int:
+    """The bf16 forward's dynamic shared memory: two K / V buffers of 64 rows
+    of D + 8 bf16, and above D 128 Q's own 128 rows beside them (D 224:
+    178 176 bytes, 250 registers a thread and no spill on an H100 80GB HBM3,
+    `chip_smoke.py --only resources`)."""
+    return 2 * (4 * TC_BK + (16 * TC_WARPS if d > 128 else 0)) * (d + TC_PAD)
 
 
 def flash_fma_estimate(batch: int, sq: int, skv: int, hq: int, hkv: int, dh: int
@@ -387,11 +398,11 @@ def flash_tc_estimate(batch: int, sq: int, skv: int, hq: int, hkv: int, dh: int,
                       vec: bool = True) -> KernelEstimate:
     """flash_attention.cu `flash_tc_kernel<D, VEC>` (bf16): 8 warps a 128-row
     query tile of hg heads of one kv head; two K / V buffers of 64 rows of
-    D + 8 bf16, dynamic."""
+    D + 8 bf16, and at D 224 the Q tile's 128 rows, dynamic."""
     d = _flash_tile(dh)
     return KernelEstimate(
         "flash_tc_kernel", "flash_attention.cu", f"bf16,D={d},VEC={int(vec)}", 32 * TC_WARPS,
-        (_flash_tc_blocks(batch, sq, hq, hkv),), 0, 2 * 4 * TC_BK * (d + TC_PAD),
+        (_flash_tc_blocks(batch, sq, hq, hkv),), 0, _flash_tc_smem(d),
         lookup=(3, 1, d, int(vec), 0, 0))
 
 
@@ -499,6 +510,7 @@ MODELED_KERNELS: Dict[str, Callable[..., KernelEstimate]] = {
 PAPER_ROW = dict(rows=1024, m=32, p=16, n=8)
 WIDE_ROW = dict(rows=256, m=1024, p=256, n=128)
 REQUEST_A = dict(batch=4, sq=1024, skv=1024, hq=32, hkv=8, dh=120)
+ZAMBA_PREFILL = dict(batch=1, sq=4096, skv=4096, hq=32, hkv=32, dh=224)
 
 
 def paper_scale_report(sms: int = H100_SMS) -> List[KernelEstimate]:
@@ -519,6 +531,7 @@ def paper_scale_report(sms: int = H100_SMS) -> List[KernelEstimate]:
         out += easi_apply_call(wr["rows"], wr["n"], wr["p"], block_m=cols, sms=sms)
     out += flash_attention_call(1, 1024, 1024, 8, 8, 64, bf16=False)
     out += flash_attention_call(**REQUEST_A, bf16=True)
+    out += flash_attention_call(**ZAMBA_PREFILL, bf16=True)
     out += flash_attention_bwd_call(**REQUEST_A)
     seen, uniq = set(), []
     for est in out:                        # the sum kernel comes once per tile point
@@ -562,6 +575,8 @@ def every_instance(sms: int = H100_SMS) -> List[KernelEstimate]:
         for vec in (False, True):
             out.append(flash_tc_estimate(**REQUEST_A, vec=vec) if dh == 128 else
                        flash_tc_estimate(1, 1024, 1024, 8, 8, 64, vec=vec))
+    for vec in (False, True):            # Zamba2's shared block: 1 x 4096, 32 / 32 heads of 224
+        out.append(flash_tc_estimate(**ZAMBA_PREFILL, vec=vec))
     for d in BWD_TILES:
         out += flash_attention_bwd_call(**dict(REQUEST_A, dh=d))
     return out

@@ -95,7 +95,9 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
-    return {"silu": _silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
+    """`gelu` is the tanh form, as the reference's; `gelu_erf` the exact
+    one (Zamba2's published MLP, a port-only name)."""
+    return {"silu": _silu, "gelu": _gelu_tanh, "gelu_erf": F.gelu, "relu": F.relu}[name]
 
 
 # ---------------------------------------------------------------------------
@@ -124,12 +126,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # attention
 # ---------------------------------------------------------------------------
 
-def _forward_lse(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, backend):
+def _forward_lse(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, backend, scale):
     if backend == "kernel":
         return ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                                   return_lse=True)
+                                   return_lse=True, scale=scale)
     return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                               q_chunk=q_chunk, kv_chunk=kv_chunk, return_lse=True)
+                               q_chunk=q_chunk, kv_chunk=kv_chunk, return_lse=True, scale=scale)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -143,10 +145,12 @@ class FlashAttentionFn(torch.autograd.Function):
     chunks.  No double backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, kv_chunk, backend):
-        out, lse = _forward_lse(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, backend)
+    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, kv_chunk, backend, scale):
+        out, lse = _forward_lse(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, backend,
+                                scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        ctx.scale = {} if scale is None else {"scale": scale}
         ctx.chunks = dict(q_chunk=q_chunk, kv_chunk=kv_chunk)
         ctx.kernel = backend == "kernel"
         return out
@@ -156,11 +160,11 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         if ctx.kernel and q.dtype == torch.bfloat16:
-            dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, dout, **ctx.mask)
+            dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, dout, **ctx.mask, **ctx.scale)
         else:
             dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, dout, **ctx.mask,
-                                                 **ctx.chunks)
-        return dq, dk, dv, None, None, None, None, None, None
+                                                 **ctx.scale, **ctx.chunks)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -174,8 +178,10 @@ def flash_attention(
     kv_chunk: int = 1024,
     q_offset: int = 0,
     backend: str = "torch",
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Online-softmax attention, GQA without repeating K/V.
+    """Online-softmax attention, GQA without repeating K/V, the scores
+    scaled by `scale` (default 1/√Dh).
 
     `backend="kernel"` runs the forward in the CUDA kernel on a CUDA tensor
     (its tiles replace the chunk sizes); otherwise the plain version runs
@@ -185,11 +191,12 @@ def flash_attention(
     kernel for bf16 with `backend="kernel"`, else the plain chunked one)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, q_offset, q_chunk, kv_chunk,
-                                      backend)
+                                      backend, scale)
     if backend == "kernel":
-        return ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                   scale=scale)
     return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                               q_chunk=q_chunk, kv_chunk=kv_chunk)
+                               q_chunk=q_chunk, kv_chunk=kv_chunk, scale=scale)
 
 
 def decode_attention(

@@ -7,6 +7,9 @@ transformers; the family-specific blocks (`MoESpec`, `SSMSpec`,
 `HybridSpec`, `DRFrontendSpec`) are carried as data even where the port
 does not run them yet.  `repr` and field order match the reference, so
 `checkpoint.manager.config_hash` gives the same hash in both packages.
+`GroupedSSMSpec` and `SharedBlocksSpec` are the port's own subclasses for
+Zamba2's published layout; a config built from the shared classes alone is
+the reference's.
 """
 
 from __future__ import annotations
@@ -45,6 +48,33 @@ class HybridSpec:
     """Zamba-2 layout: SSM backbone + one *shared* attention block applied
     every `attn_every` layers (shared weights, concat re-projection)."""
     attn_every: int = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedSSMSpec(SSMSpec):
+    """Port only (the JAX package has no such block): Mamba-2 as Zamba2
+    publishes it (`mamba_ngroups`).  B and C come in `n_groups` groups of
+    d_state, SSD head h reading group h // (heads / n_groups); the output y
+    is gated by silu(z) first and then RMS-normed over each group of
+    d_inner / n_groups channels (HF's `Zamba2RMSNormGated`).  The JAX
+    package's `SSMSpec` is one group, normed over all of d_inner, then
+    gated."""
+    n_groups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedBlocksSpec(HybridSpec):
+    """Port only: Zamba2's published hybrid layout.  `n_blocks` shared
+    attention + MLP blocks, used in alternation at the layers `layer_ids`
+    (use j runs block j % n_blocks), each use with its own LoRA adapter of
+    rank `adapter_rank` on the MLP's gate_up and its own d × d output
+    Linear; the attention's scores are scaled by (Dh / 2)^-1/2, as HF's
+    `Zamba2Attention` scales them.  The block's output feeds only the next
+    Mamba layer's input (x + Mamba(norm(x + W_j·T))).  `attn_every` is not
+    read."""
+    layer_ids: Tuple[int, ...] = ()
+    n_blocks: int = 1
+    adapter_rank: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +178,8 @@ class ArchConfig:
             cm = 2 * d * self.d_ff // 2 + self.d_ff // 2 * d  # rwkv ffn (r,k,v)
             cm = d * self.d_ff + self.d_ff * d + d * d
             total += l * (tm + cm + 2 * d)
+        elif self.family == "zamba" and isinstance(self.hybrid, SharedBlocksSpec):
+            total += l * zamba_layer_params(self) + published_shared_params(self) + d
         elif self.family == "zamba":
             di = self.ssm.d_inner(d)
             nh = self.ssm.n_heads(d)
@@ -167,3 +199,24 @@ class ArchConfig:
         """6·N_active per trained token (2·N for decode)."""
         n = self.param_count(active_only=True)
         return (2.0 if decode else 6.0) * n
+
+
+def zamba_layer_params(cfg: ArchConfig) -> int:
+    """One Mamba-2 layer of the published Zamba2 layout (`GroupedSSMSpec`):
+    its norm, `in_proj`, the conv's taps and bias, A, D and the dt bias,
+    the gated norm and `out_proj`."""
+    d, spec = cfg.d_model, cfg.ssm
+    di, nh, g = spec.d_inner(d), spec.n_heads(d), spec.n_groups
+    conv = di + 2 * g * spec.d_state
+    return d + d * (2 * di + 2 * g * spec.d_state + nh) + conv * (spec.d_conv + 1) + 3 * nh \
+        + di + di * d
+
+
+def published_shared_params(cfg: ArchConfig) -> int:
+    """The shared blocks of the published Zamba2 layout (`SharedBlocksSpec`)
+    and each use's adapter and output Linear."""
+    d, dh, hq, hkv, f = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    h = cfg.hybrid
+    block = 2 * d + (2 * d) * (hq + 2 * hkv) * dh + hq * dh * d + d + d * 2 * f + f * d
+    use = h.adapter_rank * (d + 2 * f) + d * d
+    return h.n_blocks * block + len(h.layer_ids) * use

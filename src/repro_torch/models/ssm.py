@@ -46,22 +46,30 @@ When grad is needed the block form runs chunk by chunk, each chunk under
 checkpoint as in the reference (`_ssd_chunk`); without grad it batches
 every chunk's intra-chunk and carry-out terms (`_ssd_blocks`), the same
 arithmetic in another order.  The backward is autograd through either
-form.
+form.  Each layer's scan runs under the span `ssm.ssd` (`repro_torch.obs`).
+
+Zamba2's published layout (a config whose `hybrid` is the port's own
+`SharedBlocksSpec`, `ssm` its `GroupedSSMSpec`; the section at the end)
+serves on one rank through the same `prefill`, `decode_step`,
+`init_cache` and `init_params`: two shared blocks in alternation at the
+listed layers, each use with its adapter and output Linear under the span
+`zamba.shared`, B and C in groups, the gate before a per-group norm.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.execution import Execution
 from repro_torch.dist import sharding as shard_rules
 from repro_torch.models import blocks, transformer
 from repro_torch.models.transformer import cache_slots, prompt_slots
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, GroupedSSMSpec, SharedBlocksSpec
 
 Params = Dict[str, Any]
 SSD_CHUNK = 64  # block-form chunk length (tests may override)
@@ -148,7 +156,7 @@ def _ssd_blocks(xh, bmat, cmat, dt, a, state):
         carry:  y_t += (c_t·h_in)·exp(ℓ_t);  h_out = exp(ℓ_T)h_in + Σ_s …
     The intra-chunk terms and each chunk's carry-out contribution are
     batched over the chunks; only the carry runs chunk by chunk.  Shapes as
-    `_ssd_steps`, a (nh,) f32.  Returns (ys in xh's dtype, final state)."""
+    `_ssd_steps`, a f32 broadcast against dt ((nh,) or (B, 1, nh)).  Returns (ys in xh's dtype, final state)."""
     b, s, nh, dh = xh.shape
     ds = bmat.shape[-1]
     t_c = SSD_CHUNK
@@ -320,27 +328,62 @@ def mamba_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, ssm_state: torch.T
     else:
         rd, n = _head_reads(lp, cfg, tp), tp.n
     di, nh, ds, dh = spec.d_inner(d) // n, spec.n_heads(d) // n, spec.d_state, spec.head_dim
+    g = spec.n_groups if isinstance(spec, GroupedSSMSpec) else 1
 
     h = blocks.rms_norm(x, rd.ln, cfg.norm_eps)
-    z, xbc, dt = torch.split(rd.proj_in(h), [di, di + 2 * ds, nh], dim=-1)
+    z, xbc, dt = torch.split(rd.proj_in(h), [di, di + 2 * g * ds, nh], dim=-1)
     xbc, conv_state = rd.conv(xbc, conv_state)
-    xs, bmat, cmat = torch.split(xbc, [di, ds, ds], dim=-1)
+    xs, bmat, cmat = torch.split(xbc, [di, g * ds, g * ds], dim=-1)
     dt = F.softplus(dt.to(torch.float32) + rd.dt_bias.to(torch.float32))     # (B, S, nh)
     a = -torch.exp(rd.a_log.to(torch.float32))                              # (nh,)
     xh = xs.reshape(b, s, nh, dh)
-    if s % SSD_CHUNK == 0 and s > 1:
-        by_chunk = torch.is_grad_enabled() and xh.requires_grad
-        ys, ssm_state = (_ssd_blocks_remat if by_chunk else _ssd_blocks)(xh, bmat, cmat, dt, a,
-                                                                         ssm_state)
+    block = s % SSD_CHUNK == 0 and s > 1
+    with obs.span("ssm.ssd"):
+        ys, ssm_state = _ssd(xh, bmat, cmat, dt, a, ssm_state, g, block)
+    if block:
         # the block form adds the skip term in the compute dtype
         y = ys + rd.d_skip.to(torch.float32)[None, None, :, None].to(ys.dtype) * xh
     else:
-        ys, ssm_state = _ssd_steps(xh, bmat, cmat, torch.exp(dt * a), dt, ssm_state)
         # the step form adds it in f32 and rounds once
         y = ys + rd.d_skip.to(torch.float32)[None, None, :, None] * xh
     y = y.reshape(b, s, di).to(x.dtype)
-    y = rd.norm_y(y) * blocks.act_fn("silu")(z)
+    if isinstance(spec, GroupedSSMSpec):
+        y = _gated_group_norm(y, z, blocks.gather_layer(lp)["norm_y"], g, cfg.norm_eps)
+    else:
+        y = rd.norm_y(y) * blocks.act_fn("silu")(z)
     return rd.proj_out(y), ssm_state, conv_state
+
+
+def _ssd(xh, bmat, cmat, dt, a, state, g: int, block: bool):
+    """The SSD of every head, block form (`block`) or step form; head h
+    reads B and C of group h // (nh / g), bmat / cmat (B, S, g·ds).  The
+    groups go into the batch, (B, S, g·k, ·) -> (B·g, S, k, ·), so one scan
+    serves them all.  Shapes otherwise as `_ssd_steps`, a (nh,) f32."""
+    b, s, nh, dh = xh.shape
+    k, ds = nh // g, bmat.shape[-1] // g
+    xg = xh.reshape(b, s, g, k, dh).transpose(1, 2).reshape(b * g, s, k, dh)
+    bg, cg = (m.reshape(b, s, g, ds).transpose(1, 2).reshape(b * g, s, ds) for m in (bmat, cmat))
+    dtg = dt.reshape(b, s, g, k).transpose(1, 2).reshape(b * g, s, k)
+    ag = a.reshape(g, k).repeat(b, 1)[:, None]                              # (B·g, 1, k)
+    state = state.reshape(b * g, k, dh, ds)
+    if block:
+        by_chunk = torch.is_grad_enabled() and xh.requires_grad
+        ys, state = (_ssd_blocks_remat if by_chunk else _ssd_blocks)(xg, bg, cg, dtg, ag, state)
+    else:
+        ys, state = _ssd_steps(xg, bg, cg, torch.exp(dtg * ag), dtg, state)
+    return ys.reshape(b, g, s, k, dh).transpose(1, 2).reshape(b, s, nh, dh), \
+        state.reshape(b, nh, dh, ds)
+
+
+def _gated_group_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, g: int,
+                      eps: float) -> torch.Tensor:
+    """HF's `Zamba2RMSNormGated` in f32: y · silu(z), then an RMS norm over
+    each of g groups of channels, rounded to y's dtype, times w."""
+    y32 = y.to(torch.float32) * F.silu(z.to(torch.float32))
+    grp = y32.reshape(*y32.shape[:-1], g, -1)
+    y32 = (grp * torch.rsqrt(torch.mean(torch.square(grp), dim=-1, keepdim=True) + eps)
+           ).reshape(y32.shape)
+    return (y32.to(y.dtype).to(torch.float32) * w.to(torch.float32)).to(y.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +400,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *,
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     v = cfg.padded_vocab
     device = gen.device if device is None else device
+    if published(cfg):
+        return _published_init(gen, cfg, dtype, device)
 
     def dense(d_in, d_out, scale=None):
         return blocks.dense_init(gen, d_in, d_out, dtype, scale).to(device)
@@ -379,6 +424,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *,
 
 
 def n_shared_slots(cfg: ArchConfig) -> int:
+    if published(cfg):
+        return len(cfg.hybrid.layer_ids)
     return -(-cfg.n_layers // cfg.hybrid.attn_every)
 
 
@@ -575,6 +622,9 @@ def hidden_states(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfi
     gathered and each rank runs the final norm and the head on its
     positions (`loss_fn`)."""
     execution.torch_device()
+    if published(cfg):
+        raise NotImplementedError(f"{cfg.name}: the published Zamba2 layout serves only; its "
+                                  f"training waits on the attention backward at Dh {cfg.dh}")
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     tp = _tp(params, cfg)
     tp = tp if tp.feat else _WHOLE
@@ -647,7 +697,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_size: int,
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     keep = cache_slots(cfg, cache_size) // seq_shards
     kv = (n_shared_slots(cfg), batch, keep, cfg.n_kv_heads, cfg.dh)
-    conv_ch = spec.d_inner(d) + 2 * spec.d_state
+    groups = spec.n_groups if isinstance(spec, GroupedSSMSpec) else 1
+    conv_ch = spec.d_inner(d) + 2 * groups * spec.d_state
     return {
         "ssm": torch.zeros((cfg.n_layers, batch, spec.n_heads(d), spec.head_dim, spec.d_state),
                            dtype=torch.float32, device=device),
@@ -683,6 +734,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     gets every head of its cache slots from the ranks that hold them
     (`transformer._kv_slots`)."""
     dev = execution.torch_device()
+    if published(cfg):
+        return _published_prefill(params, batch, cfg, cache_size, dev, execution.backend)
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     tp = _tp(params, cfg)
     x = transformer._embed_rows(params, batch["tokens"], cdt)
@@ -740,6 +793,8 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
     every head's SSD state and conv inputs in its replicated cache, so no
     state moves between ranks."""
     execution.torch_device()
+    if published(cfg):
+        return _published_decode(params, token, cache, cfg)
     cdt = blocks.torch_dtype(cfg.compute_dtype)
     tp = _tp(params, cfg)
     x = transformer._embed_rows(params, token[:, None], cdt)                  # (B, 1, d)
@@ -774,6 +829,217 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tens
             x = x + shared["wo"](attn.reshape(b, 1, -1))
             h2 = blocks.rms_norm(torch.cat([x, x0], dim=-1), shared["ln2"], cfg.norm_eps)
             x = x + _mlp(shared, h2, cfg)
+    x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = transformer._logits(params, x[:, 0], cfg, cdt)
+    new_cache = {"ssm": cache["ssm"], "conv": cache["conv"], "k": cache["k"], "v": cache["v"],
+                 "len": torch.tensor(new_len, dtype=torch.int32),
+                 "pos": torch.tensor(pos + 1, dtype=torch.int32)}
+    return logits, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Zamba2's published layout (`SharedBlocksSpec`, `GroupedSSMSpec`)
+# ---------------------------------------------------------------------------
+#
+# Params: `embed`, `final_norm` (and `lm_head` if the head is not tied);
+# `layers`, the Mamba-2 layers stacked [L, ...] as above, B and C in groups
+# (`in_proj` d -> [z | x | B (g·ds) | C (g·ds) | dt], the conv over
+# x | B | C); `shared`, the blocks stacked [n_blocks, ...]: `ln1` (2d),
+# `wq` / `wk` / `wv` (2d -> heads·Dh), `wo` (heads·Dh -> d), `ln2` (d),
+# `w_gate_up` (d -> 2·d_ff, the gate's half first), `w_out` (d_ff -> d);
+# `hybrid`, each use's own leaves stacked [uses, ...]: the adapter
+# `adapter_a` (d -> rank), `adapter_b` (rank -> 2·d_ff) and `proj` (d -> d).
+# With x0 the embedding, layer i that is use j of block b = j % n_blocks:
+#     T = w_out(gelu(gu[:f]) · gu[f:]),  gu = g·w_gate_up + (g·A_j)·B_j,
+#     g = norm(Wo·attn(norm(cat(x, x0)))),   u = x + T·proj_j,
+# else u = x; then x ← x + Mamba_i(norm(u)).  One rank only: the split over
+# "model" is the JAX package's layout's.
+
+
+def published(cfg: ArchConfig) -> bool:
+    """Whether `cfg` is Zamba2's published layout (the port's own specs)."""
+    return isinstance(cfg.hybrid, SharedBlocksSpec)
+
+
+DT_MIN, DT_MAX, DT_FLOOR = 1e-3, 0.1, 1e-4   # Zamba2's time_step_min / _max / _floor
+
+
+def _dt_bias(gen: torch.Generator, nh: int) -> torch.Tensor:
+    """Mamba-2's dt bias: dt log-uniform in [DT_MIN, DT_MAX], at least
+    DT_FLOOR, through softplus's inverse (f32)."""
+    u = torch.rand((nh,), generator=gen, dtype=torch.float32, device=gen.device)
+    dt = torch.exp(u * (math.log(DT_MAX) - math.log(DT_MIN)) + math.log(DT_MIN))
+    dt = torch.clamp(dt, min=DT_FLOOR)
+    return dt + torch.log(-torch.expm1(-dt))
+
+
+def _published_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
+    """Mamba-2's init for the mixers (A from [1, 16], D ones, the dt bias
+    from Zamba2's time-step range), N(0, 1/d_in) for the products, output
+    projections at 1/sqrt(2·L·d_in), ones for the norms."""
+    d, dh, hq, hkv, f = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    spec, hyb, n_l = cfg.ssm, cfg.hybrid, cfg.n_layers
+    di, nh, ds, g = spec.d_inner(d), spec.n_heads(d), spec.d_state, spec.n_groups
+    conv_ch = di + 2 * g * ds
+
+    def dense(d_in, d_out, scale=None):
+        return blocks.dense_init(gen, d_in, d_out, dtype, scale).to(device)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=device)
+
+    def mamba(_):
+        conv_w = torch.randn((spec.d_conv, 1, conv_ch), generator=gen, dtype=torch.float32,
+                             device=gen.device) / math.sqrt(spec.d_conv)
+        a = torch.rand((nh,), generator=gen, dtype=torch.float32, device=gen.device) * 15 + 1
+        return {"ln": ones(d), "in_proj": dense(d, 2 * di + 2 * g * ds + nh),
+                "conv_w": conv_w.to(dtype).to(device),
+                "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=device),
+                "a_log": torch.log(a).to(dtype=dtype, device=device),
+                "d_skip": ones(nh), "dt_bias": _dt_bias(gen, nh).to(dtype).to(device),
+                "norm_y": ones(di), "out_proj": dense(di, d, 1.0 / math.sqrt(2 * n_l * di))}
+
+    def block(_):
+        return {"ln1": ones(2 * d), "wq": dense(2 * d, hq * dh), "wk": dense(2 * d, hkv * dh),
+                "wv": dense(2 * d, hkv * dh), "wo": dense(hq * dh, d), "ln2": ones(d),
+                "w_gate_up": dense(d, 2 * f), "w_out": dense(f, d)}
+
+    def use(_):
+        return {"adapter_a": dense(d, hyb.adapter_rank),
+                "adapter_b": dense(hyb.adapter_rank, 2 * f),
+                "proj": dense(d, d, 1.0 / math.sqrt(2 * n_l * d))}
+
+    out = {"embed": dense(cfg.padded_vocab, d, scale=1.0),
+           "layers": blocks.stacked(mamba, n_l),
+           "shared": blocks.stacked(block, hyb.n_blocks),
+           "hybrid": blocks.stacked(use, len(hyb.layer_ids)),
+           "final_norm": ones(d)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = dense(d, cfg.padded_vocab)
+    return out
+
+
+def _published_check(params: Params, cfg: ArchConfig) -> None:
+    if not isinstance(params["layers"]["in_proj"], torch.Tensor):
+        raise NotImplementedError(f"{cfg.name}: the published Zamba2 layout runs on one rank")
+
+
+def _use_block(cfg: ArchConfig, j: int) -> int:
+    """The shared block that use j runs."""
+    return j % cfg.hybrid.n_blocks
+
+
+def _cast_blocks(params: Params, cfg: ArchConfig, cdt: torch.dtype) -> List[Params]:
+    """Each shared block's leaves in the compute dtype, cast once a step."""
+    return [blocks.cast({k: t[i] for k, t in params["shared"].items()}, cdt)
+            for i in range(cfg.hybrid.n_blocks)]
+
+
+def _use_params(params: Params, cfg: ArchConfig, j: int, cdt: torch.dtype) -> Params:
+    """Use j's adapter and output Linear in the compute dtype."""
+    return blocks.cast({k: t[j] for k, t in params["hybrid"].items()}, cdt)
+
+
+def _published_mlp(sp: Params, hp: Params, g: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The shared MLP of the normed attention output g: gate_up with use j's
+    adapter added, exact GELU on the gate's half times the other, then
+    `w_out`."""
+    gu = g @ sp["w_gate_up"] + (g @ hp["adapter_a"]) @ hp["adapter_b"]
+    f = cfg.d_ff
+    return (blocks.act_fn(cfg.act)(gu[..., :f]) * gu[..., f:]) @ sp["w_out"]
+
+
+def _attn_scale(cfg: ArchConfig) -> float:
+    """(Dh / 2)^-1/2, HF's `Zamba2Attention` scale."""
+    return 1.0 / math.sqrt(cfg.dh / 2)
+
+
+def _published_tail(sp: Params, hp: Params, x: torch.Tensor, attn: torch.Tensor,
+                    cfg: ArchConfig) -> torch.Tensor:
+    """u = x + T·proj_j from the attention's heads `attn` (B, S, heads·Dh)."""
+    g = blocks.rms_norm(attn @ sp["wo"], sp["ln2"], cfg.norm_eps)
+    return x + _published_mlp(sp, hp, g, cfg) @ hp["proj"]
+
+
+def _published_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+                       cache_size: int, dev: torch.device, backend: str):
+    """`prefill` of the published layout: the shared blocks cast once, each
+    use's attention through B4 at (Dh / 2)^-1/2, its keys and values into
+    the use's cache slot."""
+    _published_check(params, cfg)
+    cdt = blocks.torch_dtype(cfg.compute_dtype)
+    x = transformer._embed_rows(params, batch["tokens"], cdt)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    shared = _cast_blocks(params, cfg, cdt)
+    uses = {lid: j for j, lid in enumerate(cfg.hybrid.layer_ids)}
+    cache = init_cache(cfg, b, cache_size, dev)
+    n = min(s, cache["k"].shape[2])
+    x0 = x
+    for i in range(cfg.n_layers):
+        u = x
+        if i in uses:
+            j = uses[i]
+            with obs.span("zamba.shared"):
+                sp, hp = shared[_use_block(cfg, j)], _use_params(params, cfg, j, cdt)
+                h = blocks.rms_norm(torch.cat([x, x0], dim=-1), sp["ln1"], cfg.norm_eps)
+                q, k, vv = _qkv(_matrices(sp), h, cfg, positions)
+                attn = blocks.flash_attention(q, k, vv, causal=True, q_chunk=cfg.q_chunk,
+                                              kv_chunk=cfg.kv_chunk, backend=backend,
+                                              scale=_attn_scale(cfg))
+                u = _published_tail(sp, hp, x, attn.reshape(b, s, -1), cfg)
+            cache["k"][j, :, :n] = k[:, s - n:]
+            cache["v"][j, :, :n] = vv[:, s - n:]
+        lp = blocks.cast(blocks.layer_params(params, i), cdt)
+        y, cache["ssm"][i], cache["conv"][i] = mamba_block(lp, u, cfg,
+                                                           _zero_ssm_state(cfg, b, x.device), None)
+        x = x + y
+    x = blocks.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = transformer._logits(params, x, cfg, cdt)
+    cache["len"] = torch.tensor(n, dtype=torch.int32)
+    cache["pos"] = torch.tensor(s, dtype=torch.int32)
+    return logits[:, 0], cache
+
+
+def _matrices(sp: Params) -> Params:
+    """The block's q / k / v products as `_qkv` calls them."""
+    return {k: _times(sp[k]) for k in ("wq", "wk", "wv")}
+
+
+def _published_decode(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tensor],
+                      cfg: ArchConfig):
+    """`decode_step` of the published layout, the cache written in place;
+    the K/V slot is `len` while the cache fills, then `pos % S`."""
+    _published_check(params, cfg)
+    cdt = blocks.torch_dtype(cfg.compute_dtype)
+    x = transformer._embed_rows(params, token[:, None], cdt)                  # (B, 1, d)
+    b = x.shape[0]
+    shared = _cast_blocks(params, cfg, cdt)
+    uses = {lid: j for j, lid in enumerate(cfg.hybrid.layer_ids)}
+    s_max = cache["k"].shape[2]
+    pos, n = int(cache["pos"]), int(cache["len"])
+    slot = n if n < s_max else pos % s_max
+    new_len = min(n + 1, s_max)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    x0 = x
+    for i in range(cfg.n_layers):
+        u = x
+        if i in uses:
+            j = uses[i]
+            with obs.span("zamba.shared"):
+                sp, hp = shared[_use_block(cfg, j)], _use_params(params, cfg, j, cdt)
+                h = blocks.rms_norm(torch.cat([x, x0], dim=-1), sp["ln1"], cfg.norm_eps)
+                q, k, vv = _qkv(_matrices(sp), h, cfg, positions)
+                k_c, v_c = cache["k"][j], cache["v"][j]
+                k_c[:, slot] = k[:, 0].to(k_c.dtype)
+                v_c[:, slot] = vv[:, 0].to(v_c.dtype)
+                attn = blocks.decode_attention(q, k_c, v_c, new_len, scale_dh=cfg.dh // 2)
+                u = _published_tail(sp, hp, x, attn.reshape(b, 1, -1), cfg)
+        lp = blocks.cast(blocks.layer_params(params, i), cdt)
+        y, ssm_st, conv_st = mamba_block(lp, u, cfg, cache["ssm"][i], cache["conv"][i])
+        cache["ssm"][i] = ssm_st
+        cache["conv"][i] = conv_st
+        x = x + y
     x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = transformer._logits(params, x[:, 0], cfg, cdt)
     new_cache = {"ssm": cache["ssm"], "conv": cache["conv"], "k": cache["k"], "v": cache["v"],

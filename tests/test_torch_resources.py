@@ -58,7 +58,7 @@ def test_the_estimators_follow_each_body_s_source_and_launch_bounds():
         assert est.min_ctas == (int(bounds[1]) if len(bounds) > 1 else 1), est.kernel
         assert est.threads == 256, est.kernel            # NTHREADS, FT_THREADS, TC_THREADS, ...
     assert {e.kernel for e in rm.every_instance()} == set(rm.MODELED_KERNELS)
-    assert len(rm.every_instance()) == 122
+    assert len(rm.every_instance()) == 124      # 122 + the bf16 forward at D 224, both load paths
 
 
 # (kernel, variant) -> (static, dynamic, CTAs an SM) read on an NVIDIA H100 80GB HBM3 at
@@ -79,6 +79,7 @@ CARD = {("ternary_matmul_dense_kernel", "f32"): (8448, 0, 8),
         ("easi_update_kernel", "bf16,UC=64"): (41856, 33280, 2),
         ("flash_attention_kernel", "f32,DH=128"): (0, 115456, 2),
         ("flash_tc_kernel", "bf16,D=128,VEC=1"): (0, 69632, 1),
+        ("flash_tc_kernel", "bf16,D=224,VEC=1"): (0, 178176, 1),
         ("flash_bwd_dq_kernel", "bf16,D=16"): (0, 12288, 2),
         ("flash_bwd_dq_kernel", "bf16,D=80"): (0, 45056, 1),
         ("flash_bwd_dkdv_kernel", "bf16,D=80"): (0, 91136, 1),
